@@ -1,0 +1,381 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``sq_learn_tpu_torch``) on one GPU.
+
+Run from the root of the repository, with no arguments:
+
+    python3 chip_smoke.py
+
+It needs one NVIDIA Hopper card and exits non-zero without one. Phases,
+each of which fails the run:
+
+1. Build every kernel of the port from ``sq_learn_tpu_torch/csrc``
+   (set-up time).
+2. Kernel phase: at the q-means slice shape (70 000 × 784, k=10, R=10
+   restarts) hold the fused Lloyd kernel against its plain torch version
+   on the card — float32 at window 0, float32 at window 0.5 and at a wide
+   window on one shared Gumbel operand, bfloat16 — and time both (CUDA
+   events, median). Labels must be equal but where the exact (float64)
+   distances put a center nearer to the deciding boundary than the
+   measured float32 error.
+3. Main path: ``QKMeans(n_clusters=10, n_init=10, max_iter=300,
+   delta=0.5, true_distance_estimate=False, sketch=0,
+   random_state=0).fit`` on the MNIST-shaped surrogate, then ``predict``,
+   ``score`` and ``transform``, then one δ=0 fit. Each fit's kernel
+   launches are counted from 0. A small δ=0 fit on the card is checked
+   against the same fit on the CPU (the plain versions).
+4. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+N, M, K, R = 70_000, 784, 10, 10
+WINDOW = 0.5
+# d2 cancels ‖x‖² + ‖c‖² against 2·x·c: float32 sums taken in another
+# order differ by a few ulps of those terms, so min_d2 is held against the
+# plain version at D2_RTOL times their size.
+D2_RTOL = 1e-5
+SUMS_RTOL = 1e-4   # float32 partial sums summed in another order
+BF16_MAX_FLIPS = 0.01
+# a wide window, at this quantile of the gap between each row's nearest and
+# second-nearest center, puts two or more centers in a quarter of the
+# rows' windows, so the Gumbel pick decides many labels
+WIDE_WINDOW_QUANTILE = 0.25
+WIDE_MIN_MOVED = 0.05  # share of labels the wide window must move
+ARI_FLOOR = 0.95   # the surrogate's classes are well separated
+REPS = 10
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def ari(a, b):
+    """Adjusted Rand index of two labelings (numpy only)."""
+    import numpy as np
+
+    _, ai = np.unique(a, return_inverse=True)
+    _, bi = np.unique(b, return_inverse=True)
+    table = np.zeros((ai.max() + 1, bi.max() + 1), np.int64)
+    np.add.at(table, (ai, bi), 1)
+
+    def pairs(v):
+        return (v * (v - 1) // 2).sum()
+
+    index = pairs(table)
+    ra, rb, total = pairs(table.sum(1)), pairs(table.sum(0)), pairs(
+        np.asarray(len(a)))
+    expected = ra * rb / total
+    return float((index - expected) / (0.5 * (ra + rb) - expected))
+
+
+def time_ms(fn, reps=REPS):
+    """Median milliseconds of ``fn`` on the current stream (CUDA events),
+    after one warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def unexplained_flips(d2, lab_k, lab_r, window, margin):
+    """Rows where the kernel's label differs from the plain version's
+    although the exact distances ``d2`` (R, n, k) put no center within
+    ``margin`` of the boundary that decides the label: a second center
+    as near as the nearest (window 0), or a center at the window's edge.
+    With ``margin`` < ``window`` the nearest center itself never counts,
+    so a wrong pick inside the window is caught."""
+    diff = lab_k != lab_r
+    if not bool(diff.any()):
+        return 0
+    d = d2[diff]
+    dmin = d.min(dim=-1, keepdim=True).values
+    if window > 0:
+        explained = ((d - (dmin + window)).abs() <= margin).any(dim=-1)
+    else:
+        explained = ((d - dmin) <= margin).sum(dim=-1) >= 2
+    return int((~explained).sum())
+
+
+def kernel_phase(Xc, torch):
+    """Hold the Lloyd kernel against its plain version at the slice
+    shape; returns the kernel's JSON entry (launches filled in later)."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.ops.kernels import (lloyd_step,
+                                                lloyd_step_reference,
+                                                lloyd_step_work)
+
+    dev = Xc.device
+    w = torch.ones(N, device=dev)
+    xsq = torch.sum(Xc * Xc, dim=1)
+    rng = np.random.default_rng(0)
+    C = Xc[torch.from_numpy(rng.choice(N, (R, K))).to(dev)]
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    gum = torch.empty((R, N, K), device=dev).exponential_(
+        generator=g).log_().neg_()
+    csq = torch.sum(C * C, dim=-1)
+    tol = D2_RTOL * (xsq[None, :] + csq.max(dim=1).values[:, None])
+    # the exact distances of the float32 operands, in float64: where a
+    # label is decided and how near each row lies to a deciding boundary
+    d2_exact = ((xsq.double()[None, :, None]
+                 + (C.double() ** 2).sum(-1)[:, None, :])
+                - 2.0 * torch.matmul(Xc.double(),
+                                     C.double().transpose(1, 2)))
+    top2 = torch.topk(d2_exact, 2, dim=-1, largest=False).values
+    gap = (top2[..., 1] - top2[..., 0]).flatten()
+    wide = float(torch.quantile(gap.float(),
+                                WIDE_WINDOW_QUANTILE))
+    in_window = int(((d2_exact <= top2[..., :1] + WINDOW).sum(-1) >= 2)
+                    .sum())
+    print(f"rows with two or more centers in the δ-window: {in_window} of "
+          f"{R * N} at window {WINDOW}; wide window {wide:.4f} (the "
+          f"{WIDE_WINDOW_QUANTILE} quantile of the nearest-center gap)",
+          flush=True)
+
+    # (name, X, Gumbel operand, window, timed)
+    cases = [("float32", Xc, None, 0.0, True),
+             ("float32", Xc, gum, WINDOW, True),
+             ("float32", Xc, gum, wide, False),
+             ("bfloat16", Xc.to(torch.bfloat16), None, 0.0, True)]
+    report = {}
+    for name, Xk, noise, window, timed in cases:
+        out = lloyd_step(Xk, w, xsq, C, gumbel=noise, window=window)
+        ref = lloyd_step_reference(Xk, w, xsq, C, gumbel=noise,
+                                   window=window)
+        torch.cuda.synchronize()
+        lab_k, lab_r = out[0], ref[0]
+        flips = int((lab_k != lab_r).sum())
+        # the floats, held against the plain version on the kernel's labels
+        k_ids = torch.arange(K, device=dev)
+        onehot = (lab_k[..., None] == k_ids).float()
+        xw = (Xk.float() * w[:, None]).to(Xk.dtype).float()
+        sums_ref = torch.matmul(onehot.transpose(1, 2), xw)
+        counts_ref = onehot.sum(dim=1)
+        err = {
+            "min_d2": float((out[1] - ref[1]).abs().max()),
+            "sums": float((out[2] - sums_ref).abs().max()),
+            "counts": float((out[3] - counts_ref).abs().max()),
+            "inertia": float((out[4] - ref[4]).abs().max()),
+        }
+        case = f"{name} window {window:.4f}"
+        check(bool(((out[1] - ref[1]).abs() <= tol).all()),
+              f"{case}: min_d2 off by {err['min_d2']}")
+        check(bool(torch.allclose(out[2], sums_ref, rtol=SUMS_RTOL,
+                                  atol=SUMS_RTOL * float(sums_ref.abs()
+                                                         .max()))),
+              f"{case}: sums off by {err['sums']}")
+        check(bool(torch.equal(out[3], counts_ref)),
+              f"{case}: counts off by {err['counts']}")
+        check(bool(torch.allclose(out[4], ref[4], rtol=SUMS_RTOL)),
+              f"{case}: inertia off by {err['inertia']}")
+        if name == "bfloat16":
+            check(flips <= BF16_MAX_FLIPS * R * N,
+                  f"bfloat16: {flips} label flips of {R * N}")
+            detail = f"at most {BF16_MAX_FLIPS:.0%} allowed"
+        else:
+            # A label may differ from the exact (float64) decision only
+            # where a center lies nearer to the deciding boundary than the
+            # float32 distances can be off: three times the worst error of
+            # the kernel's min_d2 against the exact one, seen on 700 000
+            # nearest distances (tripled for the tails of the others). The
+            # plain version (cuBLAS, long sequential sums) errs more, so
+            # the kernel is held against it at the larger of the two.
+            exact_min = top2[..., 0]
+            if window > 0:
+                exact_lab = torch.argmax(torch.where(
+                    d2_exact <= (exact_min + window)[..., None], noise,
+                    torch.full_like(noise, -torch.inf)), dim=-1)
+            else:
+                exact_lab = torch.argmin(d2_exact, dim=-1)
+            err["min_d2_exact"] = float((out[1] - exact_min).abs().max())
+            plain_err = float((ref[1] - exact_min).abs().max())
+            margin = 3.0 * err["min_d2_exact"]
+            check(window == 0 or margin < window,
+                  f"{case}: distance error margin {margin} does not "
+                  f"resolve the window")
+            for other, m_other, what in (
+                    (exact_lab, margin, "the exact decision"),
+                    (lab_r, 3.0 * max(err["min_d2_exact"], plain_err),
+                     "the plain version")):
+                bad = unexplained_flips(d2_exact, lab_k, other, window,
+                                        m_other)
+                check(bad == 0, f"{case}: {bad} of "
+                                f"{int((lab_k != other).sum())} label flips "
+                                f"against {what} are not within {m_other} "
+                                f"of a deciding boundary")
+            flips_exact = int((lab_k != exact_lab.to(lab_k.dtype)).sum())
+            detail = (f"{flips_exact} against the exact decision at margin "
+                      f"{margin}; the plain version's min_d2 error "
+                      f"{plain_err}")
+            if window == wide:
+                moved = float((lab_k != d2_exact.argmin(-1)).float().mean())
+                check(moved >= WIDE_MIN_MOVED,
+                      f"{case}: the pick moved only {moved:.4f} of the "
+                      f"labels off the nearest center")
+                print(f"{case}: the Gumbel pick moved {moved:.4f} of the "
+                      f"labels off the nearest center", flush=True)
+        again = lloyd_step(Xk, w, xsq, C, gumbel=noise, window=window)
+        check(all(bool(torch.equal(a, b)) for a, b in zip(out, again)),
+              f"{case}: two launches differ")
+        line = (f"lloyd_step {case} R={R}: label flips {flips}/{R * N} "
+                f"({detail}), max |err| {err}")
+        if timed:
+            ms = time_ms(lambda: lloyd_step(Xk, w, xsq, C, gumbel=noise,
+                                            window=window))
+            plain_ms = time_ms(lambda: lloyd_step_reference(
+                Xk, w, xsq, C, gumbel=noise, window=window))
+            nbytes, ops = lloyd_step_work(N, M, K, R, Xk.dtype, window)
+            peak = 989e12 if Xk.dtype == torch.bfloat16 else 67e12
+            bytes_ms, ops_ms = nbytes / 3.35e12 * 1e3, ops / peak * 1e3
+            report[(name, window)] = {
+                "flips": flips, "err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            line += (f"; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                     f"{max(bytes_ms, ops_ms):.4f} ms by "
+                     f"{report[(name, window)]['bound_by']})")
+        print(line, flush=True)
+    main = report[("float32", WINDOW)]
+    return {"name": "lloyd_step", "route": "cuda",
+            "source": "sq_learn_tpu_torch/csrc/lloyd.cu",
+            "replaces": "sq_learn_tpu/ops/pallas_kernels.py:117",
+            "launches": None,
+            "max_abs_err": max(main["err"].values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None}
+
+
+def main():
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import sq_learn_tpu_torch as sqt
+
+    check(os.path.dirname(os.path.abspath(sqt.__file__))
+          == os.path.join(here, "sq_learn_tpu_torch"),
+          "sq_learn_tpu_torch must come from this checkout")
+    from sq_learn_tpu_torch.datasets import synthetic_surrogate
+    from sq_learn_tpu_torch.models import QKMeans
+    from sq_learn_tpu_torch.ops import _build
+    from sq_learn_tpu_torch.ops.kernels import lloyd_step
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+
+    # phase 1: build (set-up time)
+    t0 = time.perf_counter()
+    _build.build("lloyd")
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(_build.build_log("lloyd"), flush=True)
+
+    dev = torch.device("cuda:0")
+    sqt.set_config(device="cuda:0")
+    X, y = synthetic_surrogate(N, M, K, seed=784)
+    Xd = torch.from_numpy(X).to(dev)
+    Xc = Xd - Xd.mean(dim=0)
+
+    # phase 2: every kernel against its plain version
+    entry = kernel_phase(Xc, torch)
+    print("library_ms: null — no single PyTorch call computes the fused "
+          "Lloyd step (distances, δ-window pick and weighted partial sums)",
+          flush=True)
+
+    # phase 3: the main path through the entry points a user calls
+    est = QKMeans(n_clusters=K, n_init=10, max_iter=300, delta=WINDOW,
+                  true_distance_estimate=False, sketch=0, random_state=0)
+    lloyd_step.launches = 0
+    t0 = time.perf_counter()
+    est.fit(X)
+    fit_s = time.perf_counter() - t0
+    entry["launches"] = lloyd_step.launches
+    check(entry["launches"] > 0, "the δ-means fit never launched the kernel")
+    check(np.isfinite(est.cluster_centers_).all()
+          and np.isfinite(est.inertia_), "δ-means fit is not finite")
+    check(est.cluster_centers_.shape == (K, M), "centers of the wrong shape")
+    check(est.n_iter_ >= 1, "δ-means fit ran no iteration")
+    fit_ari = ari(y, est.labels_)
+    check(fit_ari >= ARI_FLOOR, f"δ-means ARI {fit_ari} < {ARI_FLOOR}")
+    print(f"QKMeans δ=0.5 δ-means fit: {fit_s:.3f} s, n_iter {est.n_iter_}, "
+          f"inertia {est.inertia_}, ARI {fit_ari}, kernel launches "
+          f"{entry['launches']}, eta {est.eta_}, mu {est.mu_} "
+          f"({est.norm_mu_}), kappa {est.condition_number_}", flush=True)
+    pred = est.predict(X)
+    score = est.score(X)
+    dist = est.transform(X)
+    check(pred.shape == (N,) and np.isfinite(score)
+          and dist.shape == (N, K) and np.isfinite(dist).all(),
+          "predict/score/transform output")
+    check(ari(est.labels_, pred) >= ARI_FLOOR, "predict disagrees with fit")
+    check(np.isclose(-score, est.inertia_, rtol=1e-2),
+          f"score {score} vs inertia {est.inertia_}")
+    check(np.array_equal(dist.argmin(1), pred), "transform argmin ≠ predict")
+
+    classic = QKMeans(n_clusters=K, n_init=10, max_iter=300, delta=0.0,
+                      random_state=0)
+    lloyd_step.launches = 0
+    t0 = time.perf_counter()
+    classic.fit(X)
+    classic_s = time.perf_counter() - t0
+    classic_launches = lloyd_step.launches
+    check(classic_launches > 0, "the δ=0 fit never launched the kernel")
+    check(np.isfinite(classic.inertia_) and classic.n_iter_ >= 1,
+          "δ=0 fit output")
+    check(np.array_equal(classic.predict(X), classic.labels_),
+          "δ=0 predict ≠ fit labels")
+    print(f"QKMeans δ=0 fit: {classic_s:.3f} s, n_iter {classic.n_iter_}, "
+          f"inertia {classic.inertia_}, ARI {ari(y, classic.labels_)}, "
+          f"kernel launches {classic_launches}", flush=True)
+
+    # a small δ=0 fit on the card against the same fit in plain torch
+    small = X[:4000]
+    init = small[np.random.default_rng(1).choice(4000, K, replace=False)]
+    on = {}
+    for device in ("cuda:0", "cpu"):
+        on[device] = QKMeans(n_clusters=K, init=init, n_init=1, delta=0.0,
+                             max_iter=50, device=device).fit(small)
+    check(np.array_equal(on["cuda:0"].labels_, on["cpu"].labels_)
+          and on["cuda:0"].n_iter_ == on["cpu"].n_iter_,
+          "small δ=0 fit: card and CPU disagree")
+    check(np.allclose(on["cuda:0"].cluster_centers_,
+                      on["cpu"].cluster_centers_, rtol=1e-4, atol=1e-4),
+          "small δ=0 fit: centers disagree")
+    print(f"small δ=0 fit 4000×784: card == CPU (labels, n_iter "
+          f"{on['cpu'].n_iter_}, centers at rtol 1e-4)", flush=True)
+
+    print(smi)
+    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,22 @@
+"""sq_learn_tpu_torch — the PyTorch/CUDA port of sq_learn_tpu.
+
+The same simulated fault-tolerant-quantum estimators, on PyTorch tensors,
+with the JAX package's TPU kernels rewritten by hand for NVIDIA Hopper
+(CUDA C++ under ``csrc/``, built at first use). Entry points compute on
+``"cuda"`` unless the caller asks for the CPU
+(``set_config(device="cpu")``); they never fall back on their own.
+
+The port imports neither JAX nor any module of ``sq_learn_tpu``.
+"""
+
+from ._config import config_context, get_config, resolve_device, set_config
+from .base import (BaseEstimator, ClusterMixin, NotFittedError,
+                   TransformerMixin, check_is_fitted, clone)
+from .models import KMeans, QKMeans, k_means
+
+__version__ = "0.1.0"
+
+__all__ = ["BaseEstimator", "ClusterMixin", "KMeans", "NotFittedError",
+           "QKMeans", "TransformerMixin", "check_is_fitted", "clone",
+           "config_context", "get_config", "k_means", "resolve_device",
+           "set_config"]

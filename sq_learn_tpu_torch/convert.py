@@ -1,0 +1,65 @@
+"""Carry fitted state from the JAX package into the port.
+
+:func:`qkmeans_from_numpy` takes a fitted JAX ``QKMeans``'s attributes as
+numpy arrays and returns a fitted port :class:`~.models.QKMeans` whose
+``predict``, ``transform`` and ``score`` compute what the JAX ones do.
+The port imports nothing of the JAX package: the caller reads the
+attributes (``vars(est)``) and hands them over.
+"""
+
+import numpy as np
+
+from .models.qkmeans import QKMeans
+
+#: fitted attributes carried over, with the type each is stored as
+_ARRAYS = {"cluster_centers_": np.float32, "labels_": np.int32,
+           "inertia_history_": None, "center_shift_history_": None}
+_SCALARS = {"inertia_": float, "n_iter_": int, "n_features_in_": int,
+            "eta_": float, "mu_": float, "condition_number_": float}
+
+
+def qkmeans_from_numpy(attrs, device=None, params=None):
+    """A fitted port ``QKMeans`` from a JAX ``QKMeans``'s fitted state.
+
+    Parameters
+    ----------
+    attrs : dict
+        Fitted attributes: ``cluster_centers_`` (required), ``labels_``,
+        ``inertia_``, ``n_iter_``, ``n_features_in_``, the history arrays
+        and the quantum statistics (``eta_``, ``mu_``, ``norm_mu_``,
+        ``condition_number_``, ``sketch_info_``). Other keys are ignored.
+    device : str or torch.device, optional
+        Where the estimator's inference runs (None = the configured
+        device).
+    params : dict, optional
+        Hyperparameters (for example the JAX estimator's ``get_params()``);
+        those the port does not have (``use_pallas``) are dropped.
+    """
+    if "cluster_centers_" not in attrs:
+        raise ValueError("attrs must hold the fitted cluster_centers_")
+    centers = np.asarray(attrs["cluster_centers_"], np.float32)
+    if centers.ndim != 2:
+        raise ValueError(f"cluster_centers_ must be 2-D, got shape "
+                         f"{centers.shape}")
+    names = set(QKMeans._get_param_names())
+    kw = {k: v for k, v in (params or {}).items() if k in names}
+    kw["n_clusters"] = centers.shape[0]
+    kw["device"] = device
+    est = QKMeans(**kw)
+    for name, dtype in _ARRAYS.items():
+        if name in attrs:
+            value = np.asarray(attrs[name])
+            setattr(est, name, value.astype(dtype) if dtype else value)
+    for name, cast in _SCALARS.items():
+        if name in attrs:
+            setattr(est, name, cast(attrs[name]))
+    for name in ("norm_mu_", "sketch_info_"):
+        if name in attrs:
+            setattr(est, name, attrs[name])
+    width = getattr(est, "n_features_in_", centers.shape[1])
+    if width != centers.shape[1]:
+        raise ValueError(
+            f"n_features_in_={width} does not match cluster_centers_ of "
+            f"width {centers.shape[1]}")
+    est.n_features_in_ = centers.shape[1]
+    return est

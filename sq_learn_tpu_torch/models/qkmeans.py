@@ -1,0 +1,727 @@
+"""q-means clustering (counterpart of ``sq_learn_tpu/models/qkmeans.py``).
+
+The fit follows the JAX package's accelerator route (``_fit_fused``):
+:func:`fused_init` computes the pre-fit statistics and every restart's
+start centers, :func:`fused_fit` runs every restart's Lloyd loop and picks
+the best, and the host fetches the result once at the end.
+
+The Lloyd loop has no ``lax.while_loop`` here: :func:`lloyd_single` is a
+host loop over a batch of R restarts whose state lives on the device.
+Each iteration is one :func:`~sq_learn_tpu_torch.ops.kernels.lloyd_step`
+(the fused kernel on a CUDA tensor), the empty-cluster relocation and the
+center update. A restart whose stop rule fired is frozen by
+``torch.where`` — what ``vmap`` over ``while_loop`` does — and its kernel
+blocks exit at once; the host reads the stop rule before each of the
+first ``CHECK_EVERY`` iterations and every ``CHECK_EVERY`` after them.
+Best-tracking, the NaN-padded traces, the final re-evaluation of the last
+centers against the best ones and ``n_iter`` are those of the reference.
+
+Modes and parameters this slice does not cover raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+"""
+
+import numbers
+import warnings
+
+import numpy as np
+import torch
+
+from .._config import resolve_device
+from ..base import (BaseEstimator, ClusterMixin, TransformerMixin,
+                    check_is_fitted, check_n_features)
+from ..ops.kernels import lloyd_step
+from ..ops.linalg import (check_compute_dtype, is_reduced,
+                          pairwise_sq_distances, row_norms,
+                          smallest_singular_value)
+from ..ops.quantum.norms import _mu_grid_unblocked
+from ..parallel.init import kmeans_plusplus_batched, resolve_init_subsample
+from ..sketch.engine import exact_bundle
+from ..utils.random import as_generator, gumbel
+from ..utils.validation import check_sample_weight, validation_scope
+
+LloydMode = ("classic", "delta", "ipe")
+
+# μ_p(A) search grid (reference ``best_mu``'s 0.1-step default)
+MU_GRID = tuple(round(0.1 * i, 1) for i in range(11))
+
+#: iterations between two host reads of the restarts' stop rule, once the
+#: first CHECK_EVERY iterations (each followed by a read) have run
+CHECK_EVERY = 8
+
+
+def _stop_rule_read_due(step):
+    """Whether the host reads the stop rule before iteration ``step``:
+    before each of the first ``CHECK_EVERY`` iterations, where short fits
+    stop, then every ``CHECK_EVERY``. Between two reads a stopped restart
+    only rides along, frozen."""
+    return step < CHECK_EVERY or step % CHECK_EVERY == 0
+
+_IPE = ("true_distance_estimate=True at delta > 0 (the IPE E-step) is not "
+        "ported yet: ROADMAP.md §1 item 3, IPE and tomography modes; pass "
+        "true_distance_estimate=False for δ-means")
+_TOMOGRAPHY = ("intermediate_error=True needs vector-state tomography, "
+               "which is not ported yet: ROADMAP.md §1 item 3, IPE and "
+               "tomography modes")
+_MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
+_SKETCH = ("sketched spectral statistics are not ported yet: ROADMAP.md §1 "
+           "item 4, sketched statistics; pass sketch=0 for the exact ones")
+_ELKAN = ("algorithm='elkan' (the host Elkan engine) is not ported: "
+          "ROADMAP.md §1 item 7, remaining estimators and host engines")
+_DTYPE = ("the fused Lloyd kernel takes float32 data with compute_dtype "
+          "None/'float32'/'bfloat16'; {} is not ported yet: ROADMAP.md §1 "
+          "item 7, remaining estimators and host engines")
+
+
+def tolerance(X, tol):
+    """Scale ``tol`` by the mean per-feature variance (reference
+    ``_tolerance``, ``_dmeans.py:253``)."""
+    if tol == 0:
+        return 0.0
+    return float(tol * torch.mean(torch.var(X, dim=0, correction=0)))
+
+
+def fit_prestats(X, *, quantum=False, mu_grid=()):
+    """Every pre-fit statistic: the mean, the centered data and its row
+    norms, the mean variance that scales ``tol`` and, with ``quantum``,
+    the exact runtime-model statistics η = max‖xᵢ‖², the μ_p(A) grid,
+    ‖A‖_F and σ_min (reference ``Utility.py:215-231``,
+    ``_dmeans.py:1242-1245``)."""
+    mean = torch.mean(X, dim=0)
+    Xc = X - mean
+    out = {
+        "mean": mean,
+        "Xc": Xc,
+        "xsq": row_norms(Xc, squared=True),
+        "var_mean": torch.mean(torch.var(X, dim=0, correction=0)),
+    }
+    if quantum:
+        out["eta"] = torch.max(row_norms(X, squared=True))
+        out["mu_vals"] = _mu_grid_unblocked(X, mu_grid)
+        out["frob"] = torch.linalg.norm(X)
+        out["sigma_min"] = smallest_singular_value(X)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Functional core (restarts are a leading batch dimension throughout)
+# ---------------------------------------------------------------------------
+
+
+def _take_rows(C, idx):
+    """C[..., idx, :] for (k, m) or batched (R, k, m) centers."""
+    if C.ndim == 2:
+        return C[idx]
+    return torch.gather(C, 1, idx[..., None].expand(*idx.shape, C.shape[-1]))
+
+
+def e_step(generator, X, weights, centers, x_sq_norms, *, delta, mode,
+           compute_dtype=None):
+    """Assignment step with the δ-means error model.
+
+    ``centers`` is (k, m) or a batch (R, k, m). Returns (labels, inertia,
+    min_d2) shaped (n,), () and (n,) or with a leading R. In ``delta``
+    mode each label is a uniform pick among the centers within ``delta``
+    of the nearest one, drawn as the argmax of Gumbel noise from
+    ``generator`` (the reference draws ``jax.random.categorical`` over the
+    same mask: the same distribution). With a reduced ``compute_dtype``
+    the selection runs on the reduced-precision distances and the
+    selected distance is recomputed exactly.
+    """
+    if mode == "ipe":
+        raise NotImplementedError(_IPE)
+    reduced = is_reduced(compute_dtype, X.dtype)
+    d2 = pairwise_sq_distances(X, centers, x_sq_norms,
+                               compute_dtype=compute_dtype)
+    noisy_min = torch.min(d2, dim=-1).values
+    if reduced:
+        c_min = _take_rows(centers, torch.argmin(d2, dim=-1))
+        min_d2 = torch.clamp(
+            x_sq_norms + row_norms(c_min, squared=True)
+            - 2.0 * torch.sum(X * c_min, dim=-1), min=0.0)
+    else:
+        min_d2 = noisy_min
+    if mode == "classic":
+        labels = torch.argmin(d2, dim=-1)
+    else:
+        mask = d2 <= (noisy_min + delta)[..., None]
+        noise = gumbel(d2.shape, generator, X.device).to(d2.dtype)
+        labels = torch.argmax(
+            torch.where(mask, noise, torch.full_like(noise, -torch.inf)),
+            dim=-1)
+    inertia = torch.sum(min_d2 * weights, dim=-1)
+    return labels.to(torch.int32), inertia, min_d2
+
+
+def _cluster_partials(X, weights, labels, k):
+    """Weighted per-cluster sums and counts via a one-hot product."""
+    onehot = (labels[..., None] == torch.arange(k, device=X.device)).to(
+        X.dtype) * weights[:, None]
+    return onehot.transpose(-1, -2) @ X, torch.sum(onehot, dim=-2)
+
+
+def relocate_empty_clusters(X, weights, labels, min_d2, sums, counts):
+    """Reassign empty clusters to the samples farthest from their assigned
+    centers (reference ``_relocate_empty_clusters_dense``): the i-th empty
+    cluster's partials become the i-th farthest sample, and the donor
+    cluster's partial sums lose that sample. An exact no-op when nothing
+    is empty. ``sums`` (R, k, m) / ``counts`` (R, k) may also come without
+    the restart dimension.
+
+    The farthest samples are ranked by a stable descending sort, whose
+    ties go to the lowest index as ``lax.top_k``'s do (``torch.topk``
+    documents no order on ties). The donor update is a one-hot product,
+    so it is deterministic on the card.
+    """
+    if sums.ndim == 2:
+        out = relocate_empty_clusters(X, weights, labels[None], min_d2[None],
+                                      sums[None], counts[None])
+        return out[0][0], out[1][0]
+    R, k, m = sums.shape
+    score = torch.where(weights > 0, min_d2,
+                        torch.full_like(min_d2, -torch.inf))
+    kk = min(k, score.shape[-1])
+    idx = torch.sort(score, dim=-1, descending=True,
+                     stable=True).indices[:, :kk]            # (R, kk)
+    cand_X, cand_w = X[idx], weights[idx]
+    cand_l = torch.gather(labels.to(torch.int64), 1, idx)
+    empty = counts <= 0
+    rank = torch.cumsum(empty.to(torch.int64), dim=-1) - 1
+    # an empty cluster beyond the candidate pool keeps its old center
+    served = empty & (rank < kk)
+    rank = torch.clamp(torch.where(served, rank, torch.zeros_like(rank)),
+                       0, kk - 1)
+    pt_X = torch.gather(cand_X, 1, rank[..., None].expand(R, k, m))
+    pt_w = torch.where(served, torch.gather(cand_w, 1, rank),
+                       torch.zeros_like(counts))
+    pt_l = torch.gather(cand_l, 1, rank)
+    donor = (pt_l[..., None] == torch.arange(k, device=X.device)).to(
+        sums.dtype)                                          # (R, src, dst)
+    moved = pt_w[..., None] * pt_X
+    sums = sums - donor.transpose(1, 2) @ moved
+    counts = counts - torch.sum(donor * pt_w[..., None], dim=1)
+    sums = torch.where(served[..., None], moved, sums)
+    counts = torch.where(served, pt_w, counts)
+    return sums, counts
+
+
+def m_step(X, weights, labels, old_centers, *, min_d2=None,
+           intermediate_error=False):
+    """Update step: weighted per-cluster means. With ``min_d2``, empty
+    clusters are relocated to the farthest samples; a cluster still empty
+    keeps its old center."""
+    if intermediate_error:
+        raise NotImplementedError(_TOMOGRAPHY)
+    sums, counts = _cluster_partials(X, weights, labels, old_centers.shape[-2])
+    if min_d2 is not None:
+        sums, counts = relocate_empty_clusters(X, weights, labels, min_d2,
+                                               sums, counts)
+    return _update_centers(sums, counts, old_centers)
+
+
+def _update_centers(sums, counts, centers):
+    safe = torch.where(counts > 0, counts, torch.ones_like(counts))
+    return torch.where((counts > 0)[..., None], sums / safe[..., None],
+                       centers)
+
+
+def _kernel_dtype(X, compute_dtype):
+    """The dtype the fused kernel reads X in (bfloat16 serves
+    ``compute_dtype='bfloat16'``); raises on what it does not take."""
+    if X.dtype != torch.float32:
+        raise NotImplementedError(_DTYPE.format(f"X of dtype {X.dtype}"))
+    if not is_reduced(compute_dtype, X.dtype):
+        return torch.float32
+    if check_compute_dtype(compute_dtype) != "bfloat16":
+        raise NotImplementedError(
+            _DTYPE.format(f"compute_dtype={compute_dtype!r}"))
+    return torch.bfloat16
+
+
+def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
+                 delta=0.0, mode="classic", max_iter=300, tol=1e-4,
+                 patience=None, intermediate_error=False, compute_dtype=None):
+    """Full q-means runs of a batch of restarts (reference
+    ``_kmeans_single_lloyd``, ``_dmeans.py:534-671``).
+
+    ``centers_init`` is (R, k, m). A restart runs while ``it < max_iter``
+    and its last center shift exceeds ``tol`` (and, with ``patience``,
+    while its best inertia improved within the last ``patience``
+    iterations). The best (inertia, centers) pair is tracked — each
+    inertia with the centers it was measured on — and at the end both the
+    last and the best centers are re-evaluated by :func:`e_step`, the
+    better one returned with consistent labels.
+
+    Returns (labels (R, n), inertia (R,), centers (R, k, m), n_iter (R,),
+    history) with history ``{"inertia", "center_shift"}`` (R, max_iter)
+    traces, NaN beyond each restart's ``n_iter``.
+    """
+    if mode not in LloydMode:
+        raise ValueError(f"mode must be one of {LloydMode}, got {mode!r}")
+    if mode == "ipe":
+        raise NotImplementedError(_IPE)
+    if intermediate_error and delta > 0:
+        raise NotImplementedError(_TOMOGRAPHY)
+    Xk = X.to(_kernel_dtype(X, compute_dtype))
+    window = float(delta) if mode == "delta" else 0.0
+    dev = X.device
+    n = X.shape[0]
+    R, k, _ = centers_init.shape
+    centers = centers_init.to(X.dtype)
+    it = torch.zeros(R, dtype=torch.int64, device=dev)
+    shift = torch.full((R,), torch.inf, dtype=X.dtype, device=dev)
+    best_inertia = torch.full((R,), torch.inf, dtype=X.dtype, device=dev)
+    best_centers = centers
+    best_it = torch.zeros(R, dtype=torch.int64, device=dev)
+    inertia_tr = torch.full((R, max_iter), torch.nan, dtype=X.dtype,
+                            device=dev)
+    shift_tr = inertia_tr.clone()
+    tol = torch.as_tensor(tol, dtype=X.dtype, device=dev)
+    slots = torch.arange(max_iter, device=dev)
+
+    def running():
+        keep = (it < max_iter) & (shift > tol)
+        if patience is not None:
+            keep = keep & (it - best_it <= patience)
+        return keep
+
+    active = running()
+    for step in range(max_iter):
+        if _stop_rule_read_due(step) and not bool(active.any()):
+            break
+        noise = (gumbel((R, n, k), generator, dev) if window > 0 else None)
+        labels, min_d2, sums, counts, inertia = lloyd_step(
+            Xk, weights, x_sq_norms, centers, gumbel=noise, window=window,
+            active=active)
+        sums, counts = relocate_empty_clusters(X, weights, labels, min_d2,
+                                               sums, counts)
+        new_centers = _update_centers(sums, counts, centers)
+        better = active & (inertia < best_inertia)
+        best_it = torch.where(better, it, best_it)
+        best_inertia = torch.where(better, inertia, best_inertia)
+        best_centers = torch.where(better[:, None, None], centers,
+                                   best_centers)
+        new_shift = torch.sum((new_centers - centers) ** 2, dim=(1, 2))
+        slot = active[:, None] & (slots == it[:, None])
+        inertia_tr = torch.where(slot, inertia[:, None], inertia_tr)
+        shift_tr = torch.where(slot, new_shift[:, None], shift_tr)
+        centers = torch.where(active[:, None, None], new_centers, centers)
+        shift = torch.where(active, new_shift, shift)
+        it = it + active.to(torch.int64)
+        active = running()
+    # the final post-update centers may beat every evaluated iterate
+    # (classical convergence); re-evaluate both, return a consistent triple
+    labels_l, inertia_l, _ = e_step(generator, X, weights, centers,
+                                    x_sq_norms, delta=delta, mode=mode,
+                                    compute_dtype=compute_dtype)
+    labels_b, inertia_b, _ = e_step(generator, X, weights, best_centers,
+                                    x_sq_norms, delta=delta, mode=mode,
+                                    compute_dtype=compute_dtype)
+    last_wins = inertia_l < inertia_b
+    labels = torch.where(last_wins[:, None], labels_l, labels_b)
+    inertia = torch.where(last_wins, inertia_l, inertia_b)
+    out_centers = torch.where(last_wins[:, None, None], centers, best_centers)
+    history = {"inertia": inertia_tr, "center_shift": shift_tr}
+    return labels, inertia, out_centers, it, history
+
+
+def _restart_inits(generator, X, weights, x_sq_norms, *, n_init, init,
+                   n_clusters, init_subsample=0):
+    """(n_init, k, m) initial-center stack: batched k-means++ (with the
+    optional uniform row subsample), weight-proportional 'random' rows
+    without replacement, or a callable's ``init(X, n_clusters,
+    generator)`` per restart."""
+    if isinstance(init, str) and init == "k-means++":
+        centers0, _ = kmeans_plusplus_batched(
+            generator, X, x_sq_norms, n_clusters, n_restarts=n_init,
+            weights=weights, subsample=init_subsample)
+        return centers0
+    if isinstance(init, str) and init == "random":
+        p = (weights / torch.sum(weights)).expand(n_init, -1)
+        idx = torch.multinomial(p, n_clusters, replacement=False,
+                                generator=generator)
+        return X[idx]
+    return torch.stack([_as_tensor_like(init(X, n_clusters, generator), X)
+                        for _ in range(n_init)])
+
+
+def _as_tensor_like(a, X):
+    if isinstance(a, torch.Tensor):
+        return a.to(X)
+    return torch.as_tensor(np.asarray(a), dtype=X.dtype, device=X.device)
+
+
+def lloyd_restarts_from(generator, X, weights, x_sq_norms, centers0, **kw):
+    """All restarts of the Lloyd loop from an (R, k, m) center stack in
+    one batch; the best restart is selected on the device by inertia.
+    Keywords are those of :func:`lloyd_single`."""
+    labels, inertia, centers, n_iter, history = lloyd_single(
+        generator, X, weights, centers0, x_sq_norms, **kw)
+    best = torch.argmin(inertia)
+    return (labels[best], inertia[best], centers[best], n_iter[best],
+            {name: trace[best] for name, trace in history.items()})
+
+
+def fused_init(generator, X, weights, *, n_init, init, n_clusters, quantum,
+               mu_grid=(), init_subsample=0):
+    """Step 1 of the fit: pre-fit statistics (:func:`fit_prestats`) and
+    every restart's initial centers (:func:`_restart_inits`), in the
+    centered space. An array ``init`` (a (k, m) tensor in the data's
+    space) is centered and runs as the one restart."""
+    stats = fit_prestats(X, quantum=quantum, mu_grid=mu_grid)
+    if isinstance(init, torch.Tensor):
+        return stats, (init.to(X) - stats["mean"])[None]
+    centers0 = _restart_inits(generator, stats["Xc"], weights, stats["xsq"],
+                              n_init=n_init, init=init,
+                              n_clusters=n_clusters,
+                              init_subsample=init_subsample)
+    return stats, centers0
+
+
+def fused_fit(generator, stats, weights, centers0, tol_factor, *,
+              delta=0.0, mode="classic", max_iter=300, patience=None,
+              intermediate_error=False, compute_dtype=None):
+    """Step 2 of the fit: the tolerance scale (reference ``_tolerance``),
+    all restarts' Lloyd loops (:func:`lloyd_restarts_from`) and the
+    winner moved back to the data's space. Returns a dict of device
+    tensors; the caller fetches it once."""
+    tol = (tol_factor * stats["var_mean"] if tol_factor > 0
+           else torch.zeros_like(stats["var_mean"]))
+    labels, inertia, centers, n_iter, history = lloyd_restarts_from(
+        generator, stats["Xc"], weights, stats["xsq"], centers0,
+        delta=delta, mode=mode, max_iter=max_iter, tol=tol,
+        patience=patience, intermediate_error=intermediate_error,
+        compute_dtype=compute_dtype)
+    out = {"labels": labels, "inertia": inertia,
+           "centers": centers + stats["mean"], "n_iter": n_iter,
+           "inertia_trace": history["inertia"],
+           "shift_trace": history["center_shift"]}
+    for name in ("eta", "frob", "sigma_min", "mu_vals"):
+        if name in stats:
+            out[name] = stats[name]
+    return out
+
+
+def _sketch_rows(n_samples, n_features, setting):
+    """The sample size the JAX package's sketched statistics would use
+    (its ``resolve_sketch_rows`` without environment overrides); 0 means
+    exact statistics, the only kind this slice computes."""
+    if setting == "auto":
+        target = max(4096, 2 * int(n_features))
+    elif not setting:
+        return 0
+    else:
+        target = int(setting)
+    if n_samples < 4 * target or n_samples < n_features:
+        return 0
+    return target
+
+
+# ---------------------------------------------------------------------------
+# Estimator facade
+# ---------------------------------------------------------------------------
+
+
+class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
+    """q-means clustering estimator (reference ``qMeans_``,
+    ``_dmeans.py:833-1410``).
+
+    Parameters mirror the JAX ``QKMeans``; ``delta`` is the quantum error
+    budget (δ=0 runs classical Lloyd), and with
+    ``true_distance_estimate=False`` δ>0 runs δ-means. ``use_pallas`` is
+    gone: the device of the data decides, and ``device`` (None = the
+    configured one, ``'cuda'`` by default) says where a fit computes.
+    ``multiprocess``, ``stop_when_reached_accuracy`` and ``copy_x`` are
+    accepted for API compatibility and ignored, as in the reference port.
+
+    ``patience`` ('auto' | None | int) stops a run once the best inertia
+    has not improved for that many iterations ('auto' = 10 on noisy fits,
+    disabled on classical ones). After ``fit``, ``fit_history_`` holds the
+    winning restart's per-iteration traces, and with δ>0 the runtime-model
+    statistics land in ``eta_``, ``mu_``, ``norm_mu_`` and
+    ``condition_number_``.
+    """
+
+    def __init__(self, n_clusters=8, *, init="k-means++", n_init=10,
+                 max_iter=300, tol=1e-4, patience="auto", verbose=0,
+                 random_state=None, copy_x=True, algorithm="auto", delta=None,
+                 intermediate_error=False, true_tomography=True,
+                 stop_when_reached_accuracy=True, multiprocess=False,
+                 true_distance_estimate=True, ipe_q=5, mesh=None,
+                 compute_dtype=None, init_subsample="auto", sketch="auto",
+                 device=None):
+        self.n_clusters = n_clusters
+        self.init = init
+        self.n_init = n_init
+        self.max_iter = max_iter
+        self.tol = tol
+        self.patience = patience
+        self.verbose = verbose
+        self.random_state = random_state
+        self.copy_x = copy_x
+        self.algorithm = algorithm
+        self.delta = delta
+        self.intermediate_error = intermediate_error
+        self.true_tomography = true_tomography
+        self.stop_when_reached_accuracy = stop_when_reached_accuracy
+        self.multiprocess = multiprocess
+        self.true_distance_estimate = true_distance_estimate
+        self.ipe_q = ipe_q
+        self.mesh = mesh
+        self.compute_dtype = compute_dtype
+        self.init_subsample = init_subsample
+        self.sketch = sketch
+        self.device = device
+
+    # -- validation ---------------------------------------------------------
+
+    def _check_params(self, X):
+        if not (self.n_init == "auto"
+                or (isinstance(self.n_init, numbers.Integral)
+                    and self.n_init > 0)):
+            raise ValueError(
+                f"n_init should be 'auto' or > 0, got {self.n_init} instead.")
+        if self.max_iter <= 0:
+            raise ValueError(
+                f"max_iter should be > 0, got {self.max_iter} instead.")
+        if X.shape[0] < self.n_clusters:
+            raise ValueError(
+                f"n_samples={X.shape[0]} should be >= n_clusters="
+                f"{self.n_clusters}.")
+        if self.algorithm not in ("auto", "full", "lloyd", "elkan"):
+            raise ValueError(
+                f"Algorithm must be 'auto', 'full', 'lloyd' or 'elkan', got "
+                f"{self.algorithm} instead.")
+        if not (isinstance(self.init, str)
+                and self.init in ("k-means++", "random")
+                or hasattr(self.init, "__array__") or callable(self.init)):
+            raise ValueError(
+                f"init should be either 'k-means++', 'random', an array or a "
+                f"callable, got '{self.init}' instead.")
+
+    def _mode(self, delta):
+        if delta == 0:
+            return "classic"
+        return "ipe" if self.true_distance_estimate else "delta"
+
+    def _check_ported(self, X, delta, mode):
+        """Raise NotImplementedError on what this slice does not cover."""
+        if self.mesh is not None:
+            raise NotImplementedError(_MESH)
+        if mode == "ipe":
+            raise NotImplementedError(_IPE)
+        if self.intermediate_error:
+            raise NotImplementedError(_TOMOGRAPHY)
+        if self.algorithm == "elkan":
+            if mode == "classic":
+                raise NotImplementedError(_ELKAN)
+            warnings.warn(
+                "algorithm='elkan' applies to the classical (delta=0) path "
+                "only: the δ-window error model needs the full distance row "
+                "per sample. Using the Lloyd kernel.", RuntimeWarning)
+        if delta > 0 and _sketch_rows(*X.shape, self.sketch):
+            raise NotImplementedError(_SKETCH)
+        _kernel_dtype(X, self._checked_compute_dtype())
+
+    def _resolved_n_init(self, init):
+        """Array inits run once (sklearn's contract); 'auto' is 1 for
+        k-means++ and 10 for 'random' (sklearn 1.4)."""
+        if hasattr(init, "__array__") and not callable(init):
+            return 1
+        if self.n_init != "auto":
+            return int(self.n_init)
+        return 1 if (isinstance(init, str) and init == "k-means++") else 10
+
+    def _resolved_patience(self, mode):
+        """'auto' enables the best-inertia plateau rule only where the
+        classical shift≤tol rule cannot fire (noisy fits), with sklearn's
+        ``max_no_improvement=10`` convention."""
+        if self.patience == "auto":
+            noisy = mode != "classic" or self.intermediate_error
+            return 10 if noisy else None
+        if self.patience is None:
+            return None
+        return int(self.patience)
+
+    def _checked_compute_dtype(self):
+        return check_compute_dtype(self.compute_dtype)
+
+    def _centers_tensor(self, X):
+        return torch.as_tensor(np.asarray(self.cluster_centers_),
+                               dtype=X.dtype, device=X.device)
+
+    # -- fitting ------------------------------------------------------------
+
+    def fit(self, X, y=None, sample_weight=None):
+        """Compute q-means clustering (reference ``qMeans_.fit``,
+        ``_dmeans.py:1211-1325``) on the estimator's device."""
+        device = resolve_device(self.device)
+        X = self._validated_X(X, device)
+        self.n_features_in_ = X.shape[1]
+        self._check_params(X)
+        delta = 0.0 if self.delta is None else float(self.delta)
+        if delta == 0:
+            warnings.warn("Attention! You are running the classic version of "
+                          "k-means (delta=0).")
+            if self.intermediate_error:
+                raise ValueError(
+                    "intermediate_error cannot be True if delta is zero.")
+        mode = self._mode(delta)
+        self._check_ported(X, delta, mode)
+        w = check_sample_weight(sample_weight, X)
+        init = self.init
+        if hasattr(init, "__array__") and not callable(init):
+            if self.n_init != "auto" and int(self.n_init) > 1:
+                warnings.warn(
+                    "Explicit initial center position passed: performing "
+                    "only one init of the restart loop.", RuntimeWarning)
+            init = torch.as_tensor(np.asarray(init), dtype=X.dtype,
+                                   device=device)
+            if init.shape != (self.n_clusters, X.shape[1]):
+                raise ValueError(
+                    f"The shape of the initial centers {tuple(init.shape)} "
+                    f"does not match (n_clusters={self.n_clusters}, "
+                    f"n_features={X.shape[1]}).")
+        quantum = delta > 0
+        sub = 0
+        if isinstance(init, str) and init == "k-means++":
+            sub = resolve_init_subsample(X.shape[0], self.n_clusters,
+                                         self.init_subsample)
+        generator = as_generator(self.random_state, device)
+        stats, centers0 = fused_init(
+            generator, X, w, n_init=self._resolved_n_init(self.init),
+            init=init, n_clusters=self.n_clusters, quantum=quantum,
+            mu_grid=MU_GRID if quantum else (), init_subsample=sub)
+        out = fused_fit(
+            generator, stats, w, centers0, float(self.tol), delta=delta,
+            mode=mode, max_iter=self.max_iter,
+            patience=self._resolved_patience(mode),
+            intermediate_error=self.intermediate_error,
+            compute_dtype=self._checked_compute_dtype())
+        # the one fetch of the fit
+        host = {name: t.cpu().numpy() for name, t in out.items()}
+        n_iter = int(host["n_iter"])
+        self._set_fit_results(host["labels"].astype(np.int32),
+                              host["centers"].astype(np.float32),
+                              float(host["inertia"]), n_iter,
+                              host["inertia_trace"], host["shift_trace"])
+        if quantum:
+            self._apply_spectral_stats(exact_bundle(
+                MU_GRID, host["eta"], host["frob"], host["sigma_min"],
+                host["mu_vals"], shape=tuple(X.shape)))
+        if self.verbose:
+            for i, v in enumerate(self.inertia_history_):
+                print(f"Iteration {i}, inertia {v:.3f}.")
+            print(f"init done, inertia {self.inertia_:.3f}")
+        return self
+
+    def _set_fit_results(self, labels, centers, inertia, n_iter, inertia_tr,
+                         shift_tr):
+        """Set the fitted attributes from host arrays (traces trimmed to
+        the iterations that ran)."""
+        distinct = len(np.unique(labels))
+        if distinct < self.n_clusters:
+            warnings.warn(
+                f"Number of distinct clusters ({distinct}) found smaller than "
+                f"n_clusters ({self.n_clusters}). Possibly due to duplicate "
+                f"points in X.")
+        self.cluster_centers_ = centers
+        self.labels_ = labels
+        self.inertia_ = inertia
+        self.n_iter_ = n_iter
+        self.inertia_history_ = np.asarray(inertia_tr)[:n_iter]
+        self.center_shift_history_ = np.asarray(shift_tr)[:n_iter]
+        return self
+
+    def _apply_spectral_stats(self, stats):
+        """Fold a :class:`~sq_learn_tpu_torch.sketch.engine.SpectralStats`
+        bundle into the runtime-model attributes (conservative μ and κ)."""
+        self.eta_ = float(stats.eta)
+        self.norm_mu_, self.mu_ = stats.conservative_mu()
+        self.condition_number_ = float(stats.condition_number())
+        self.sketch_info_ = stats.info()
+
+    @property
+    def fit_history_(self):
+        """Dict view of the per-iteration traces of the winning restart."""
+        check_is_fitted(self, "inertia_history_")
+        return {"inertia": self.inertia_history_,
+                "center_shift": self.center_shift_history_}
+
+    # -- inference ----------------------------------------------------------
+
+    def _inference_input(self, X):
+        check_is_fitted(self, "cluster_centers_")
+        return check_n_features(
+            self, self._validated_X(X, resolve_device(self.device)))
+
+    def predict(self, X, sample_weight=None, delta=None):
+        """Closest-center assignment, with optional quantum error δ
+        (δ-means picks; the IPE mode is not ported)."""
+        X = self._inference_input(X)
+        delta = 0.0 if delta is None else float(delta)
+        labels, _, _ = e_step(
+            as_generator(self.random_state, X.device), X,
+            torch.ones(X.shape[0], dtype=X.dtype, device=X.device),
+            self._centers_tensor(X), row_norms(X, squared=True),
+            delta=delta, mode=self._mode(delta),
+            compute_dtype=self._checked_compute_dtype())
+        return labels.cpu().numpy()
+
+    def transform(self, X):
+        """Distances to the cluster centers (purely classical, as the
+        reference warns at ``_dmeans.py:1341-1347``)."""
+        from ..metrics import euclidean_distances
+
+        X = self._inference_input(X)
+        return euclidean_distances(X, self._centers_tensor(X)).cpu().numpy()
+
+    def fit_transform(self, X, y=None, sample_weight=None):
+        with validation_scope(self):
+            return self.fit(X, sample_weight=sample_weight).transform(X)
+
+    def score(self, X, y=None, sample_weight=None):
+        """Negative inertia of X under the fitted centers."""
+        X = self._inference_input(X)
+        w = check_sample_weight(sample_weight, X)
+        d2 = pairwise_sq_distances(X, self._centers_tensor(X))
+        return -float(torch.sum(torch.min(d2, dim=1).values * w))
+
+
+def k_means(X, n_clusters, *, sample_weight=None, init="k-means++",
+            n_init=10, max_iter=300, tol=1e-4, random_state=None,
+            delta=None, true_distance_estimate=True, ipe_q=5,
+            verbose=0, return_n_iter=False, device=None):
+    """Functional q-means (reference module-level ``k_means``): fit once,
+    return (centers, labels, inertia) — plus n_iter with
+    ``return_n_iter``."""
+    est = QKMeans(
+        n_clusters=n_clusters, init=init, n_init=n_init, max_iter=max_iter,
+        tol=tol, verbose=verbose, random_state=random_state, delta=delta,
+        true_distance_estimate=true_distance_estimate, ipe_q=ipe_q,
+        device=device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings(
+            "ignore", message="Attention! You are running the classic")
+        est.fit(X, sample_weight=sample_weight)
+    if return_n_iter:
+        return est.cluster_centers_, est.labels_, est.inertia_, est.n_iter_
+    return est.cluster_centers_, est.labels_, est.inertia_
+
+
+class KMeans(QKMeans):
+    """Classical k-means: the δ=0 path of :class:`QKMeans`."""
+
+    def __init__(self, n_clusters=8, *, init="k-means++", n_init=10,
+                 max_iter=300, tol=1e-4, verbose=0, random_state=None,
+                 copy_x=True, algorithm="auto", mesh=None, device=None):
+        super().__init__(
+            n_clusters=n_clusters, init=init, n_init=n_init,
+            max_iter=max_iter, tol=tol, verbose=verbose,
+            random_state=random_state, copy_x=copy_x, algorithm=algorithm,
+            delta=None, mesh=mesh, device=device)
+
+    def fit(self, X, y=None, sample_weight=None):
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", message="Attention! You are running the classic")
+            return super().fit(X, sample_weight=sample_weight)

@@ -1,0 +1,211 @@
+"""Hand-written kernels of the port (counterpart of
+``sq_learn_tpu/ops/pallas_kernels.py``).
+
+:func:`lloyd_step` is the fused Lloyd step, the twin of the TPU kernel
+``lloyd_step_pallas``: one call scores every sample against every restart's
+centers and returns labels, distances and the weighted per-cluster
+partials. On a CUDA tensor it launches the hand-written Hopper kernel of
+``csrc/lloyd.cu`` (built at first use, see :mod:`._build`) or raises; on a
+CPU tensor it runs :func:`lloyd_step_reference`, the same function in plain
+torch ops. ``lloyd_step.launches`` counts kernel launches.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+_BIG = 1e30  # masking logit outside the δ-window (the TPU kernel's _BIG)
+_TILE_ROWS = 32  # rows a block scores per tile (kTileRows in lloyd.cu)
+
+
+def lloyd_step_reference(X, weights, x_sq_norms, centers, *, gumbel=None,
+                         window=0.0):
+    """The fused Lloyd step in plain torch ops — the function
+    ``lloyd_step_pallas`` computes, batched over R restarts.
+
+    d2 = (‖x‖² + ‖c‖²) − 2·x·c with no 0-clamp; the label is the argmin of
+    d2 or, with ``window`` > 0, the argmax of ``gumbel`` over
+    {c : d2 ≤ min + window} (both take the lowest index on ties). The
+    centers are rounded to X's dtype for the product, their norms stay
+    float32; the weighted rows w·x are rounded once to X's dtype before
+    they are summed. Everything accumulates in float32.
+
+    Returns labels (R, n) int32, min_d2 (R, n), sums (R, k, m), counts
+    (R, k) and inertia (R,), all float32 but the labels.
+    """
+    k = centers.shape[1]
+    Xf = X.float()
+    C = centers.to(X.dtype).float()
+    csq = torch.sum(centers * centers, dim=-1)
+    d2 = ((x_sq_norms[:, None] + csq[:, None, :])
+          - 2.0 * torch.matmul(Xf, C.transpose(1, 2)))
+    min_d2 = d2.min(dim=-1).values
+    if window > 0:
+        mask = d2 <= (min_d2 + window)[..., None]
+        logits = torch.where(mask, gumbel, torch.full_like(gumbel, -_BIG))
+        labels = torch.argmax(logits, dim=-1)
+    else:
+        labels = torch.argmin(d2, dim=-1)
+    xw = (Xf * weights[:, None]).to(X.dtype).float()
+    onehot = (labels[..., None] == torch.arange(k, device=X.device)).float()
+    sums = torch.matmul(onehot.transpose(1, 2), xw)
+    counts = torch.sum(onehot * weights[None, :, None], dim=1)
+    inertia = torch.sum(min_d2 * weights, dim=-1)
+    return labels.to(torch.int32), min_d2, sums, counts, inertia
+
+
+def _check_lloyd_args(X, weights, x_sq_norms, centers, gumbel, window,
+                      active):
+    if X.ndim != 2 or X.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"X must be a 2-D float32 or bfloat16 tensor, got "
+            f"{tuple(X.shape)} {X.dtype}")
+    n, m = X.shape
+    if centers.ndim != 3 or centers.shape[2] != m \
+            or centers.dtype != torch.float32:
+        raise ValueError(
+            f"centers must be a (R, k, {m}) float32 tensor, got "
+            f"{tuple(centers.shape)} {centers.dtype}")
+    R, k, _ = centers.shape
+    for name, t in (("weights", weights), ("x_sq_norms", x_sq_norms)):
+        if t.shape != (n,) or t.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be a ({n},) float32 tensor, got "
+                f"{tuple(t.shape)} {t.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if (window > 0) != (gumbel is not None):
+        raise ValueError("the Gumbel operand is required exactly when "
+                         "window > 0")
+    if gumbel is not None and (gumbel.shape != (R, n, k)
+                               or gumbel.dtype != torch.float32):
+        raise ValueError(
+            f"gumbel must be a ({R}, {n}, {k}) float32 tensor, got "
+            f"{tuple(gumbel.shape)} {gumbel.dtype}")
+    if active is not None and active.shape != (R,):
+        raise ValueError(f"active must have shape ({R},), got "
+                         f"{tuple(active.shape)}")
+    tensors = [t for t in (X, weights, x_sq_norms, centers, gumbel, active)
+               if t is not None]
+    if any(t.device != X.device for t in tensors):
+        raise ValueError("all lloyd_step operands must be on one device")
+    return n, m, k, R
+
+
+def launch_plan(n, R, n_sms):
+    """(blocks per restart, rows per block) of the CUDA kernel: about
+    eight blocks per SM over all restarts, each block a whole number of
+    rows (at least one tile)."""
+    target = max(1, math.ceil(8 * n_sms / R))
+    nblocks = max(1, min(target, math.ceil(n / _TILE_ROWS)))
+    rows = math.ceil(n / nblocks)
+    return math.ceil(n / rows), rows
+
+
+_state = {}
+
+
+def _lib():
+    """The Lloyd library, built and loaded at first use, its C signatures
+    declared once."""
+    lib = _state.get("lib")
+    if lib is None:
+        lib = _build.load("lloyd")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sq_lloyd_step.argtypes = [i, p, p, p, p, p, p, p, ctypes.c_float,
+                                      i, i, i, i, i, i, p, p, p, p, p, p, p]
+        lib.sq_lloyd_step.restype = i
+        lib.sq_cuda_error_string.argtypes = [i]
+        lib.sq_cuda_error_string.restype = ctypes.c_char_p
+        _state["lib"] = lib
+    return lib
+
+
+def _n_sms(device):
+    key = ("sms", device.index)
+    if key not in _state:
+        _state[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _state[key]
+
+
+def lloyd_step(X, weights, x_sq_norms, centers, *, gumbel=None, window=0.0,
+               active=None):
+    """Fused Lloyd step over R restarts (see :func:`lloyd_step_reference`
+    for what it computes).
+
+    Parameters
+    ----------
+    X : (n, m) float32 or bfloat16 — samples; bfloat16 serves
+        ``compute_dtype='bfloat16'``.
+    weights, x_sq_norms : (n,) float32 — sample weights (0 masks a row)
+        and squared row norms.
+    centers : (R, k, m) float32.
+    gumbel : (R, n, k) float32 Gumbel noise, required iff ``window`` > 0.
+    window : δ-means window on squared distances; 0 is the classic argmin.
+    active : optional (R,) mask; on the card the blocks of an inactive
+        restart exit at once and its outputs are zeros.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    (and counts it in ``lloyd_step.launches``) or raises.
+    """
+    window = float(window)
+    n, m, k, R = _check_lloyd_args(X, weights, x_sq_norms, centers, gumbel,
+                                   window, active)
+    if X.device.type == "cpu":
+        return lloyd_step_reference(X, weights, x_sq_norms, centers,
+                                    gumbel=gumbel, window=window)
+    if X.device.type != "cuda":
+        raise ValueError(f"lloyd_step runs on cpu or cuda, not {X.device}")
+    X, weights, x_sq_norms = (X.contiguous(), weights.contiguous(),
+                              x_sq_norms.contiguous())
+    C = centers.to(X.dtype).float().contiguous()
+    csq = torch.sum(centers * centers, dim=-1).contiguous()
+    if gumbel is not None:
+        gumbel = gumbel.contiguous()
+    act = None if active is None else active.to(torch.int32).contiguous()
+    nblocks, rows = launch_plan(n, R, _n_sms(X.device))
+    dev = X.device
+    # the kernel writes every output, zeros for an inactive restart
+    labels = torch.empty((R, n), dtype=torch.int32, device=dev)
+    min_d2 = torch.empty((R, n), dtype=torch.float32, device=dev)
+    sums = torch.empty((R, k, m), dtype=torch.float32, device=dev)
+    counts = torch.empty((R, k), dtype=torch.float32, device=dev)
+    inertia = torch.empty((R,), dtype=torch.float32, device=dev)
+    partial = torch.empty((R * nblocks * (k * m + k + 1),),
+                          dtype=torch.float32, device=dev)
+    lib = _lib()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sq_lloyd_step(
+            0 if X.dtype == torch.float32 else 1, ptr(X), ptr(weights),
+            ptr(x_sq_norms), ptr(C), ptr(csq), ptr(gumbel), ptr(act),
+            window, n, m, k, R, nblocks, rows, ptr(labels), ptr(min_d2),
+            ptr(partial), ptr(sums), ptr(counts), ptr(inertia), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"lloyd kernel launch failed: "
+            f"{lib.sq_cuda_error_string(err).decode()} (cudaError {err})")
+    lloyd_step.launches += 1
+    return labels, min_d2, sums, counts, inertia
+
+
+lloyd_step.launches = 0
+
+
+def lloyd_step_work(n, m, k, R, x_dtype, window):
+    """(bytes, operations) the fused step must move and do: every input
+    read once and every output written once; 2·n·m·k·R distance-product
+    operations plus 2·n·m·R for the weighted sums."""
+    x_bytes = n * m * (2 if x_dtype == torch.bfloat16 else 4)
+    inputs = x_bytes + 8 * n + 4 * R * k * m + (4 * R * n * k
+                                                if window > 0 else 0)
+    outputs = 8 * R * n + 4 * R * k * m + 4 * R * k + 4 * R
+    return inputs + outputs, 2 * n * m * k * R + 2 * n * m * R

@@ -1,0 +1,88 @@
+"""μ(A) quantum-memory-model norm search (counterpart of
+``sq_learn_tpu/ops/quantum/norms.py``, the part the exact δ>0 prestats
+read).
+
+μ_p(A) = √(s_{2p}(A) · s_{2(1−p)}(Aᵀ)) with s_q(A) = max_i ‖A_i‖_q^q,
+evaluated for every p of a grid in one elementwise sweep, then compared
+against the Frobenius norm (reference ``Utility.py:196-231``).
+"""
+
+import numpy as np
+import torch
+
+
+def _grid_exponents(grid):
+    """The exponent set a μ grid needs — 2p for the row factor and 2(1−p)
+    for the column factor draw from the same set — plus the uniform-step
+    flag that enables the multiplication chain."""
+    qs = sorted({round(2 * p, 12) for p in grid}
+                | {round(2 * (1 - p), 12) for p in grid})
+    qpos = [q for q in qs if q > 0]
+    steps = {round(b - a, 12) for a, b in zip(qpos, qpos[1:])}
+    uniform = bool(qpos) and (not steps or steps == {round(qpos[0], 12)})
+    return qs, qpos, uniform
+
+
+def _power_sweep(tile, qs, qpos, uniform):
+    """Reductions of |tile|^q for every exponent q.
+
+    Returns ``(row_max, cols)`` stacked over qs: row_max (|qs|,) —
+    max_i Σ_j |a_ij|^q; cols (|qs|, m) — Σ_i |a_ij|^q. With a uniformly
+    spaced exponent set the powered matrices form a multiplication chain
+    |A|^{i·d} = (|A|^d)^i: one exp pass, then one multiply per grid point.
+    """
+    absT = torch.abs(tile)
+    nz = absT > 0
+    logT = torch.log(torch.where(nz, absT, torch.ones_like(absT)))
+    zero = torch.zeros((), dtype=tile.dtype, device=tile.device)
+    row_max, cols = {}, {}
+
+    def record(q, P):
+        row_max[q] = torch.max(torch.sum(P, dim=1))
+        cols[q] = torch.sum(P, dim=0)
+
+    if 0 in qs:
+        record(0, nz.to(tile.dtype))  # reference Utility.py:198-203
+    if uniform:
+        base = torch.where(nz, torch.exp(qpos[0] * logT), zero)
+        P = base
+        for q in qpos:
+            record(q, P)
+            P = P * base
+    else:
+        for q in qpos:
+            record(q, torch.where(nz, torch.exp(q * logT), zero))
+    return (torch.stack([row_max[q] for q in qs]),
+            torch.stack([cols[q] for q in qs]))
+
+
+def _mu_grid_unblocked(A, grid):
+    """μ_p for every p of the (static) grid, one fused sweep over A."""
+    qs, qpos, uniform = _grid_exponents(grid)
+    row_max, cols = _power_sweep(A, qs, qpos, uniform)
+    return _combine(grid, qs, row_max, torch.max(cols, dim=1).values)
+
+
+def _combine(grid, qs, row_max, col_max):
+    """μ_p = √(s_{2p}(A)·s_{2(1−p)}(Aᵀ)) from the stacked per-q factors."""
+    idx = {q: i for i, q in enumerate(qs)}
+    vals = [torch.sqrt(row_max[idx[round(2 * p, 12)]]
+                       * col_max[idx[round(2 * (1 - p), 12)]])
+            for p in grid]
+    return torch.stack(vals)
+
+
+def select_mu(grid, mu_vals, frob):
+    """Host-side winner between the μ_p grid and the Frobenius norm
+    (reference ``best_mu``, ``Utility.py:222-231``).
+
+    Returns (description, value): description is ``"p=<best_p>"`` or
+    ``"Frobenius"``.
+    """
+    mu_vals = np.asarray(mu_vals)
+    idx = int(np.argmin(mu_vals))
+    val = float(mu_vals[idx])
+    frob = float(frob)
+    if val <= frob:
+        return f"p={grid[idx]}", val
+    return "Frobenius", frob

@@ -1,0 +1,86 @@
+"""Fitted state carried from the JAX package into the port.
+
+A JAX ``QKMeans`` is fitted and its attributes handed to
+``convert.qkmeans_from_numpy``; the port's ``predict`` must give the same
+labels and ``transform``/``score`` the same values at rtol 1e-4 (float32
+products summed in another order).
+"""
+
+import numpy as np
+import pytest
+
+from sq_learn_tpu.datasets import make_blobs
+from sq_learn_tpu.models import QKMeans as JaxQKMeans
+from sq_learn_tpu_torch import config_context
+from sq_learn_tpu_torch.convert import qkmeans_from_numpy
+
+
+@pytest.fixture(autouse=True)
+def _cpu():
+    with config_context(device="cpu"):
+        yield
+
+
+@pytest.fixture(scope="module")
+def fitted():
+    X, _ = make_blobs(n_samples=400, centers=5, n_features=12,
+                      cluster_std=1.5, random_state=3)
+    X = X.astype(np.float32)
+    est = JaxQKMeans(n_clusters=5, n_init=2, delta=0.5,
+                     true_distance_estimate=False, random_state=0).fit(X)
+    Xq, _ = make_blobs(n_samples=150, centers=5, n_features=12,
+                       cluster_std=3.0, random_state=4)
+    return est, X, Xq.astype(np.float32)
+
+
+def _port(est, device="cpu"):
+    attrs = {k: v for k, v in vars(est).items() if k.endswith("_")}
+    return qkmeans_from_numpy(attrs, device=device,
+                              params=est.get_params())
+
+
+def test_state_carries_over(fitted):
+    est, _, _ = fitted
+    port = _port(est)
+    np.testing.assert_array_equal(port.cluster_centers_,
+                                  est.cluster_centers_)
+    np.testing.assert_array_equal(port.labels_, est.labels_)
+    assert port.inertia_ == est.inertia_ and port.n_iter_ == est.n_iter_
+    assert port.n_features_in_ == 12 and port.n_clusters == 5
+    assert (port.eta_, port.mu_, port.norm_mu_, port.condition_number_) == (
+        est.eta_, est.mu_, est.norm_mu_, est.condition_number_)
+    np.testing.assert_array_equal(port.fit_history_["inertia"],
+                                  est.fit_history_["inertia"])
+    assert port.delta == 0.5 and port.true_distance_estimate is False
+    assert port.device == "cpu"
+
+
+@pytest.mark.parametrize("data", ["train", "queries"])
+def test_inference_matches_jax(fitted, data):
+    est, X, Xq = fitted
+    Z = X if data == "train" else Xq
+    port = _port(est)
+    np.testing.assert_array_equal(port.predict(Z), est.predict(Z))
+    np.testing.assert_allclose(port.transform(Z), est.transform(Z),
+                               rtol=1e-4, atol=1e-4)
+    w = np.random.default_rng(0).uniform(0.5, 2.0, len(Z))
+    assert port.score(Z, sample_weight=w) == pytest.approx(
+        est.score(Z, sample_weight=w), rel=1e-4)
+
+
+def test_delta_predict_stays_in_the_window(fitted):
+    est, X, _ = fitted
+    port = _port(est)
+    labels = port.predict(X, delta=2.0)
+    d2 = ((X[:, None, :] - port.cluster_centers_[None]) ** 2).sum(-1)
+    sel = d2[np.arange(len(X)), labels]
+    assert (sel <= d2.min(1) + 2.0 + 1e-3).all()
+
+
+def test_rejects_inconsistent_state(fitted):
+    est, _, _ = fitted
+    with pytest.raises(ValueError, match="cluster_centers_"):
+        qkmeans_from_numpy({"labels_": est.labels_})
+    with pytest.raises(ValueError, match="n_features_in_"):
+        qkmeans_from_numpy({"cluster_centers_": est.cluster_centers_,
+                            "n_features_in_": 3})

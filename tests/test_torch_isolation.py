@@ -1,0 +1,69 @@
+"""The port stands alone: no JAX and nothing of ``sq_learn_tpu``.
+
+In a fresh interpreter where ``import jax`` fails, every module of
+``sq_learn_tpu_torch``, ``chip_smoke.py`` and ``chip_profile.py``
+import, and no ``sq_learn_tpu`` module gets loaded. ``chip_smoke.py``
+itself fails, and prints no result, without a card or without the
+repository beside it.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, importlib.util, pkgutil, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import sq_learn_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    sq_learn_tpu_torch.__path__, "sq_learn_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+for script in ("chip_smoke", "chip_profile"):
+    spec = importlib.util.spec_from_file_location(script, script + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m == "sq_learn_tpu" or m.startswith("sq_learn_tpu."))
+assert not bad, bad
+assert sys.modules["jax"] is None
+print(len(names), "modules")
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env["PYTHONPATH"] = REPO
+    env["CUDA_VISIBLE_DEVICES"] = ""  # no card, even where there is one
+    return env
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 15
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env = _env()
+    env.pop("PYTHONPATH")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
