@@ -1,16 +1,25 @@
 #!/usr/bin/env python3
-"""Where a main-path q-means fit of the port spends its time on one GPU.
+"""Where the port's main paths spend their time on one GPU.
 
 Run from the root of the repository, with no arguments:
 
     python3 chip_profile.py
 
-It fits ``QKMeans(n_clusters=10, n_init=10, max_iter=300, delta=0.5,
-true_distance_estimate=False, sketch=0, random_state=0)`` on the
-MNIST-shaped surrogate (70 000 × 784) once cold and three times warm
-(host clock around each call, with its iterations and kernel launches),
-then once more under ``torch.profiler``: device time by kernel, the
-device's busy share of that fit's wall clock, and host time by operator.
+On the MNIST-shaped surrogate (70 000 × 784) it profiles, each time with
+the host clock around warm calls and then one more call under
+``torch.profiler`` (device time by kernel, the device's busy share of
+that call's wall clock, host time by operator):
+
+- a q-means fit, ``QKMeans(n_clusters=10, n_init=10, max_iter=300,
+  delta=0.5, true_distance_estimate=False, sketch=0, random_state=0)``,
+  once cold and three times warm, with its iterations and kernel
+  launches;
+- a k-NN ``predict`` of the last 10 000 rows by
+  ``KNeighborsClassifier(n_neighbors=7)`` fitted on the first 60 000;
+- one fold of the 10-fold stratified CV of that classifier on all 70 000
+  rows: the host's index copies, ``fit`` and ``score``, as
+  ``cross_validate`` runs a fold.
+
 It needs one NVIDIA GPU and exits non-zero without one.
 """
 
@@ -18,6 +27,69 @@ import os
 import subprocess
 import sys
 import time
+
+
+def profiled(label, fn, torch):
+    """Run ``fn`` once under ``torch.profiler`` and print its wall clock,
+    the device's busy share of it and the tables by device and host
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type.name == "CUDA")
+    print(f"{label} under the profiler: {wall:.4f} s, device busy "
+          f"{device_us / 1e3:.3f} ms = {device_us / 1e4 / wall:.2f} % of "
+          f"the wall clock", flush=True)
+    print(events.table(sort_by="self_device_time_total", row_limit=25),
+          flush=True)
+    print(events.table(sort_by="self_cpu_time_total", row_limit=15),
+          flush=True)
+
+
+def knn(X, y, torch):
+    """Warm predicts and one CV fold of the k-NN path, then each once more
+    under the profiler."""
+    from sq_learn_tpu_torch.model_selection import StratifiedKFold
+    from sq_learn_tpu_torch.models import KNeighborsClassifier
+    from sq_learn_tpu_torch.ops.kernels import argkmin
+
+    est = KNeighborsClassifier(n_neighbors=7).fit(X[:60_000], y[:60_000])
+    Xte = X[60_000:]
+    for label in ("first", "warm", "warm", "warm"):
+        argkmin.launches = 0
+        t0 = time.perf_counter()
+        est.predict(Xte)
+        print(f"{label} k-NN predict 10000 rows: "
+              f"{time.perf_counter() - t0:.4f} s, kernel launches "
+              f"{argkmin.launches}", flush=True)
+    profiled("k-NN predict 10000 rows", lambda: est.predict(Xte), torch)
+
+    train, test = next(StratifiedKFold(10).split(X, y))
+
+    def fold():
+        # what cross_validate does for one fold
+        t0 = time.perf_counter()
+        Xtr, ytr = X[train], y[train]
+        t1 = time.perf_counter()
+        fitted = KNeighborsClassifier(n_neighbors=7).fit(Xtr, ytr)
+        t2 = time.perf_counter()
+        score = fitted.score(X[test], y[test])
+        t3 = time.perf_counter()
+        return t1 - t0, t2 - t1, t3 - t2, score
+
+    for label in ("warm", "warm"):
+        index_s, fit_s, score_s, score = fold()
+        print(f"{label} CV fold (63000 train, 7000 test rows): host index "
+              f"copy {index_s:.4f} s, fit {fit_s:.4f} s, score "
+              f"{score_s:.4f} s, accuracy {score}", flush=True)
+    profiled("CV fold", fold, torch)
 
 
 def main():
@@ -28,8 +100,6 @@ def main():
               "NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from torch.profiler import ProfilerActivity, profile
-
     import sq_learn_tpu_torch as sqt
     from sq_learn_tpu_torch.base import clone
     from sq_learn_tpu_torch.datasets import synthetic_surrogate
@@ -43,7 +113,7 @@ def main():
     print(f"card: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     sqt.set_config(device="cuda:0")
-    X, _ = synthetic_surrogate(70_000, 784, 10, seed=784)
+    X, y = synthetic_surrogate(70_000, 784, 10, seed=784)
     est = QKMeans(n_clusters=10, n_init=10, max_iter=300, delta=0.5,
                   true_distance_estimate=False, sketch=0, random_state=0)
     for label in ("cold", "warm", "warm", "warm"):
@@ -53,21 +123,8 @@ def main():
         wall = time.perf_counter() - t0
         print(f"{label} fit: {wall:.4f} s, n_iter {fit.n_iter_}, kernel "
               f"launches {lloyd_step.launches}", flush=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        clone(est).fit(X)
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type.name == "CUDA")
-    print(f"fit under the profiler: {wall:.4f} s, device busy "
-          f"{device_us / 1e3:.3f} ms = {device_us / 1e4 / wall:.2f} % of "
-          f"the wall clock", flush=True)
-    print(events.table(sort_by="self_device_time_total", row_limit=25),
-          flush=True)
-    print(events.table(sort_by="self_cpu_time_total", row_limit=15),
-          flush=True)
+    profiled("q-means fit", lambda: clone(est).fit(X), torch)
+    knn(X, y, torch)
     return 0
 
 

@@ -17,12 +17,27 @@ each of which fails the run:
    events, median). Labels must be equal but where the exact (float64)
    distances put a center nearer to the deciding boundary than the
    measured float32 error.
-3. Main path: ``QKMeans(n_clusters=10, n_init=10, max_iter=300,
-   delta=0.5, true_distance_estimate=False, sketch=0,
-   random_state=0).fit`` on the MNIST-shaped surrogate, then ``predict``,
-   ``score`` and ``transform``, then one δ=0 fit. Each fit's kernel
-   launches are counted from 0. A small δ=0 fit on the card is checked
-   against the same fit on the CPU (the plain versions).
+   Then the fused k-nearest search (argkmin) on the surrogate split as
+   MNIST is (60 000 train rows, 10 000 queries, 784 wide, k=7), and at
+   k=1, k=100, k=4096 on 256 queries (lists in global memory), width 61,
+   16 queries (train split over many blocks) and integer-valued rows
+   (exact ties): lists held against the exact float64 ones and the plain
+   version's up to a margin of 3× the measured distance error, d2 at rtol
+   1e-4 of the plain version's, ascending, bit-identical over two
+   launches; planted duplicate rows come back lower index first.
+3. Main paths, each with the kernels' launch counts set to 0 before it
+   and read after it:
+   - ``QKMeans(n_clusters=10, n_init=10, max_iter=300, delta=0.5,
+     true_distance_estimate=False, sketch=0, random_state=0).fit`` on the
+     MNIST-shaped surrogate, then ``predict``, ``score`` and
+     ``transform``, then one δ=0 fit;
+   - ``KNeighborsClassifier(n_neighbors=7)`` fitted on the first 60 000
+     rows, with ``predict``, ``predict_proba``, ``kneighbors`` and
+     ``score`` on the last 10 000 (uniform and distance weights; accuracy
+     ≥ 0.95), then ``cross_validate`` over ``StratifiedKFold(10)`` on all
+     70 000 rows, one kernel launch per fold.
+   Small fits on the card (δ=0 q-means; k-NN on 4 000 rows) are checked
+   against the same fits on the CPU (the plain versions).
 4. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
@@ -48,6 +63,18 @@ WIDE_WINDOW_QUANTILE = 0.25
 WIDE_MIN_MOVED = 0.05  # share of labels the wide window must move
 ARI_FLOOR = 0.95   # the surrogate's classes are well separated
 REPS = 10
+# the k-NN slice: MnistTrial's k-NN on the MNIST split of the surrogate
+N_TRAIN, KNN_K = 60_000, 7
+CARD = "cuda:0"
+KNN_ACCURACY_FLOOR = 0.95
+K_GLOBAL = 4096    # lists too long for shared memory
+EXACT_QUERIES = 2000  # queries held against exact float64 lists
+# the kernel's and the plain version's d2 each err by a few float32 ulps of
+# ‖t‖² ≈ 8·10⁴ against d2 of a few thousand
+D2_RTOL_KNN = 1e-4
+# the kernel's worst d2 error against float64 is held within this factor of
+# the plain version's (1.11–1.21 on the card)
+ERR_RATIO = 2.0
 
 
 def check(cond, msg):
@@ -262,6 +289,256 @@ def kernel_phase(Xc, torch):
             "library_ms": None}
 
 
+def exact_sq_distances(Q, T):
+    """(nq, nt) squared distances of the float32 rows Q and T, in float64
+    (exact to ~1e-11 at these norms)."""
+    Q64, T64 = Q.double(), T.double()
+    return ((Q64 * Q64).sum(1)[:, None] + (T64 * T64).sum(1)[None, :]
+            - 2.0 * Q64 @ T64.T)
+
+
+def hold_lists(case, idx, d2, ref_i, ref_d, Qk, Tk, torch):
+    """Hold the kernel's neighbor lists against the exact ones (float64
+    distances of the same float32 operands, on the first EXACT_QUERIES
+    queries) and against the plain version's. A list may differ from the
+    exact one only where the exact distance of its row at some position
+    lies within ``margin`` of the exact distance that belongs there (two
+    near-equal rows swapped, or the k-th row and the exact (k+1)-th);
+    ``margin`` is 3× the kernel's own worst |d2 − exact|, which must itself
+    stay within ERR_RATIO times the plain version's (so a kernel whose d2
+    do not belong to its rows cannot widen its own margin). Against the
+    plain version the margin is 3× the larger of the two errors. Returns
+    the errors and flip counts."""
+    k = idx.shape[1]
+    nq = min(EXACT_QUERIES, Qk.shape[0])
+    err_k = err_p = dev_exact = dev_plain = 0.0
+    flips_exact = 0
+    for q0 in range(0, nq, 500):
+        q1 = min(nq, q0 + 500)
+        D = exact_sq_distances(Qk[q0:q1], Tk)
+        best = torch.sort(D, dim=1, stable=True)
+        dk = D.gather(1, idx[q0:q1].long())
+        dp = D.gather(1, ref_i[q0:q1].long())
+        err_k = max(err_k, float((d2[q0:q1].double() - dk).abs().max()))
+        err_p = max(err_p, float((ref_d[q0:q1].double() - dp).abs().max()))
+        dev_exact = max(dev_exact,
+                        float((dk - best.values[:, :k]).abs().max()))
+        dev_plain = max(dev_plain, float((dk - dp).abs().max()))
+        flips_exact += int((idx[q0:q1].long() != best.indices[:, :k]).sum())
+    check(err_k <= ERR_RATIO * err_p,
+          f"argkmin {case}: d2 off the exact distances of its own rows by "
+          f"{err_k}, more than {ERR_RATIO} × the plain version's {err_p}")
+    margin = 3.0 * err_k
+    check(dev_exact <= margin,
+          f"argkmin {case}: a list differs from the exact one by {dev_exact} "
+          f"in exact distance, beyond the margin {margin}")
+    margin_p = 3.0 * max(err_k, err_p)
+    check(dev_plain <= margin_p,
+          f"argkmin {case}: a list differs from the plain version's by "
+          f"{dev_plain} in exact distance, beyond the margin {margin_p}")
+    return {"d2_err_exact": err_k, "plain_d2_err_exact": err_p,
+            "margin": margin, "flips_exact": flips_exact,
+            "exact_queries": nq}
+
+
+def argkmin_phase(Xd, torch):
+    """Hold the argkmin kernel against its plain version and the exact
+    lists on the surrogate split as MNIST is (train rows [:60000], queries
+    [60000:], uncentered); returns the kernel's JSON entry (launches filled
+    in later)."""
+    from sq_learn_tpu_torch.ops.kernels import (argkmin,
+                                                argkmin_lists_in_shared,
+                                                argkmin_plan,
+                                                argkmin_reference,
+                                                argkmin_tiles,
+                                                argkmin_work)
+
+    dev = Xd.device
+    T, Q = Xd[:N_TRAIN].contiguous(), Xd[N_TRAIN:].contiguous()
+    # small integers: every product and sum is exact in float32, so scores
+    # tie exactly and often, and the kernel must give the plain lists
+    Ti = torch.round(T / 8.0).contiguous()
+    Qi = torch.round(Q / 8.0).contiguous()
+    check(not argkmin_lists_in_shared(K_GLOBAL, dev)
+          and argkmin_lists_in_shared(100, dev),
+          f"k={K_GLOBAL} must take the global-memory lists, k=100 the "
+          f"shared-memory ones")
+    # (name, train, queries, k, timed, exact)
+    cases = [("main 10000×60000×784 k=7", T, Q, KNN_K, True, False),
+             ("k=1", T, Q, 1, False, False),
+             ("k=100", T, Q, 100, False, False),
+             (f"k={K_GLOBAL} on 256 queries (lists in global memory)", T,
+              Q[:256].contiguous(), K_GLOBAL, False, False),
+             ("width 61", T[:, :61].contiguous(), Q[:, :61].contiguous(),
+              KNN_K, False, False),
+             ("16 queries (train split over blocks)", T,
+              Q[:16].contiguous(), KNN_K, False, False),
+             ("integer-valued rows (exact ties)", Ti, Qi, KNN_K, False,
+              True)]
+    entry = None
+    for case, Tk, Qk, k, timed, exact in cases:
+        tsq = torch.sum(Tk * Tk, dim=1)
+        nq, nt = Qk.shape[0], Tk.shape[0]
+        idx, d2 = argkmin(Tk, tsq, Qk, k)
+        ref_i, ref_d = argkmin_reference(Tk, tsq, Qk, k)
+        torch.cuda.synchronize()
+        check(idx.shape == d2.shape == (nq, k) and idx.dtype == torch.int32
+              and bool(torch.isfinite(d2).all()),
+              f"argkmin {case}: output of the wrong shape or not finite")
+        srt = torch.sort(idx, dim=1).values
+        check(int(idx.min()) >= 0 and int(idx.max()) < nt
+              and bool((srt[:, 1:] != srt[:, :-1]).all()),
+              f"argkmin {case}: indices out of range or repeated")
+        check(bool((d2[:, 1:] >= d2[:, :-1]).all()),
+              f"argkmin {case}: distances not ascending")
+        err = float((d2 - ref_d).abs().max())
+        check(bool(((d2 - ref_d).abs() <= D2_RTOL_KNN * ref_d.abs()).all()),
+              f"argkmin {case}: d2 off the plain version's by {err}")
+        flips_plain = int((idx != ref_i).sum())
+        if exact:
+            check(flips_plain == 0 and bool(torch.equal(d2, ref_d)),
+                  f"argkmin {case}: {flips_plain} indices differ from the "
+                  f"plain version on exactly tied scores")
+            held = {}
+        else:
+            held = hold_lists(case, idx, d2, ref_i, ref_d, Qk, Tk, torch)
+        again = argkmin(Tk, tsq, Qk, k)
+        check(bool(torch.equal(again[0], idx) and torch.equal(again[1], d2)),
+              f"argkmin {case}: two launches differ")
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits, rows = argkmin_plan(nq, nt, k, n_sms, argkmin_tiles())
+        line = (f"argkmin {case}: {splits} train splits of {rows} rows, "
+                f"lists in {'shared' if argkmin_lists_in_shared(k, dev) else 'global'} "
+                f"memory; {flips_plain} of {nq * k} indices differ from the "
+                f"plain version, max |d2 − plain| {err}; {held}")
+        if timed:
+            ms = time_ms(lambda: argkmin(Tk, tsq, Qk, k))
+            plain_ms = time_ms(lambda: argkmin_reference(Tk, tsq, Qk, k))
+            nbytes, ops = argkmin_work(nq, nt, Tk.shape[1], k)
+            bytes_ms, ops_ms = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+            entry = {"name": "argkmin", "route": "cuda",
+                     "source": "sq_learn_tpu_torch/csrc/argkmin.cu",
+                     "replaces": "sq_learn_tpu/ops/pallas_kernels.py:305",
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                  else "operations"),
+                     "library_ms": None}
+            line += (f"; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                     f"{entry['bound_ms']:.4f} ms by {entry['bound_by']})")
+        print(line, flush=True)
+
+    # planted duplicate rows: the lower index first, with equal d2, whether
+    # the two rows share a tile, a split, or lie in different splits
+    T2 = T.clone()
+    dups = {N_TRAIN - 1: 0, N_TRAIN // 2: 1, 5: 2}
+    for dst, src in dups.items():
+        T2[dst] = T[src]
+    tsq2 = torch.sum(T2 * T2, dim=1)
+    for nq in (16, Q.shape[0] + 3):
+        Q2 = torch.cat([T[:3], Q])[:nq].contiguous()
+        idx, d2 = argkmin(T2, tsq2, Q2, KNN_K)
+        torch.cuda.synchronize()
+        for dst, src in dups.items():
+            check(idx[src, :2].tolist() == [src, dst]
+                  and float(d2[src, 0]) == float(d2[src, 1]),
+                  f"argkmin ties ({nq} queries): row {src} and its copy "
+                  f"{dst} came back as {idx[src, :3].tolist()} with d2 "
+                  f"{d2[src, :3].tolist()}")
+    print(f"argkmin ties: rows {sorted(dups.values())} copied to "
+          f"{sorted(dups)} come back lower index first with equal d2, at "
+          f"16 and {Q.shape[0] + 3} queries", flush=True)
+    return entry
+
+
+def knn_main_path(X, y, torch):
+    """k-NN through the entry points a user calls: fit on the first 60 000
+    rows, predict/predict_proba/kneighbors/score on the last 10 000 (both
+    weightings), then a 10-fold stratified CV on all 70 000."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.model_selection import (StratifiedKFold,
+                                                    cross_validate)
+    from sq_learn_tpu_torch.models import KNeighborsClassifier
+    from sq_learn_tpu_torch.ops.kernels import argkmin
+
+    Xtr, ytr, Xte, yte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:], y[N_TRAIN:]
+    for weights in ("uniform", "distance"):
+        t0 = time.perf_counter()
+        est = KNeighborsClassifier(n_neighbors=KNN_K, weights=weights)
+        est.fit(Xtr, ytr)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pred = est.predict(Xte)  # ends in the fetch of the labels
+            walls.append(time.perf_counter() - t0)
+        proba = est.predict_proba(Xte)
+        dist, idx = est.kneighbors(Xte)
+        acc = est.score(Xte, yte)
+        check(acc >= KNN_ACCURACY_FLOOR,
+              f"k-NN {weights}: accuracy {acc} < {KNN_ACCURACY_FLOOR}")
+        check(np.array_equal(pred, est.classes_[np.argmax(proba, axis=1)]),
+              f"k-NN {weights}: predict is not the argmax of predict_proba")
+        check(np.allclose(proba.sum(1), 1.0), f"k-NN {weights}: proba rows")
+        check(dist.shape == idx.shape == (len(Xte), KNN_K)
+              and np.isfinite(dist).all()
+              and (np.diff(dist, axis=1) >= 0).all(),
+              f"k-NN {weights}: kneighbors distances not finite ascending")
+        print(f"KNeighborsClassifier(n_neighbors={KNN_K}, weights="
+              f"{weights!r}) 60000×784: fit {fit_s:.4f} s, predict 10000 "
+              f"rows {walls[0]:.4f} s then {walls[1]:.4f} s, accuracy {acc}",
+              flush=True)
+    before = argkmin.launches
+    t0 = time.perf_counter()
+    res = cross_validate(KNeighborsClassifier(n_neighbors=KNN_K), X, y,
+                         cv=StratifiedKFold(10))
+    cv_s = time.perf_counter() - t0
+    cv_launches = argkmin.launches - before
+    check(cv_launches == 10, f"10-fold CV launched the kernel {cv_launches} "
+                             f"times, not once per fold")
+    check(res["test_score"].min() >= KNN_ACCURACY_FLOOR,
+          f"CV fold accuracy {res['test_score'].min()}")
+    print(f"cross_validate(KNeighborsClassifier(n_neighbors={KNN_K}), "
+          f"StratifiedKFold(10)) 70000×784: {cv_s:.4f} s, kernel launches "
+          f"{cv_launches}, test_score {res['test_score'].tolist()}, fit_time "
+          f"{res['fit_time'].tolist()}, score_time "
+          f"{res['score_time'].tolist()}", flush=True)
+
+
+def knn_card_vs_cpu(X, y):
+    """A 4000-row fit and 2000-row predict on the card against the same on
+    the CPU (the plain version): predictions equal, neighbor lists equal
+    but where the exact (float64) distances explain a swap."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import KNeighborsClassifier
+
+    Xtr, ytr, Xq = X[:4000], y[:4000], X[N_TRAIN:N_TRAIN + 2000]
+    out = {}
+    for device in (CARD, "cpu"):
+        est = KNeighborsClassifier(n_neighbors=KNN_K, device=device)
+        est.fit(Xtr, ytr)
+        out[device] = (est.predict(Xq), *est.kneighbors(Xq))
+    (pc, dc, ic), (pp, dp, ip) = out[CARD], out["cpu"]
+    check(np.array_equal(pc, pp), "small k-NN: card and CPU predict differ")
+    Q64, T64 = Xq.astype(np.float64), Xtr.astype(np.float64)
+    D = (Q64 ** 2).sum(1)[:, None] + (T64 ** 2).sum(1)[None] - 2 * Q64 @ T64.T
+    ec = np.take_along_axis(D, ic.astype(np.int64), 1)
+    ep = np.take_along_axis(D, ip.astype(np.int64), 1)
+    err = max(np.abs(dc.astype(np.float64) ** 2 - ec).max(),
+              np.abs(dp.astype(np.float64) ** 2 - ep).max())
+    dev = float(np.abs(ec - ep).max())
+    check(dev <= 3.0 * err,
+          f"small k-NN: card and CPU lists differ by {dev} in exact "
+          f"distance, beyond 3 × {err}")
+    print(f"small k-NN 4000×784, 2000 queries: card == CPU predictions; "
+          f"{int((ic != ip).sum())} of {ic.size} neighbor indices differ, "
+          f"each within {dev} ≤ 3 × {err} in exact distance", flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -280,7 +557,7 @@ def main():
     from sq_learn_tpu_torch.datasets import synthetic_surrogate
     from sq_learn_tpu_torch.models import QKMeans
     from sq_learn_tpu_torch.ops import _build
-    from sq_learn_tpu_torch.ops.kernels import lloyd_step
+    from sq_learn_tpu_torch.ops.kernels import argkmin, lloyd_step
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -289,11 +566,13 @@ def main():
     print(f"card: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    # phase 1: build (set-up time)
+    # phase 1: build every kernel source, all at once (set-up time)
     t0 = time.perf_counter()
-    _build.build("lloyd")
-    print(f"kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
-    print(_build.build_log("lloyd"), flush=True)
+    built = _build.build_all()
+    print(f"kernels {sorted(built)} built in {time.perf_counter() - t0:.2f} "
+          f"s", flush=True)
+    for name in sorted(built):
+        print(f"--- {name}.cu\n{_build.build_log(name)}", flush=True)
 
     dev = torch.device("cuda:0")
     sqt.set_config(device="cuda:0")
@@ -306,11 +585,15 @@ def main():
     print("library_ms: null — no single PyTorch call computes the fused "
           "Lloyd step (distances, δ-window pick and weighted partial sums)",
           flush=True)
+    knn_entry = argkmin_phase(Xd, torch)
+    print("argkmin library_ms: null — no single PyTorch call computes a "
+          "k-smallest search with lowest-index ties (torch.topk leaves the "
+          "order of ties undocumented)", flush=True)
 
     # phase 3: the main path through the entry points a user calls
     est = QKMeans(n_clusters=K, n_init=10, max_iter=300, delta=WINDOW,
                   true_distance_estimate=False, sketch=0, random_state=0)
-    lloyd_step.launches = 0
+    lloyd_step.launches = argkmin.launches = 0
     t0 = time.perf_counter()
     est.fit(X)
     fit_s = time.perf_counter() - t0
@@ -369,8 +652,19 @@ def main():
     print(f"small δ=0 fit 4000×784: card == CPU (labels, n_iter "
           f"{on['cpu'].n_iter_}, centers at rtol 1e-4)", flush=True)
 
+    # the k-NN main path, its launches counted from 0
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    knn_main_path(X, y, torch)
+    knn_entry["launches"] = argkmin.launches
+    check(knn_entry["launches"] > 0, "the k-NN path never launched argkmin")
+    print(f"k-NN path: {time.perf_counter() - t0:.3f} s, argkmin launches "
+          f"{knn_entry['launches']}, lloyd_step launches "
+          f"{lloyd_step.launches}", flush=True)
+    knn_card_vs_cpu(X, y)
+
     print(smi)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, knn_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -185,3 +185,14 @@ class ClusterMixin:
     def fit_predict(self, X, y=None):
         self.fit(X)
         return self.labels_
+
+
+class ClassifierMixin:
+    """Mixin providing the accuracy ``score`` of classifiers."""
+
+    _estimator_type = "classifier"
+
+    def score(self, X, y):
+        from .metrics import accuracy_score
+
+        return accuracy_score(y, self.predict(X))

@@ -2,14 +2,19 @@
 
 :func:`qkmeans_from_numpy` takes a fitted JAX ``QKMeans``'s attributes as
 numpy arrays and returns a fitted port :class:`~.models.QKMeans` whose
-``predict``, ``transform`` and ``score`` compute what the JAX ones do.
+``predict``, ``transform`` and ``score`` compute what the JAX ones do;
+:func:`kneighbors_from_numpy` does the same for ``KNeighborsClassifier``.
 The port imports nothing of the JAX package: the caller reads the
 attributes (``vars(est)``) and hands them over.
 """
 
 import numpy as np
+import torch
 
+from ._config import resolve_device
+from .models.neighbors import KNeighborsClassifier
 from .models.qkmeans import QKMeans
+from .ops.linalg import row_norms
 
 #: fitted attributes carried over, with the type each is stored as
 _ARRAYS = {"cluster_centers_": np.float32, "labels_": np.int32,
@@ -62,4 +67,49 @@ def qkmeans_from_numpy(attrs, device=None, params=None):
             f"n_features_in_={width} does not match cluster_centers_ of "
             f"width {centers.shape[1]}")
     est.n_features_in_ = centers.shape[1]
+    return est
+
+
+def kneighbors_from_numpy(attrs, device=None, params=None):
+    """A fitted port ``KNeighborsClassifier`` from a JAX one's fitted state.
+
+    Parameters
+    ----------
+    attrs : dict
+        Fitted attributes as arrays: ``X_fit_`` (n, m), ``y_fit_`` (n,)
+        (the encoded labels), ``classes_``, and optionally
+        ``n_samples_fit_`` and ``n_features_in_``, which must agree with
+        ``X_fit_``. Other keys are ignored.
+    device : str or torch.device, optional
+        Where the training rows are kept and every search runs (None = the
+        configured device).
+    params : dict, optional
+        Hyperparameters (for example the JAX estimator's ``get_params()``);
+        those the port does not have (``use_pallas``) are dropped.
+    """
+    missing = [a for a in ("X_fit_", "y_fit_", "classes_") if a not in attrs]
+    if missing:
+        raise ValueError(f"attrs must hold the fitted {', '.join(missing)}")
+    X = np.asarray(attrs["X_fit_"], np.float32)
+    y = np.asarray(attrs["y_fit_"]).astype(np.int32)
+    classes = np.asarray(attrs["classes_"])
+    if X.ndim != 2 or y.shape != (X.shape[0],):
+        raise ValueError(f"X_fit_ (n, m) and y_fit_ (n,) do not match: "
+                         f"{X.shape} and {y.shape}")
+    if len(y) and not 0 <= y.min() <= y.max() < len(classes):
+        raise ValueError("y_fit_ must index classes_")
+    for name, value in (("n_samples_fit_", X.shape[0]),
+                        ("n_features_in_", X.shape[1])):
+        if int(attrs.get(name, value)) != value:
+            raise ValueError(f"{name}={attrs[name]} does not match X_fit_ "
+                             f"of shape {X.shape}")
+    names = set(KNeighborsClassifier._get_param_names())
+    kw = {k: v for k, v in (params or {}).items() if k in names}
+    kw["device"] = device
+    est = KNeighborsClassifier(**kw)
+    est.X_fit_ = torch.tensor(X, device=resolve_device(device))
+    est.y_fit_ = y
+    est.classes_ = classes
+    est.n_samples_fit_, est.n_features_in_ = X.shape
+    est._x_sq_fit = row_norms(est.X_fit_, squared=True)
     return est

@@ -1,5 +1,10 @@
 """Metrics."""
 
 from .pairwise import euclidean_distances
+from .scores import (accuracy_score, adjusted_rand_score, confusion_matrix,
+                     explained_variance_ratio, f1_score, inertia,
+                     normalized_mutual_info_score, silhouette_score)
 
-__all__ = ["euclidean_distances"]
+__all__ = ["accuracy_score", "adjusted_rand_score", "confusion_matrix",
+           "euclidean_distances", "explained_variance_ratio", "f1_score",
+           "inertia", "normalized_mutual_info_score", "silhouette_score"]

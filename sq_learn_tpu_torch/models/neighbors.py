@@ -1,0 +1,188 @@
+"""K-nearest-neighbors classification, brute force (counterpart of
+``sq_learn_tpu/models/neighbors.py``).
+
+The exact float32 search is :func:`~sq_learn_tpu_torch.ops.kernels.argkmin`:
+on the card the hand-written kernel of ``csrc/argkmin.cu``, on the CPU its
+plain torch version. A reduced ``compute_dtype`` runs :func:`knn_indices`,
+a shortlist in reduced precision refined exactly, in plain torch ops, as
+the JAX package leaves it to XLA. Voting is on the host in numpy, after
+one copy of the (n, k) neighbor lists.
+
+Not ported: ``use_pallas`` (the device of the data decides), the host fast
+path, the tiny-predict host routing and the memo of rejected kernels (the
+device a model was fitted on computes every search), streamed predict and
+the ``obs`` span and ledger entry (``ROADMAP.md`` §1 item 7). ``mesh`` and
+float64 data raise ``NotImplementedError`` naming their item.
+"""
+
+import numbers
+
+import numpy as np
+import torch
+
+from .._config import resolve_device
+from ..base import (BaseEstimator, ClassifierMixin, check_is_fitted,
+                    check_n_features)
+from ..ops.kernels import argkmin
+from ..ops.linalg import (check_compute_dtype, is_reduced,
+                          pairwise_sq_distances, row_norms)
+from ..utils.validation import check_X_y
+
+_MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
+_FLOAT64 = ("the k-NN search takes float32 data; {} is not ported yet: "
+            "ROADMAP.md §1 item 7, remaining estimators and host engines")
+
+#: distance-matrix entries one query block of :func:`knn_indices` may hold
+_BLOCK_ELEMENTS = 1 << 24
+
+
+def _smallest(d, k):
+    """(values, indices) of the k smallest entries of each row of ``d``,
+    ascending, ties to the lowest index — the order ``lax.top_k(-d, k)``
+    gives."""
+    vals, order = torch.sort(d, dim=1, stable=True)
+    return vals[:, :k], order[:, :k]
+
+
+def knn_indices(X_train, X_query, k, block=4096, compute_dtype=None):
+    """Indices (int32) and squared distances of the k nearest training rows
+    per query, ascending, ties to the lowest index.
+
+    Counterpart of the JAX ``knn_indices``. The exact search (float32 data,
+    ``compute_dtype`` None or float32) is the fused search
+    :func:`~sq_learn_tpu_torch.ops.kernels.argkmin` on every device: the
+    kernel on the card, its plain version on the CPU. It ranks by
+    ‖t‖²−2·q·t, as the JAX package's Pallas search does.
+
+    A reduced ``compute_dtype`` makes the search approximate-then-exact:
+    the distance GEMM runs in reduced precision to shortlist 4k+16
+    candidates, whose distances are then recomputed exactly in the
+    difference form, and the k nearest of them are returned. Its queries
+    are taken in blocks of at most ``block`` rows (fewer when a block's
+    distance matrix would pass ``_BLOCK_ELEMENTS``). When the shortlist
+    would hold the whole training set the reduced dtype is dropped.
+    """
+    nt = X_train.shape[0]
+    kc = 4 * k + 16
+    if not (is_reduced(compute_dtype, X_train.dtype) and kc < nt):
+        X_train = X_train.contiguous()
+        return argkmin(X_train, row_norms(X_train, squared=True),
+                       X_query.contiguous(), k)
+    nq = X_query.shape[0]
+    block = max(1, min(block, _BLOCK_ELEMENTS // nt))
+    idx = torch.empty((nq, k), dtype=torch.int32, device=X_query.device)
+    d2 = torch.empty((nq, k), dtype=X_query.dtype, device=X_query.device)
+    for q0 in range(0, nq, block):
+        q = X_query[q0:q0 + block]
+        d = pairwise_sq_distances(q, X_train, compute_dtype=compute_dtype)
+        # shortlist in reduced precision, refine exactly: the difference
+        # form is non-negative by construction
+        _, cand = _smallest(d, kc)
+        exact = torch.sum((q[:, None, :] - X_train[cand]) ** 2, dim=-1)
+        vals, within = _smallest(exact, k)
+        order = torch.gather(cand, 1, within)
+        idx[q0:q0 + block] = order.to(torch.int32)
+        d2[q0:q0 + block] = vals
+    return idx, d2
+
+
+class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
+    """Brute-force k-NN classifier (API surface of the reference's
+    ``neighbors/_classification.py`` used by the MNIST pipeline).
+
+    ``weights`` ∈ {'uniform', 'distance'}; ``algorithm``, ``p`` and
+    ``n_jobs`` are accepted for compatibility (the search is always the
+    brute-force Euclidean one). ``device`` (None = the configured one,
+    ``'cuda'`` by default) is where ``fit`` keeps the training rows and
+    where every search runs.
+    """
+
+    def __init__(self, n_neighbors=5, *, weights="uniform",
+                 algorithm="brute", p=2, n_jobs=None, compute_dtype=None,
+                 mesh=None, device=None):
+        self.n_neighbors = n_neighbors
+        self.weights = weights
+        self.algorithm = algorithm
+        self.p = p
+        self.n_jobs = n_jobs
+        self.compute_dtype = compute_dtype
+        self.mesh = mesh
+        self.device = device
+
+    def fit(self, X, y):
+        """Keep the training rows and their squared norms on the device,
+        and the encoded labels on the host."""
+        if self.mesh is not None:
+            raise NotImplementedError(_MESH)
+        check_compute_dtype(self.compute_dtype)
+        X, y = check_X_y(X, y, device=resolve_device(self.device))
+        if X.dtype != torch.float32:
+            raise NotImplementedError(_FLOAT64.format(f"X of dtype {X.dtype}"))
+        self.classes_, y_enc = np.unique(y, return_inverse=True)
+        self.X_fit_ = X
+        self.y_fit_ = y_enc.ravel().astype(np.int32)
+        self.n_samples_fit_ = X.shape[0]
+        self.n_features_in_ = X.shape[1]
+        self._x_sq_fit = row_norms(X, squared=True)
+        return self
+
+    def _search(self, X, k):
+        """(idx, d2) on the device of the training rows: the fused search
+        at exact precision, :func:`knn_indices` for a reduced
+        ``compute_dtype``."""
+        if not is_reduced(self.compute_dtype, self.X_fit_.dtype):
+            return argkmin(self.X_fit_, self._x_sq_fit, X, k)
+        return knn_indices(self.X_fit_, X, k,
+                           compute_dtype=self.compute_dtype)
+
+    def _check_k(self, k):
+        """Validate a neighbor count: 1 ≤ k ≤ n_samples_fit (sklearn's
+        ``kneighbors`` contract and messages)."""
+        if k is None:
+            k = self.n_neighbors
+        if not isinstance(k, numbers.Integral) or k <= 0:
+            raise ValueError(
+                f"n_neighbors must be a positive integer, got {k!r}")
+        if k > self.n_samples_fit_:
+            raise ValueError(
+                f"Expected n_neighbors <= n_samples_fit, but "
+                f"n_neighbors = {k}, n_samples_fit = {self.n_samples_fit_}")
+        return int(k)
+
+    def _query(self, X):
+        check_is_fitted(self, "n_samples_fit_")
+        return check_n_features(
+            self, self._validated_X(X, self.X_fit_.device))
+
+    def kneighbors(self, X, n_neighbors=None, return_distance=True):
+        """(distances, indices) of the nearest training rows, ascending;
+        only the indices with ``return_distance=False``."""
+        X = self._query(X)
+        k = self._check_k(n_neighbors)
+        idx, d2 = self._search(X, k)
+        if return_distance:
+            return np.sqrt(d2.cpu().numpy()), idx.cpu().numpy()
+        return idx.cpu().numpy()
+
+    def predict_proba(self, X):
+        """Class probabilities by (weighted) votes of the neighbors."""
+        X = self._query(X)
+        k = self._check_k(self.n_neighbors)
+        n_classes = len(self.classes_)
+        idx, d2 = self._search(X, k)
+        idx, d2 = idx.cpu().numpy(), d2.cpu().numpy()
+        votes = self.y_fit_[idx]                                # (n, k)
+        if self.weights == "distance":
+            wts = 1.0 / np.maximum(np.sqrt(d2), 1e-12)
+        else:
+            wts = np.ones_like(d2)
+        n = len(votes)
+        rows = np.repeat(np.arange(n), k)
+        counts = np.bincount(
+            rows * n_classes + votes.ravel(), weights=wts.ravel(),
+            minlength=n * n_classes).reshape(n, n_classes)
+        return counts / counts.sum(axis=1, keepdims=True)
+
+    def predict(self, X):
+        proba = self.predict_proba(X)
+        return self.classes_[np.argmax(proba, axis=1)]

@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
@@ -67,6 +68,20 @@ def build(name):
                                f"{proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, path)
     return path
+
+
+def sources():
+    """Names of the kernel sources, ``csrc/<name>.cu``."""
+    return sorted(f[:-3] for f in os.listdir(_CSRC) if f.endswith(".cu"))
+
+
+def build_all():
+    """Compile every kernel source that is not built yet, one ``nvcc`` per
+    source, all started together; returns {name: library path}. The first
+    failure raises."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name):

@@ -4,14 +4,17 @@
 :func:`lloyd_step` is the fused Lloyd step, the twin of the TPU kernel
 ``lloyd_step_pallas``: one call scores every sample against every restart's
 centers and returns labels, distances and the weighted per-cluster
-partials. On a CUDA tensor it launches the hand-written Hopper kernel of
-``csrc/lloyd.cu`` (built at first use, see :mod:`._build`) or raises; on a
-CPU tensor it runs :func:`lloyd_step_reference`, the same function in plain
-torch ops. ``lloyd_step.launches`` counts kernel launches.
+partials. :func:`argkmin` is the fused k-nearest search, the twin of
+``argkmin_pallas``. On a CUDA tensor each launches its hand-written Hopper
+kernel (``csrc/lloyd.cu``, ``csrc/argkmin.cu``, built at first use, see
+:mod:`._build`) or raises; on a CPU tensor it runs its plain torch version
+(:func:`lloyd_step_reference`, :func:`argkmin_reference`).
+``lloyd_step.launches`` and ``argkmin.launches`` count kernel launches.
 """
 
 import ctypes
 import math
+import numbers
 
 import torch
 
@@ -209,3 +212,189 @@ def lloyd_step_work(n, m, k, R, x_dtype, window):
                                                 if window > 0 else 0)
     outputs = 8 * R * n + 4 * R * k * m + 4 * R * k + 4 * R
     return inputs + outputs, 2 * n * m * k * R + 2 * n * m * R
+
+
+# ---------------------------------------------------------------------------
+# Fused k-nearest search (the twin of ``argkmin_pallas``)
+# ---------------------------------------------------------------------------
+
+#: score rows the plain version holds at once, times the train count
+_REFERENCE_BLOCK = 1 << 24
+#: most bytes the card's partial k-best lists may take
+_PARTIAL_BYTES = 1 << 29
+
+
+def argkmin_reference(X_train, x_sq_train, X_query, k):
+    """The fused k-nearest search in plain torch ops — the function
+    ``argkmin_pallas`` computes.
+
+    Each query ranks the training rows by the score ‖t‖² − 2·q·t (float32,
+    no query norm, no clamp) and keeps the k smallest, ascending, ties to
+    the lowest training index (a stable sort, as ``lax.top_k`` orders
+    them). Then ‖q‖² = sum(q*q) is added and the result clamped at 0. The
+    queries are taken in blocks, so the whole (nq, nt) score matrix never
+    exists at once.
+
+    Returns idx (nq, k) int32 and d2 (nq, k) float32.
+    """
+    nq, nt = X_query.shape[0], X_train.shape[0]
+    block = max(1, _REFERENCE_BLOCK // nt)
+    idx = torch.empty((nq, k), dtype=torch.int32, device=X_query.device)
+    best = torch.empty((nq, k), dtype=torch.float32, device=X_query.device)
+    for q0 in range(0, nq, block):
+        q = X_query[q0:q0 + block]
+        score = x_sq_train[None, :] - 2.0 * torch.matmul(q, X_train.T)
+        vals, order = torch.sort(score, dim=1, stable=True)
+        idx[q0:q0 + block] = order[:, :k].to(torch.int32)
+        best[q0:q0 + block] = vals[:, :k]
+    qsq = torch.sum(X_query * X_query, dim=1)
+    return idx, torch.clamp(best + qsq[:, None], min=0.0)
+
+
+def _check_argkmin_args(X_train, x_sq_train, X_query, k):
+    tensors = (("X_train", X_train), ("x_sq_train", x_sq_train),
+               ("X_query", X_query))
+    for name, t in tensors:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if X_train.ndim != 2 or X_query.ndim != 2 \
+            or X_query.shape[1] != X_train.shape[1]:
+        raise ValueError(
+            f"X_train (nt, m) and X_query (nq, m) must be 2-D of one width, "
+            f"got {tuple(X_train.shape)} and {tuple(X_query.shape)}")
+    nt, m = X_train.shape
+    if x_sq_train.shape != (nt,):
+        raise ValueError(f"x_sq_train must have shape ({nt},), got "
+                         f"{tuple(x_sq_train.shape)}")
+    if any(t.device != X_train.device for _, t in tensors):
+        raise ValueError("all argkmin operands must be on one device")
+    for name, t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (isinstance(k, bool) or not isinstance(k, numbers.Integral)
+            or not 0 < k <= nt):
+        raise ValueError(f"k={k} outside 1..{nt}")
+    return nt, X_query.shape[0], m, int(k)
+
+
+def argkmin_plan(nq, nt, k, n_sms, tiles):
+    """(splits, rows per split) of the CUDA kernel, for its ``tiles`` =
+    (queries a block owns, train rows per tile) as :func:`argkmin_tiles`
+    reads them from the library. The train rows are cut into splits of a
+    whole number of tiles, so that query tiles × splits is about eight
+    blocks per SM and the partial lists stay under ``_PARTIAL_BYTES``.
+    Every split but the last holds at least k rows. The last may hold
+    fewer, down to one: its list is then padded with (inf, no index),
+    which the merge ranks after every real row."""
+    tile_q, tile_t = tiles
+    qtiles = math.ceil(nq / tile_q)
+    target = max(1, math.ceil(8 * n_sms / qtiles))
+    min_rows = math.ceil(max(k, tile_t) / tile_t) * tile_t
+    cap = max(1, _PARTIAL_BYTES // (8 * nq * k))
+    splits = max(1, min(target, math.ceil(nt / min_rows), cap))
+    rows = max(min_rows,
+               math.ceil(math.ceil(nt / splits) / tile_t) * tile_t)
+    return math.ceil(nt / rows), rows
+
+
+def _argkmin_lib():
+    """The argkmin library, built and loaded at first use, its C
+    signatures declared once."""
+    lib = _state.get("argkmin")
+    if lib is None:
+        lib = _build.load("argkmin")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sq_argkmin.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p,
+                                   p, p]
+        lib.sq_argkmin.restype = i
+        lib.sq_argkmin_lists_in_shared.argtypes = [i]
+        lib.sq_argkmin_lists_in_shared.restype = i
+        lib.sq_argkmin_error_string.argtypes = [i]
+        lib.sq_argkmin_error_string.restype = ctypes.c_char_p
+        lib.sq_argkmin_tiles.argtypes = [ctypes.POINTER(i)] * 2
+        lib.sq_argkmin_tiles.restype = None
+        tile_q, tile_t = i(), i()
+        lib.sq_argkmin_tiles(ctypes.byref(tile_q), ctypes.byref(tile_t))
+        _state["argkmin_tiles"] = (tile_q.value, tile_t.value)
+        _state["argkmin"] = lib
+    return lib
+
+
+def argkmin_tiles():
+    """(queries a block owns, train rows per tile) of the CUDA kernel, as
+    its library states them: the launch plan is cut to these."""
+    _argkmin_lib()
+    return _state["argkmin_tiles"]
+
+
+def argkmin_lists_in_shared(k, device):
+    """Whether the CUDA kernel keeps a block's k-best lists in shared
+    memory (True) or in the global partial buffer (False) on ``device``."""
+    lib = _argkmin_lib()
+    with torch.cuda.device(device):
+        code = lib.sq_argkmin_lists_in_shared(int(k))
+    if code < 0:
+        raise RuntimeError(f"argkmin: {lib.sq_argkmin_error_string(-code)}")
+    return bool(code)
+
+
+def argkmin(X_train, x_sq_train, X_query, k):
+    """Indices and squared distances of the k nearest training rows of
+    every query, ascending (see :func:`argkmin_reference` for what it
+    computes).
+
+    Parameters
+    ----------
+    X_train : (nt, m) float32, contiguous.
+    x_sq_train : (nt,) float32 — squared row norms of X_train.
+    X_query : (nq, m) float32, contiguous.
+    k : int with 1 ≤ k ≤ nt.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    of ``csrc/argkmin.cu`` (and counts it in ``argkmin.launches``) or
+    raises. Returns idx (nq, k) int32 and d2 (nq, k) float32.
+    """
+    nt, nq, m, k = _check_argkmin_args(X_train, x_sq_train, X_query, k)
+    dev = X_train.device
+    if dev.type == "cpu":
+        return argkmin_reference(X_train, x_sq_train, X_query, k)
+    if dev.type != "cuda":
+        raise ValueError(f"argkmin runs on cpu or cuda, not {dev}")
+    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    d2 = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    if nq == 0:
+        return idx, d2
+    lib = _argkmin_lib()
+    splits, rows = argkmin_plan(nq, nt, k, _n_sms(dev), argkmin_tiles())
+    part_d = torch.empty(splits * nq * k, dtype=torch.float32, device=dev)
+    part_i = torch.empty(splits * nq * k, dtype=torch.int32, device=dev)
+    buf_d = buf_i = None
+    if splits > 1:
+        buf_d = torch.empty(2 * nq * k, dtype=torch.float32, device=dev)
+        buf_i = torch.empty(2 * nq * k, dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sq_argkmin(
+            ptr(X_train), ptr(x_sq_train), ptr(X_query), nt, nq, m, k,
+            splits, rows, ptr(part_d), ptr(part_i), ptr(buf_d), ptr(buf_i),
+            ptr(idx), ptr(d2), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"argkmin kernel launch failed: "
+            f"{lib.sq_argkmin_error_string(err).decode()} (cudaError {err})")
+    argkmin.launches += 1
+    return idx, d2
+
+
+argkmin.launches = 0
+
+
+def argkmin_work(nq, nt, m, k):
+    """(bytes, operations) the search must move and do: the train rows,
+    their norms and the queries read once, the (nq, k) indices and
+    distances written once; 2·nq·nt·m operations for the score products."""
+    return 4 * (nt * m + nt + nq * m) + 8 * nq * k, 2 * nq * nt * m

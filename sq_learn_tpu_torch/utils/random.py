@@ -7,6 +7,8 @@ frameworks give different numbers from the same seed, so parity tests make
 their noise with numpy and hand it to both sides.
 """
 
+import numbers
+
 import numpy as np
 import torch
 
@@ -46,3 +48,16 @@ def gumbel(shape, generator, device):
     """Standard Gumbel noise, ``-log(E)`` with ``E ~ Exp(1)``."""
     noise = torch.empty(shape, dtype=torch.float32, device=device)
     return noise.exponential_(generator=generator).log_().neg_()
+
+
+def check_random_state(seed):
+    """Turn ``seed`` into a numpy ``RandomState`` for host-side index
+    bookkeeping (the splitters): None is numpy's global one, an int seeds
+    a new one, a ``RandomState`` is used as it is."""
+    if seed is None or seed is np.random:
+        return np.random.mtrand._rand
+    if isinstance(seed, numbers.Integral):
+        return np.random.RandomState(int(seed))
+    if isinstance(seed, np.random.RandomState):
+        return seed
+    raise ValueError(f"{seed!r} cannot be used to seed a RandomState instance")

@@ -48,6 +48,26 @@ def check_array(X, *, device):
     return out.contiguous()
 
 
+def to_numpy(a):
+    """``a`` as a numpy array; a tensor is fetched from its device."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def check_X_y(X, y, *, device):
+    """Validate X as :func:`check_array` does and y as a 1-D host array of
+    as many labels as X has rows; returns (tensor X, numpy y)."""
+    X = check_array(X, device=device)
+    y = to_numpy(y)
+    if y.ndim != 1:
+        y = np.ravel(y)
+    if len(y) != X.shape[0]:
+        raise ValueError(
+            f"Found input variables with inconsistent numbers of samples: "
+            f"[{X.shape[0]}, {len(y)}]")
+    return X, y
+
+
 @contextmanager
 def validation_scope(estimator):
     """Open a validate-once scope on ``estimator``: while active, repeated

@@ -84,3 +84,57 @@ def test_rejects_inconsistent_state(fitted):
     with pytest.raises(ValueError, match="n_features_in_"):
         qkmeans_from_numpy({"cluster_centers_": est.cluster_centers_,
                             "n_features_in_": 3})
+
+
+@pytest.fixture(scope="module")
+def fitted_knn():
+    from sq_learn_tpu.models.neighbors import KNeighborsClassifier as JaxKNN
+
+    X, y = make_blobs(n_samples=400, centers=4, n_features=10,
+                      cluster_std=3.0, random_state=6)
+    X = X.astype(np.float32)
+    est = JaxKNN(n_neighbors=6, weights="distance", use_pallas=True).fit(
+        X[:300], y[:300] * 3 - 1)
+    est._host_search = lambda X, k: None  # JAX's own device search
+    return est, X[300:]
+
+
+def _port_knn(est, device="cpu"):
+    from sq_learn_tpu_torch.convert import kneighbors_from_numpy
+
+    attrs = {k: np.asarray(v) for k, v in vars(est).items()
+             if k.endswith("_")}
+    return kneighbors_from_numpy(attrs, device=device,
+                                 params=est.get_params())
+
+
+def test_kneighbors_inference_matches_jax(fitted_knn):
+    est, Xq = fitted_knn
+    port = _port_knn(est)
+    assert (port.n_neighbors, port.weights, port.device) == (6, "distance",
+                                                             "cpu")
+    np.testing.assert_array_equal(port.classes_, est.classes_)
+    np.testing.assert_array_equal(port.predict(Xq), est.predict(Xq))
+    np.testing.assert_allclose(port.predict_proba(Xq), est.predict_proba(Xq),
+                               rtol=1e-5)
+    dist_p, idx_p = port.kneighbors(Xq)
+    dist_j, idx_j = est.kneighbors(Xq)
+    np.testing.assert_array_equal(idx_p, idx_j)
+    np.testing.assert_allclose(dist_p, dist_j, rtol=1e-4, atol=1e-4)
+
+
+def test_kneighbors_rejects_inconsistent_state(fitted_knn):
+    from sq_learn_tpu_torch.convert import kneighbors_from_numpy
+
+    est, _ = fitted_knn
+    attrs = {k: np.asarray(v) for k, v in vars(est).items()
+             if k.endswith("_")}
+    with pytest.raises(ValueError, match="y_fit_"):
+        kneighbors_from_numpy({"X_fit_": attrs["X_fit_"],
+                               "classes_": attrs["classes_"]})
+    with pytest.raises(ValueError, match="do not match"):
+        kneighbors_from_numpy({**attrs, "y_fit_": attrs["y_fit_"][:-1]})
+    with pytest.raises(ValueError, match="index classes_"):
+        kneighbors_from_numpy({**attrs, "classes_": attrs["classes_"][:2]})
+    with pytest.raises(ValueError, match="n_features_in_"):
+        kneighbors_from_numpy({**attrs, "n_features_in_": 3})

@@ -1,0 +1,208 @@
+"""The port's k-NN classifier and ``knn_indices`` against the JAX package.
+
+The JAX classifier runs its fused Pallas search (``use_pallas=True``, in
+interpret mode on the CPU) with the host fast path defeated, as
+``tests/test_pallas.py``'s ``test_classifier_end_to_end`` runs it; the
+port runs on CPU tensors. Tolerances: predictions and neighbor indices
+equal; ``predict_proba`` at rtol 1e-5 (distance weights from float32
+distances summed in another order); distances at rtol 1e-4.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from sq_learn_tpu.datasets import make_blobs
+from sq_learn_tpu.models.neighbors import KNeighborsClassifier as JaxKNN
+from sq_learn_tpu.models.neighbors import knn_indices as jax_knn_indices
+from sq_learn_tpu_torch import config_context
+from sq_learn_tpu_torch.models import KNeighborsClassifier, knn_indices
+from sq_learn_tpu_torch.ops.kernels import argkmin
+
+
+@pytest.fixture(autouse=True)
+def _cpu():
+    with config_context(device="cpu"):
+        yield
+
+
+@pytest.fixture(scope="module")
+def blobs():
+    X, y = make_blobs(n_samples=400, centers=3, n_features=12,
+                      cluster_std=2.0, random_state=9)
+    X = X.astype(np.float32)
+    return X[:300], y[:300], X[300:]
+
+
+def _jax_fit(Xtr, ytr, **kw):
+    est = JaxKNN(use_pallas=True, **kw).fit(Xtr, ytr)
+    est._host_search = lambda X, k: None
+    return est
+
+
+@pytest.mark.parametrize("weights", ["uniform", "distance"])
+def test_classifier_matches_jax(blobs, weights):
+    Xtr, ytr, Xte = blobs
+    ref = _jax_fit(Xtr, ytr, n_neighbors=7, weights=weights)
+    port = KNeighborsClassifier(n_neighbors=7, weights=weights).fit(Xtr, ytr)
+    np.testing.assert_array_equal(port.predict(Xte), ref.predict(Xte))
+    np.testing.assert_allclose(port.predict_proba(Xte),
+                               ref.predict_proba(Xte), rtol=1e-5)
+    dist_p, idx_p = port.kneighbors(Xte)
+    dist_j, idx_j = ref.kneighbors(Xte)
+    np.testing.assert_array_equal(idx_p, idx_j)
+    np.testing.assert_allclose(dist_p, dist_j, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(
+        port.kneighbors(Xte, n_neighbors=3, return_distance=False),
+        ref.kneighbors(Xte, n_neighbors=3, return_distance=False))
+    assert port.score(Xte, ref.predict(Xte)) == 1.0
+
+
+def test_fit_state(blobs):
+    Xtr, ytr, _ = blobs
+    port = KNeighborsClassifier().fit(Xtr, ytr + 10)
+    assert isinstance(port.X_fit_, torch.Tensor)
+    assert port.X_fit_.dtype == torch.float32
+    np.testing.assert_array_equal(port.classes_, [10, 11, 12])
+    np.testing.assert_array_equal(port.y_fit_, ytr)
+    assert port.y_fit_.dtype == np.int32
+    assert (port.n_samples_fit_, port.n_features_in_) == (300, 12)
+    torch.testing.assert_close(port._x_sq_fit,
+                               torch.sum(port.X_fit_ ** 2, dim=1))
+    assert port._estimator_type == "classifier"
+
+
+def test_exact_search_goes_through_argkmin(blobs, monkeypatch):
+    """compute_dtype None (and its float32 spelling) searches through the
+    kernel's wrapper with the norms kept at fit."""
+    Xtr, ytr, Xte = blobs
+    calls = []
+
+    def spy(T, xsq, Q, k):
+        calls.append((T, xsq, k))
+        return argkmin(T, xsq, Q, k)
+
+    from sq_learn_tpu_torch.models import neighbors
+
+    monkeypatch.setattr(neighbors, "argkmin", spy)
+    for cdt in (None, "float32"):
+        port = KNeighborsClassifier(n_neighbors=4,
+                                    compute_dtype=cdt).fit(Xtr, ytr)
+        port.predict(Xte)
+    assert len(calls) == 2 and all(c[2] == 4 for c in calls)
+    assert calls[0][0] is not calls[1][0]
+
+
+@pytest.mark.parametrize("k", [1, 5, 13])
+def test_knn_indices_exact_matches_jax(k):
+    rng = np.random.RandomState(3)
+    Xt = rng.randn(1000, 17).astype(np.float32)
+    Xq = rng.randn(300, 17).astype(np.float32)
+    Xt[500] = Xt[0]  # a tie: the lower index first on both sides
+    Xq[0] = Xt[0]
+    ji, jd = jax_knn_indices(jnp.asarray(Xt), jnp.asarray(Xq), k)
+    ti, td = knn_indices(torch.from_numpy(Xt), torch.from_numpy(Xq), k,
+                         block=64)
+    assert ti.dtype == torch.int32
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-4)
+    if k > 1:
+        assert ti[0, :2].tolist() == [0, 500]
+
+
+@pytest.mark.parametrize("k", [1, 7])
+def test_knn_indices_bfloat16_matches_jax(k):
+    """Shortlist in bfloat16, refine exactly: the same neighbors and the
+    exact (difference-form) distances."""
+    rng = np.random.RandomState(4)
+    Xt = rng.randn(800, 24).astype(np.float32)
+    Xq = rng.randn(120, 24).astype(np.float32)
+    ji, jd = jax_knn_indices(jnp.asarray(Xt), jnp.asarray(Xq), k,
+                             compute_dtype="bfloat16")
+    ti, td = knn_indices(torch.from_numpy(Xt), torch.from_numpy(Xq), k,
+                         compute_dtype="bfloat16")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
+                               atol=1e-5)
+    exact = ((Xq[:, None, :] - Xt[None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(ti.numpy(), np.argsort(
+        exact, axis=1, kind="stable")[:, :k])
+
+
+def test_knn_indices_drops_a_shortlist_as_large_as_the_train_set():
+    rng = np.random.RandomState(5)
+    Xt = torch.from_numpy(rng.randn(40, 6).astype(np.float32))
+    Xq = torch.from_numpy(rng.randn(9, 6).astype(np.float32))
+    for a, b in zip(knn_indices(Xt, Xq, 7, compute_dtype="bfloat16"),
+                    knn_indices(Xt, Xq, 7)):
+        assert torch.equal(a, b)
+
+
+def test_classifier_bfloat16_matches_jax(blobs):
+    Xtr, ytr, Xte = blobs
+    ref = JaxKNN(n_neighbors=5, compute_dtype="bfloat16").fit(Xtr, ytr)
+    port = KNeighborsClassifier(n_neighbors=5,
+                                compute_dtype="bfloat16").fit(Xtr, ytr)
+    np.testing.assert_array_equal(port.kneighbors(Xte)[1],
+                                  ref.kneighbors(Xte)[1])
+    np.testing.assert_array_equal(port.predict(Xte), ref.predict(Xte))
+
+
+@pytest.mark.parametrize("k,match", [
+    (0, "positive integer"), (-2, "positive integer"),
+    (2.5, "positive integer"), (301, "n_samples_fit = 300"),
+])
+def test_check_k_errors_match_jax(blobs, k, match):
+    Xtr, ytr, Xte = blobs
+    port = KNeighborsClassifier().fit(Xtr, ytr)
+    ref = JaxKNN().fit(Xtr, ytr)
+    for est in (port, ref):
+        with pytest.raises(ValueError, match=match):
+            est.kneighbors(Xte, n_neighbors=k)
+    for est in (KNeighborsClassifier(n_neighbors=k).fit(Xtr, ytr),
+                JaxKNN(n_neighbors=k).fit(Xtr, ytr)):
+        with pytest.raises(ValueError, match=match):
+            est.predict(Xte)
+
+
+def test_not_ported_modes_raise(blobs):
+    Xtr, ytr, _ = blobs
+    with pytest.raises(NotImplementedError, match="item 6"):
+        KNeighborsClassifier(mesh=object()).fit(Xtr, ytr)
+    with config_context(default_dtype="float64"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            KNeighborsClassifier().fit(Xtr, ytr)
+
+
+def test_input_errors(blobs):
+    Xtr, ytr, Xte = blobs
+    with pytest.raises(ValueError, match="inconsistent numbers"):
+        KNeighborsClassifier().fit(Xtr, ytr[:-1])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        KNeighborsClassifier(compute_dtype="int8").fit(Xtr, ytr)
+    port = KNeighborsClassifier().fit(Xtr, ytr)
+    with pytest.raises(ValueError, match="features"):
+        port.predict(Xte[:, :5])
+    from sq_learn_tpu_torch import NotFittedError
+
+    with pytest.raises(NotFittedError):
+        KNeighborsClassifier().predict(Xte)
+
+
+def test_cuda_request_without_cuda_raises(blobs):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    Xtr, ytr, _ = blobs
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        KNeighborsClassifier(device="cuda").fit(Xtr, ytr)
+
+
+def test_facade_names():
+    from sq_learn_tpu_torch import KNeighborsClassifier as top
+    from sq_learn_tpu_torch.neighbors import (KNeighborsClassifier as facade,
+                                              knn_indices as facade_knn)
+
+    assert top is facade is KNeighborsClassifier
+    assert facade_knn is knn_indices
