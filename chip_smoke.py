@@ -14,7 +14,9 @@ each of which fails the run:
    restarts) hold the fused Lloyd kernel against its plain torch version
    on the card — float32 at window 0, float32 at window 0.5 and at a wide
    window on one shared Gumbel operand, bfloat16 — and time both (CUDA
-   events, median). Labels must be equal but where the exact (float64)
+   events, median), and the kernel once more with one restart (R=1): it
+   reads X a fixed number of times whatever R is, so R=10 must cost well
+   under ten times R=1. Labels must be equal but where the exact (float64)
    distances put a center nearer to the deciding boundary than the
    measured float32 error.
    Then the fused k-nearest search (argkmin) on the surrogate split as
@@ -31,6 +33,10 @@ each of which fails the run:
      true_distance_estimate=False, sketch=0, random_state=0).fit`` on the
      MNIST-shaped surrogate, then ``predict``, ``score`` and
      ``transform``, then one δ=0 fit;
+   - the same δ-means fit on ``graded_pair_surrogate(70_000, 784,
+     _MNIST_LOW_MARGIN_GRADES, seed=785)``, whose class pairs overlap so
+     that the Lloyd loop runs many launches (ARI ≥ 0.95, launches and the
+     warm wall clock printed);
    - ``KNeighborsClassifier(n_neighbors=7)`` fitted on the first 60 000
      rows, with ``predict``, ``predict_proba``, ``kneighbors`` and
      ``score`` on the last 10 000 (uniform and distance weights; accuracy
@@ -279,6 +285,14 @@ def kernel_phase(Xc, torch):
                      f"{report[(name, window)]['bound_by']})")
         print(line, flush=True)
     main = report[("float32", WINDOW)]
+    # one restart: X is read a fixed number of times, whatever R is
+    r1_ms = time_ms(lambda: lloyd_step(Xc, w, xsq, C[:1], gumbel=gum[:1],
+                                       window=WINDOW))
+    check(main["ms"] < R * r1_ms,
+          f"lloyd_step R={R} takes {main['ms']} ms, R=1 {r1_ms} ms: X is "
+          f"read once per restart")
+    print(f"lloyd_step float32 window {WINDOW}: R=1 {r1_ms:.4f} ms, R={R} "
+          f"{main['ms']:.4f} ms ({main['ms'] / r1_ms:.2f}x)", flush=True)
     return {"name": "lloyd_step", "route": "cuda",
             "source": "sq_learn_tpu_torch/csrc/lloyd.cu",
             "replaces": "sq_learn_tpu/ops/pallas_kernels.py:117",
@@ -450,6 +464,39 @@ def argkmin_phase(Xd, torch):
           f"{sorted(dups)} come back lower index first with equal d2, at "
           f"16 and {Q.shape[0] + 3} queries", flush=True)
     return entry
+
+
+def graded_path(QKMeans):
+    """The δ-means fit on the low-margin surrogate, whose overlapping class
+    pairs keep the Lloyd loop running: twice (the second is warm), each
+    with the launch count set to 0 before it."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.datasets import (_MNIST_LOW_MARGIN_GRADES,
+                                             graded_pair_surrogate)
+    from sq_learn_tpu_torch.ops.kernels import lloyd_step
+
+    Xg, yg = graded_pair_surrogate(N, M, _MNIST_LOW_MARGIN_GRADES, seed=785)
+    walls, launches = [], []
+    for _ in range(2):
+        est = QKMeans(n_clusters=K, n_init=10, max_iter=300, delta=WINDOW,
+                      true_distance_estimate=False, sketch=0, random_state=0)
+        lloyd_step.launches = 0
+        t0 = time.perf_counter()
+        est.fit(Xg)
+        walls.append(time.perf_counter() - t0)
+        launches.append(lloyd_step.launches)
+    check(launches[0] == launches[1] > 0,
+          f"graded δ-means fit launched the kernel {launches} times")
+    check(np.isfinite(est.cluster_centers_).all()
+          and np.isfinite(est.inertia_), "graded δ-means fit is not finite")
+    fit_ari = ari(yg, est.labels_)
+    check(fit_ari >= ARI_FLOOR, f"graded δ-means ARI {fit_ari} < {ARI_FLOOR}")
+    print(f"QKMeans δ=0.5 δ-means fit on graded_pair_surrogate(70000, 784, "
+          f"{_MNIST_LOW_MARGIN_GRADES}, seed=785): {walls[0]:.4f} s, warm "
+          f"{walls[1]:.4f} s, n_iter {est.n_iter_}, kernel launches "
+          f"{launches[1]}, inertia {est.inertia_}, ARI {fit_ari}",
+          flush=True)
 
 
 def knn_main_path(X, y, torch):
@@ -635,6 +682,8 @@ def main():
     print(f"QKMeans δ=0 fit: {classic_s:.3f} s, n_iter {classic.n_iter_}, "
           f"inertia {classic.inertia_}, ARI {ari(y, classic.labels_)}, "
           f"kernel launches {classic_launches}", flush=True)
+
+    graded_path(QKMeans)
 
     # a small δ=0 fit on the card against the same fit in plain torch
     small = X[:4000]

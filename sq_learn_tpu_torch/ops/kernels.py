@@ -21,7 +21,8 @@ import torch
 from . import _build
 
 _BIG = 1e30  # masking logit outside the δ-window (the TPU kernel's _BIG)
-_TILE_ROWS = 32  # rows a block scores per tile (kTileRows in lloyd.cu)
+#: most bytes a kernel's partial results may take on the card
+_PARTIAL_BYTES = 1 << 29
 
 
 def lloyd_step_reference(X, weights, x_sq_norms, centers, *, gumbel=None,
@@ -98,13 +99,18 @@ def _check_lloyd_args(X, weights, x_sq_norms, centers, gumbel, window,
     return n, m, k, R
 
 
-def launch_plan(n, R, n_sms):
-    """(blocks per restart, rows per block) of the CUDA kernel: about
-    eight blocks per SM over all restarts, each block a whole number of
-    rows (at least one tile)."""
-    target = max(1, math.ceil(8 * n_sms / R))
-    nblocks = max(1, min(target, math.ceil(n / _TILE_ROWS)))
-    rows = math.ceil(n / nblocks)
+def launch_plan(n, m, k, R, n_sms, tiles):
+    """(row splits, rows per split) of the CUDA fold kernel, for its
+    ``tiles`` = (rows a fold block stages at once, columns a fold block
+    owns) as :func:`lloyd_tiles` reads them from the library. Splits ×
+    column chunks is about eight blocks per SM, every split a whole number
+    of fold tiles, and the splits' partial sums stay under
+    ``_PARTIAL_BYTES``."""
+    fold_rows, fold_cols = tiles
+    target = max(1, math.ceil(8 * n_sms / math.ceil(m / fold_cols)))
+    cap = max(1, _PARTIAL_BYTES // (4 * R * (k * m + k + 1)))
+    splits = max(1, min(target, math.ceil(n / fold_rows), cap))
+    rows = math.ceil(math.ceil(n / splits) / fold_rows) * fold_rows
     return math.ceil(n / rows), rows
 
 
@@ -113,7 +119,7 @@ _state = {}
 
 def _lib():
     """The Lloyd library, built and loaded at first use, its C signatures
-    declared once."""
+    declared once and its tiles read."""
     lib = _state.get("lib")
     if lib is None:
         lib = _build.load("lloyd")
@@ -121,10 +127,25 @@ def _lib():
         lib.sq_lloyd_step.argtypes = [i, p, p, p, p, p, p, p, ctypes.c_float,
                                       i, i, i, i, i, i, p, p, p, p, p, p, p]
         lib.sq_lloyd_step.restype = i
+        lib.sq_lloyd_workspace_bytes.argtypes = [i] * 5
+        lib.sq_lloyd_workspace_bytes.restype = ctypes.c_longlong
         lib.sq_cuda_error_string.argtypes = [i]
         lib.sq_cuda_error_string.restype = ctypes.c_char_p
+        lib.sq_lloyd_tiles.argtypes = [ctypes.POINTER(i)] * 2
+        lib.sq_lloyd_tiles.restype = None
+        fold_rows, fold_cols = i(), i()
+        lib.sq_lloyd_tiles(ctypes.byref(fold_rows), ctypes.byref(fold_cols))
+        _state["lloyd_tiles"] = (fold_rows.value, fold_cols.value)
         _state["lib"] = lib
     return lib
+
+
+def lloyd_tiles():
+    """(rows a fold block stages at once, columns a fold block owns) of
+    the CUDA kernel, as its library states them: the launch plan is cut
+    to these."""
+    _lib()
+    return _state["lloyd_tiles"]
 
 
 def _n_sms(device):
@@ -149,8 +170,9 @@ def lloyd_step(X, weights, x_sq_norms, centers, *, gumbel=None, window=0.0,
     centers : (R, k, m) float32.
     gumbel : (R, n, k) float32 Gumbel noise, required iff ``window`` > 0.
     window : δ-means window on squared distances; 0 is the classic argmin.
-    active : optional (R,) mask; on the card the blocks of an inactive
-        restart exit at once and its outputs are zeros.
+    active : optional (R,) mask; on the card the kernel compacts the
+        active restarts, an inactive one costs no products and its outputs
+        are zeros.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (and counts it in ``lloyd_step.launches``) or raises.
@@ -170,17 +192,17 @@ def lloyd_step(X, weights, x_sq_norms, centers, *, gumbel=None, window=0.0,
     if gumbel is not None:
         gumbel = gumbel.contiguous()
     act = None if active is None else active.to(torch.int32).contiguous()
-    nblocks, rows = launch_plan(n, R, _n_sms(X.device))
+    lib = _lib()
     dev = X.device
+    splits, rows = launch_plan(n, m, k, R, _n_sms(dev), lloyd_tiles())
     # the kernel writes every output, zeros for an inactive restart
     labels = torch.empty((R, n), dtype=torch.int32, device=dev)
     min_d2 = torch.empty((R, n), dtype=torch.float32, device=dev)
     sums = torch.empty((R, k, m), dtype=torch.float32, device=dev)
     counts = torch.empty((R, k), dtype=torch.float32, device=dev)
     inertia = torch.empty((R,), dtype=torch.float32, device=dev)
-    partial = torch.empty((R * nblocks * (k * m + k + 1),),
-                          dtype=torch.float32, device=dev)
-    lib = _lib()
+    work = torch.empty(lib.sq_lloyd_workspace_bytes(n, m, k, R, splits),
+                       dtype=torch.uint8, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -190,8 +212,8 @@ def lloyd_step(X, weights, x_sq_norms, centers, *, gumbel=None, window=0.0,
         err = lib.sq_lloyd_step(
             0 if X.dtype == torch.float32 else 1, ptr(X), ptr(weights),
             ptr(x_sq_norms), ptr(C), ptr(csq), ptr(gumbel), ptr(act),
-            window, n, m, k, R, nblocks, rows, ptr(labels), ptr(min_d2),
-            ptr(partial), ptr(sums), ptr(counts), ptr(inertia), stream)
+            window, n, m, k, R, splits, rows, ptr(labels), ptr(min_d2),
+            ptr(work), ptr(sums), ptr(counts), ptr(inertia), stream)
     if err != 0:
         raise RuntimeError(
             f"lloyd kernel launch failed: "
@@ -220,8 +242,6 @@ def lloyd_step_work(n, m, k, R, x_dtype, window):
 
 #: score rows the plain version holds at once, times the train count
 _REFERENCE_BLOCK = 1 << 24
-#: most bytes the card's partial k-best lists may take
-_PARTIAL_BYTES = 1 << 29
 
 
 def argkmin_reference(X_train, x_sq_train, X_query, k):

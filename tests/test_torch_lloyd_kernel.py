@@ -24,6 +24,10 @@ from sq_learn_tpu_torch.ops.kernels import (launch_plan, lloyd_step,
                                             lloyd_step_reference,
                                             lloyd_step_work)
 
+# (rows a fold block stages, columns a fold block owns), as csrc/lloyd.cu
+# states them (``kernels.lloyd_tiles()``)
+TILES = (32, 64)
+
 
 @pytest.fixture(autouse=True)
 def _cpu():
@@ -165,9 +169,29 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 @pytest.mark.parametrize("n,R,sms", [(70_000, 10, 132), (700, 3, 132),
                                      (5, 1, 132), (100_000, 1, 8)])
 def test_launch_plan_covers_every_row_once(n, R, sms):
-    nblocks, rows = launch_plan(n, R, sms)
-    assert nblocks >= 1 and rows >= 1
+    nblocks, rows = launch_plan(n, 784, 10, R, sms, TILES)
+    assert nblocks >= 1 and rows >= 1 and rows % TILES[0] == 0
     assert (nblocks - 1) * rows < n <= nblocks * rows
+
+
+def test_launch_plan_fills_the_card_and_bounds_the_partials():
+    # 82 row splits × 13 column chunks: about eight fold blocks per SM
+    splits, rows = launch_plan(70_000, 784, 10, 10, 132, TILES)
+    assert splits * 13 >= 8 * 132 and rows % 32 == 0
+    # a wide problem is cut to fewer splits so its partials stay bounded
+    splits, _ = launch_plan(70_000, 4096, 300, 10, 132, TILES)
+    assert splits * 10 * (300 * 4096 + 301) * 4 <= kernels._PARTIAL_BYTES
+    assert splits >= 1
+
+
+def test_launch_plan_follows_the_tiles_it_is_given():
+    for fold_rows in (16, 32, 64):
+        _, rows = launch_plan(5, 784, 10, 1, 132, (fold_rows, 64))
+        assert rows == fold_rows
+    # fewer columns per fold block: more column chunks, fewer row splits
+    wide, _ = launch_plan(70_000, 784, 10, 10, 132, (32, 64))
+    narrow, _ = launch_plan(70_000, 784, 10, 10, 132, (32, 16))
+    assert narrow < wide
 
 
 def test_work_counts():
@@ -206,28 +230,51 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _masks(R, device):
+    """Masks of the active restarts: one off, every other one off, only
+    the last on, none on."""
+    masks = [[r != R // 2 for r in range(R)], [r % 2 == 0 for r in range(R)],
+             [r == R - 1 for r in range(R)], [False] * R]
+    return [torch.tensor(m, device=device) for m in masks]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("x_dtype,window,m,k", [
-    (torch.float32, 0.0, 130, 7),     # m % 4 != 0: the scalar-load path
-    (torch.float32, 0.5, 132, 20),    # two center groups, δ-window pick
-    (torch.bfloat16, 0.0, 132, 7),
-    (torch.float32, 0.0, 4096, 20),   # k·m too large for shared memory
+@pytest.mark.parametrize("x_dtype,window,n,m,k,R,integer", [
+    (torch.float32, 0.0, 2000, 130, 7, 3, False),   # m % 4 != 0: plain loads
+    (torch.float32, 0.5, 2000, 132, 20, 3, False),  # δ-window pick
+    (torch.bfloat16, 0.0, 2000, 132, 7, 3, False),
+    (torch.float32, 0.0, 2000, 4096, 20, 3, False),  # k·m beyond shared memory
+    # R·k·m beyond shared memory at MNIST width (R·k = 100 columns in one
+    # tile); integer-valued rows make every product exact, so the labels
+    # must equal the plain version's even at ties
+    (torch.float32, 0.5, 2000, 784, 10, 10, True),
+    (torch.float32, 0.0, 2000, 784, 10, 10, True),
+    (torch.float32, 0.5, 2000, 784, 1, 10, False),   # k = 1
+    (torch.float32, 0.5, 50, 784, 7, 10, False),     # n below one row tile
+    # k > 128: a restart spans column tiles, its totals in global scratch,
+    # and R·k·64 fold sums beyond shared memory; width 61 unaligned
+    (torch.float32, 0.5, 2000, 61, 150, 4, True),
 ])
-def test_cuda_kernel_matches_reference(cuda_device, x_dtype, window, m, k):
-    X, w, _, xsq = _problem(2000, m, 5, weights="uniform")
+def test_cuda_kernel_matches_reference(cuda_device, x_dtype, window, n, m,
+                                       k, R, integer):
+    X, w, _, xsq = _problem(n, m, 5, weights="ones" if integer else "uniform")
+    if integer:
+        X = np.round(X * 4.0).astype(np.float32)
+        xsq = (X.astype(np.float64) ** 2).sum(1).astype(np.float32)
     rng = np.random.default_rng(2)
-    C = torch.from_numpy(X[rng.choice(2000, (3, k))]).to(cuda_device)
+    C = torch.from_numpy(X[rng.choice(n, (R, k))]).to(cuda_device)
     Xd = torch.from_numpy(X).to(cuda_device, x_dtype)
     wd = torch.from_numpy(w).to(cuda_device)
     xd = torch.from_numpy(xsq).to(cuda_device)
     g = None
     if window:
-        g = torch.from_numpy(rng.gumbel(size=(3, 2000, k)).astype(
+        g = torch.from_numpy(rng.gumbel(size=(R, n, k)).astype(
             np.float32)).to(cuda_device)
     before = lloyd_step.launches
     out = lloyd_step(Xd, wd, xd, C, gumbel=g, window=window)
     torch.cuda.synchronize()
     assert lloyd_step.launches == before + 1
+    assert kernels.lloyd_tiles() == TILES
     ref = lloyd_step_reference(Xd, wd, xd, C, gumbel=g, window=window)
     flips = (out[0] != ref[0]).float().mean().item()
     assert flips <= (0.01 if x_dtype == torch.bfloat16 else 0.0)
@@ -240,11 +287,14 @@ def test_cuda_kernel_matches_reference(cuda_device, x_dtype, window, m, k):
         torch.testing.assert_close(out[2], ref[2], rtol=1e-4, atol=1e-3)
         torch.testing.assert_close(out[3], ref[3], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(out[4], ref[4], rtol=1e-4, atol=1e-2)
-    # an inactive restart's blocks exit at once: zeros, others unchanged
-    act = torch.tensor([True, False, True], device=cuda_device)
-    masked = lloyd_step(Xd, wd, xd, C, gumbel=g, window=window, active=act)
-    assert not masked[2][1].any() and not masked[4][1]
-    assert torch.equal(masked[2][0], out[2][0])
+    # an inactive restart costs nothing and gets zeros; an active one gets
+    # the bits it gets with every restart on
+    for act in _masks(R, cuda_device):
+        masked = lloyd_step(Xd, wd, xd, C, gumbel=g, window=window,
+                            active=act)
+        for a, b in zip(masked, out):
+            assert not a[~act].any()
+            assert torch.equal(a[act], b[act])
     # deterministic: a second launch is bit-identical
     again = lloyd_step(Xd, wd, xd, C, gumbel=g, window=window)
     for a, b in zip(out, again):
