@@ -15,10 +15,13 @@ each of which fails the run:
    on the card — float32 at window 0, float32 at window 0.5 and at a wide
    window on one shared Gumbel operand, bfloat16 — and time both (CUDA
    events, median), and the kernel once more with one restart (R=1): it
-   reads X a fixed number of times whatever R is, so R=10 must cost well
-   under ten times R=1. Labels must be equal but where the exact (float64)
-   distances put a center nearer to the deciding boundary than the
-   measured float32 error.
+   reads X a fixed number of times whatever R is, so R=10 must cost under
+   0.4 × 10 times R=1 (a timing check, not a count of bytes). Labels must
+   be equal but where the exact (float64) distances put a center nearer to
+   the deciding boundary than the measured float32 error. Three `active`
+   masks (every other restart off, only the last on, all but the first
+   on) run the kernel's restart compaction: the active restarts' outputs
+   must be bit-equal to the unmasked launch's, the inactive ones zeros.
    Then the fused k-nearest search (argkmin) on the surrogate split as
    MNIST is (60 000 train rows, 10 000 queries, 784 wide, k=7), and at
    k=1, k=100, k=4096 on 256 queries (lists in global memory), width 61,
@@ -67,6 +70,9 @@ BF16_MAX_FLIPS = 0.01
 # rows' windows, so the Gumbel pick decides many labels
 WIDE_WINDOW_QUANTILE = 0.25
 WIDE_MIN_MOVED = 0.05  # share of labels the wide window must move
+# R restarts must take under this share of R times one restart: X is read
+# a fixed number of times whatever R is (R=10 took 2.1× R=1 on an H100)
+R_TIME_RATIO = 0.4
 ARI_FLOOR = 0.95   # the surrogate's classes are well separated
 REPS = 10
 # the k-NN slice: MnistTrial's k-NN on the MNIST split of the surrogate
@@ -284,13 +290,36 @@ def kernel_phase(Xc, torch):
                      f"{max(bytes_ms, ops_ms):.4f} ms by "
                      f"{report[(name, window)]['bound_by']})")
         print(line, flush=True)
+    # the restart compaction the graded fit's launches run: an active
+    # restart gets the bits of the unmasked launch (held against the plain
+    # version above), an inactive one zeros
+    full = lloyd_step(Xc, w, xsq, C, gumbel=gum, window=WINDOW)
+    ids = torch.arange(R, device=dev)
+    for what, on in (("every other restart off", ids % 2 == 0),
+                     ("only the last restart on", ids == R - 1),
+                     ("all but the first restart on", ids > 0)):
+        masked = lloyd_step(Xc, w, xsq, C, gumbel=gum, window=WINDOW,
+                            active=on)
+        torch.cuda.synchronize()
+        for part, a, b in zip(("labels", "min_d2", "sums", "counts",
+                               "inertia"), masked, full):
+            check(not bool(a[~on].any()),
+                  f"active mask, {what}: {part} of an inactive restart "
+                  f"are not zero")
+            check(bool(torch.equal(a[on], b[on])),
+                  f"active mask, {what}: {part} of the active restarts "
+                  f"differ from the unmasked launch")
+        print(f"lloyd_step active mask, {what}: active restarts bit-equal "
+              f"to the unmasked launch, inactive ones zero", flush=True)
     main = report[("float32", WINDOW)]
-    # one restart: X is read a fixed number of times, whatever R is
+    # one restart: X is read a fixed number of times, whatever R is. This
+    # is a timing check, not a count of bytes: one more read of X costs
+    # ~0.07 ms, so it holds the design as a whole, not the count of reads
     r1_ms = time_ms(lambda: lloyd_step(Xc, w, xsq, C[:1], gumbel=gum[:1],
                                        window=WINDOW))
-    check(main["ms"] < R * r1_ms,
-          f"lloyd_step R={R} takes {main['ms']} ms, R=1 {r1_ms} ms: X is "
-          f"read once per restart")
+    check(main["ms"] < R_TIME_RATIO * R * r1_ms,
+          f"lloyd_step R={R} takes {main['ms']} ms, R=1 {r1_ms} ms: more "
+          f"than {R_TIME_RATIO} × {R} times R=1")
     print(f"lloyd_step float32 window {WINDOW}: R=1 {r1_ms:.4f} ms, R={R} "
           f"{main['ms']:.4f} ms ({main['ms'] / r1_ms:.2f}x)", flush=True)
     return {"name": "lloyd_step", "route": "cuda",

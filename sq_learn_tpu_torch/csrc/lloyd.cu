@@ -9,8 +9,9 @@
 // weighted per-cluster sums (k, m), counts (k) and inertia sum(w * min_d2).
 //
 // Bound on an H100 SXM at the q-means slice shape (n=70000, m=784, k=10,
-// R=10 restarts, float32): the function needs 2*n*m*k*R + 2*n*m*R = 12.07 G
-// f32 operations (distance products, then the weighted sums), 0.18 ms at
+// R=10 restarts, float32): the function needs 2*n*m*k*R + n*m*R + n*m =
+// 11.58 G f32 operations (distance products; then w*x, the same for every
+// restart, and one add per restart for the weighted sums), 0.173 ms at
 // 67 TFLOP/s outside the tensor cores, and moves 254 MB if X is read once
 // (0.08 ms at 3.35 TB/s): bound by operations.
 //

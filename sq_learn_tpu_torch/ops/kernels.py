@@ -228,12 +228,13 @@ lloyd_step.launches = 0
 def lloyd_step_work(n, m, k, R, x_dtype, window):
     """(bytes, operations) the fused step must move and do: every input
     read once and every output written once; 2·n·m·k·R distance-product
-    operations plus 2·n·m·R for the weighted sums."""
+    operations, then for the weighted sums n·m multiplies w·x (the same for
+    every restart) and n·m·R adds."""
     x_bytes = n * m * (2 if x_dtype == torch.bfloat16 else 4)
     inputs = x_bytes + 8 * n + 4 * R * k * m + (4 * R * n * k
                                                 if window > 0 else 0)
     outputs = 8 * R * n + 4 * R * k * m + 4 * R * k + 4 * R
-    return inputs + outputs, 2 * n * m * k * R + 2 * n * m * R
+    return inputs + outputs, 2 * n * m * k * R + n * m * R + n * m
 
 
 # ---------------------------------------------------------------------------
