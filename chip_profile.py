@@ -20,6 +20,8 @@ that call's wall clock, host time by operator):
   fit;
 - one Lloyd step at the slice shape (float32, window 0.5) with R=1 and
   R=10 restarts: device time of each of its kernels;
+- one k-NN search at the predict shape (10 000 queries, 60 000 × 784
+  train rows, k=7): device time of each of its kernels;
 - a k-NN ``predict`` of the last 10 000 rows by
   ``KNeighborsClassifier(n_neighbors=7)`` fitted on the first 60 000;
 - one fold of the 10-fold stratified CV of that classifier on all 70 000
@@ -110,6 +112,33 @@ def lloyd_kernels(X, torch):
               flush=True)
 
 
+def argkmin_kernels(X, torch):
+    """Device time of each kernel of one k-NN search at the predict shape
+    (queries X[60000:], train rows X[:60000], k=7), averaged over five
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sq_learn_tpu_torch.ops.kernels import argkmin
+
+    Xd = torch.from_numpy(X).cuda()
+    T, Q = Xd[:60_000].contiguous(), Xd[60_000:].contiguous()
+    tsq = torch.sum(T * T, dim=1)
+    argkmin(T, tsq, Q, 7)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            argkmin(T, tsq, Q, 7)
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        name = re.search(r"argkmin_\w+", e.key)
+        if name and e.device_type.name == "CUDA":
+            per[name.group(0)] = per.get(name.group(0), 0.0) + \
+                e.self_device_time_total / 5 / 1e3
+    print(f"argkmin (10000 × 60000 × 784, k=7): device ms per call {per}, "
+          f"total {sum(per.values()):.4f}", flush=True)
+
+
 def knn(X, y, torch):
     """Warm predicts and one CV fold of the k-NN path, then each once more
     under the profiler."""
@@ -194,6 +223,7 @@ def main():
               f"kernel launches {lloyd_step.launches}", flush=True)
     profiled("graded q-means fit", lambda: clone(est).fit(Xg), torch)
     lloyd_kernels(X, torch)
+    argkmin_kernels(X, torch)
     knn(X, y, torch)
     return 0
 

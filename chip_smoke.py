@@ -29,7 +29,13 @@ each of which fails the run:
    (exact ties): lists held against the exact float64 ones and the plain
    version's up to a margin of 3× the measured distance error, d2 at rtol
    1e-4 of the plain version's, ascending, bit-identical over two
-   launches; planted duplicate rows come back lower index first.
+   launches; planted duplicate rows come back lower index first. k picks
+   the kernel (short lists, or long lists in shared or global memory),
+   and each case runs on the one it picks. At the main shape the kernel
+   must take under ARGKMIN_PLAIN_RATIO of its plain version's time, and
+   ``torch.matmul(Q, T.T)`` alone in full float32 (TF32 off) is timed
+   beside it as ``products_ms``: the products the kernel must do, as
+   cuBLAS does them.
 3. Main paths, each with the kernels' launch counts set to 0 before it
    and read after it:
    - ``QKMeans(n_clusters=10, n_init=10, max_iter=300, delta=0.5,
@@ -87,6 +93,9 @@ D2_RTOL_KNN = 1e-4
 # the kernel's worst d2 error against float64 is held within this factor of
 # the plain version's (1.11–1.21 on the card)
 ERR_RATIO = 2.0
+# the search must take under this share of its plain version's time at
+# the main shape (the first design took 0.54)
+ARGKMIN_PLAIN_RATIO = 0.5
 
 
 def check(cond, msg):
@@ -389,11 +398,9 @@ def argkmin_phase(Xd, torch):
     lists on the surrogate split as MNIST is (train rows [:60000], queries
     [60000:], uncentered); returns the kernel's JSON entry (launches filled
     in later)."""
-    from sq_learn_tpu_torch.ops.kernels import (argkmin,
-                                                argkmin_lists_in_shared,
-                                                argkmin_plan,
+    from sq_learn_tpu_torch.ops.kernels import (argkmin, argkmin_plan,
                                                 argkmin_reference,
-                                                argkmin_tiles,
+                                                argkmin_route, argkmin_tiles,
                                                 argkmin_work)
 
     dev = Xd.device
@@ -402,10 +409,11 @@ def argkmin_phase(Xd, torch):
     # tie exactly and often, and the kernel must give the plain lists
     Ti = torch.round(T / 8.0).contiguous()
     Qi = torch.round(Q / 8.0).contiguous()
-    check(not argkmin_lists_in_shared(K_GLOBAL, dev)
-          and argkmin_lists_in_shared(100, dev),
-          f"k={K_GLOBAL} must take the global-memory lists, k=100 the "
-          f"shared-memory ones")
+    routes = {k: argkmin_route(k, dev) for k in (KNN_K, 100, K_GLOBAL)}
+    check(routes == {KNN_K: "short", 100: "shared", K_GLOBAL: "global"},
+          f"k={KNN_K} must take the short-list kernel, k=100 the long-list "
+          f"kernel with lists in shared memory and k={K_GLOBAL} the one "
+          f"with lists in global memory, not {routes}")
     # (name, train, queries, k, timed, exact)
     cases = [("main 10000×60000×784 k=7", T, Q, KNN_K, True, False),
              ("k=1", T, Q, 1, False, False),
@@ -449,14 +457,25 @@ def argkmin_phase(Xd, torch):
         check(bool(torch.equal(again[0], idx) and torch.equal(again[1], d2)),
               f"argkmin {case}: two launches differ")
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits, rows = argkmin_plan(nq, nt, k, n_sms, argkmin_tiles())
-        line = (f"argkmin {case}: {splits} train splits of {rows} rows, "
-                f"lists in {'shared' if argkmin_lists_in_shared(k, dev) else 'global'} "
-                f"memory; {flips_plain} of {nq * k} indices differ from the "
+        tiles = argkmin_tiles(k, dev)
+        splits, rows = argkmin_plan(nq, nt, k, n_sms, tiles)
+        line = (f"argkmin {case}: {argkmin_route(k, dev)} route, tiles "
+                f"{tiles}, {splits} train splits of {rows} rows; "
+                f"{flips_plain} of {nq * k} indices differ from the "
                 f"plain version, max |d2 − plain| {err}; {held}")
         if timed:
             ms = time_ms(lambda: argkmin(Tk, tsq, Qk, k))
             plain_ms = time_ms(lambda: argkmin_reference(Tk, tsq, Qk, k))
+            check(ms < ARGKMIN_PLAIN_RATIO * plain_ms,
+                  f"argkmin {case}: {ms} ms, not under {ARGKMIN_PLAIN_RATIO} "
+                  f"× the plain version's {plain_ms} ms")
+            torch.backends.cuda.matmul.allow_tf32 = False
+            products_ms = time_ms(lambda: torch.matmul(Qk, Tk.T))
+            print(f"argkmin products_ms: torch.matmul(Q, T.T) at "
+                  f"{nq}×{nt}×{Tk.shape[1]} in float32 with "
+                  f"torch.backends.cuda.matmul.allow_tf32 = False: "
+                  f"{products_ms:.4f} ms (a yardstick for the products, "
+                  f"not library_ms)", flush=True)
             nbytes, ops = argkmin_work(nq, nt, Tk.shape[1], k)
             bytes_ms, ops_ms = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
             entry = {"name": "argkmin", "route": "cuda",
@@ -467,9 +486,10 @@ def argkmin_phase(Xd, torch):
                      "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": ("bytes" if bytes_ms >= ops_ms
                                   else "operations"),
-                     "library_ms": None}
-            line += (f"; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-                     f"{entry['bound_ms']:.4f} ms by {entry['bound_by']})")
+                     "library_ms": None, "products_ms": products_ms}
+            line += (f"; {ms:.4f} ms (plain {plain_ms:.4f} ms, products "
+                     f"{products_ms:.4f} ms, bound {entry['bound_ms']:.4f} "
+                     f"ms by {entry['bound_by']})")
         print(line, flush=True)
 
     # planted duplicate rows: the lower index first, with equal d2, whether

@@ -10,27 +10,42 @@
 // nt=60000 training rows, m=784, k=7, float32): 2*nq*nt*m = 940.8 G f32
 // operations, 14.04 ms at 67 TFLOP/s outside the tensor cores, against
 // about 220 MB moved if every input is read once (train 188.2 MB, queries
-// 31.4 MB; 0.066 ms at 3.35 TB/s): bound by operations. This first design
-// keeps the products on CUDA cores in f32 (no TF32, no tensor cores) and
-// re-reads each train tile once per query tile (from L2 mostly: the blocks
-// resident together share a split of the train rows). What it does about
-// the operation bound: each thread keeps a 4 x 4 register tile of scores,
-// fed by 16-byte shared-memory loads, so a block does 16 FMAs per pair of
-// vector loads. Making it fast (wgmma on a TF32 or bf16 shortlist with an
-// exact re-rank, TMA) is later work:
-//  - a block owns kTileQ queries and a contiguous range of training rows
-//    (one split of S); it walks its range in tiles of kTileT rows, staging
-//    the query and train tiles in shared memory kChunk columns at a time,
-//    so any width works;
-//  - each query's running k-best (score, index) list has one owner thread,
-//    which folds a tile's scores in ascending train index and inserts with
-//    strict `<`: an equal score lands after the entries already held, whose
-//    indices are lower. The lists sit in shared memory when they fit
-//    beside the tiles in half of the opt-in limit, else in the global
-//    partial buffer the wrapper allocates: one code path with a pointer;
-//  - a second kernel merges each query's S partial lists in split order,
-//    comparing (score, index) lexicographically, and writes the epilogue.
-//    There are no atomics: two launches are bit-identical.
+// 31.4 MB; 0.066 ms at 3.35 TB/s): bound by operations. The products stay
+// on CUDA cores in exact f32 (no TF32, no tensor cores), so what the design
+// does about the bound is keep the FMA pipes fed:
+//  - short lists (k <= kShortK, the k-NN path), `argkmin_short`: a block
+//    owns kBQ = 128 queries and one split of the train rows, and walks the
+//    split in tiles of kBT = 128 rows. The (query x train) score tile is a
+//    register-tiled f32 product, as `lloyd_score` computes it: 16 x 16
+//    threads each hold 8 queries x 8 train rows, so per 4 columns a thread
+//    issues 16 16-byte shared-memory loads for 256 FMAs. Both operands are
+//    staged kBK columns at a time through a cp.async ring that runs on
+//    across tile boundaries, so the next tile's first chunks are in flight
+//    while a tile is folded. Each score is one FMA chain over ascending
+//    columns, the arithmetic of the first design (`argkmin_partial` below),
+//    so the two give the same bits. A 128-query tile re-reads each train
+//    tile 79 times at the predict shape (14.9 GB from L2), where 32-query
+//    tiles re-read it 313 times;
+//  - the fold is spread over every thread and needs no barrier: the 16
+//    lanes of a half-warp hold the 128 scores of a query, and slot e of the
+//    query's k-best (score, index) list in shared memory belongs to lane e.
+//    Each lane compares its scores with the list's k-th entry; where any
+//    score in the warp beats it, the half-warp extracts the survivors in
+//    (score, index) order (a shuffle min) and inserts each by a one-slot
+//    shift (a shuffle up). The k best under that total order are unique,
+//    so the result does not depend on the order of arrival. Once the lists
+//    fill, almost nothing survives and a tile costs one compare per score;
+//  - long lists (k > kShortK), `argkmin_partial`, the first design: a block
+//    owns kTileQ = 32 queries, each thread a 4 x 4 register tile fed from
+//    synchronously staged 32-column chunks; each query's list has one
+//    owner thread that folds the tile's scores in ascending train index
+//    with strict `<`. The lists sit in shared memory when they fit beside
+//    the tiles in half of the opt-in limit, else in the global partial
+//    buffer the wrapper allocates: one code path with a pointer;
+//  - both write one partial list per (split, query); `argkmin_merge`
+//    merges each query's S lists in split order, comparing (score, index)
+//    lexicographically, and writes the epilogue. There are no atomics: two
+//    launches are bit-identical.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libargkmin.so argkmin.cu
@@ -43,19 +58,256 @@
 
 namespace {
 
-constexpr int kThreads = 256;           // 8 warps
+constexpr int kThreads = 256;           // 8 warps, both routes
+constexpr int kNoIndex = 0x7fffffff;    // an empty list slot sorts last
+constexpr unsigned kFull = 0xffffffffu;
+
+// short lists: a kBQ x kBT score tile, 16 x 16 threads of kTQ x kTT each
+constexpr int kShortK = 16;   // one list slot per lane of a half-warp
+constexpr int kTQ = 8;        // queries a thread scores
+constexpr int kTT = 8;        // train rows a thread scores
+constexpr int kBQ = 16 * kTQ;  // queries a block owns
+constexpr int kBT = 16 * kTT;  // train rows per tile
+constexpr int kBK = 32;        // columns staged per chunk
+constexpr int kLd = kBK + 4;   // stage row stride: 16-byte rows, float4
+                               // reads free of bank conflicts
+constexpr int kStages = 3;     // cp.async ring depth
+constexpr int kStage = (kBQ + kBT) * kLd;  // floats in one stage
+constexpr int kShortBlocks = 1;            // resident blocks the launch
+                                           // bounds ask for
+constexpr size_t kShortBytes =
+    (size_t(kStages) * kStage + size_t(kBQ) * kShortK * 2) * 4;
+
+// long lists: the first design
 constexpr int kTileQ = 32;              // queries a block owns (4 per warp)
 constexpr int kTileT = 128;             // train rows per tile (4 per lane)
 constexpr int kChunk = 32;              // feature columns staged per pass
 constexpr int kPad = kChunk + 4;        // tile row stride: 16-byte rows
 constexpr int kSPad = kTileT + 1;       // score tile row stride
-constexpr int kNoIndex = 0x7fffffff;    // an empty list slot sorts last
+static_assert(kBT == kTileT, "both routes cut splits into the same tiles");
 
 constexpr size_t kTileFloats =
     size_t(kTileQ) * kPad + size_t(kTileT) * kPad + size_t(kTileQ) * kSPad;
 
 size_t list_bytes(int k) {
   return size_t(kTileQ) * k * (sizeof(float) + sizeof(int32_t));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// (as, ai) ranks before (bs, bi): the total order of the lists
+__device__ __forceinline__ bool before(float as, int ai, float bs, int bi) {
+  return as < bs || (as == bs && ai < bi);
+}
+
+// Stage 128 rows of A from row0, columns [c0, c0 + kBK), into dst (stride
+// kLd); rows from `end` on and columns beyond m are zeros. 16-byte cp.async
+// where the rows are aligned, else plain loads.
+__device__ __forceinline__ void stage_rows(float* dst, const float* A,
+                                           int row0, int end, int m, int c0,
+                                           int vec) {
+  static_assert(kBQ == kBT, "one staging routine for both operands");
+  if (vec) {
+    for (int v = threadIdx.x; v < kBQ * kBK / 4; v += kThreads) {
+      const int r = v / (kBK / 4), c = (v % (kBK / 4)) * 4;
+      const int i = row0 + r, j = c0 + c;
+      const bool ok = i < end && j < m;
+      cp_async16(dst + r * kLd + c, ok ? A + size_t(i) * m + j : A,
+                 ok ? 16 : 0);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < kBQ * kBK; e += kThreads) {
+    const int r = e / kBK, c = e % kBK;
+    const int i = row0 + r, j = c0 + c;
+    dst[r * kLd + c] = (i < end && j < m) ? A[size_t(i) * m + j] : 0.f;
+  }
+}
+
+// The products of one staged chunk, added to acc: acc[i][j] is the product
+// of query ty + 16 i with train row tx + 16 j, one FMA chain over ascending
+// columns.
+__device__ __forceinline__ void chunk_products(const float* qs,
+                                               const float* ts, int tx,
+                                               int ty,
+                                               float (&acc)[kTQ][kTT]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 4) {
+    float4 qa[kTQ];
+#pragma unroll
+    for (int i = 0; i < kTQ; ++i)
+      qa[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kLd + kk);
+#pragma unroll
+    for (int j = 0; j < kTT; ++j) {
+      const float4 tv =
+          *reinterpret_cast<const float4*>(ts + (tx + 16 * j) * kLd + kk);
+#pragma unroll
+      for (int i = 0; i < kTQ; ++i) {
+        acc[i][j] = fmaf(qa[i].x, tv.x, acc[i][j]);
+        acc[i][j] = fmaf(qa[i].y, tv.y, acc[i][j]);
+        acc[i][j] = fmaf(qa[i].z, tv.z, acc[i][j]);
+        acc[i][j] = fmaf(qa[i].w, tv.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// Fold one tile of products (train rows from t0, real below r1) into the
+// block's lists; turns acc into scores. The half-warp of lanes with this
+// ty owns queries ty + 16 i; lane tx owns slot tx of their lists.
+__device__ __forceinline__ void fold_tile(float (&acc)[kTQ][kTT],
+                                          const float* __restrict__ tsq,
+                                          int t0, int r1, int k, int tx,
+                                          int ty, float* ls, int32_t* li) {
+  const int lane = threadIdx.x & 31;
+  const int kth = (lane & 16) | (k - 1);  // lane holding this half's k-th
+  float tq[kTT];
+#pragma unroll
+  for (int j = 0; j < kTT; ++j) {
+    const int r = t0 + tx + 16 * j;
+    tq[j] = r < r1 ? tsq[r] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kTQ; ++i) {
+    float* L = ls + (ty + 16 * i) * kShortK;
+    int32_t* Li = li + (ty + 16 * i) * kShortK;
+    float ws = L[k - 1];
+    int wi = Li[k - 1];
+    unsigned alive = 0;  // bit j: row tx + 16 j ranks before the k-th
+#pragma unroll
+    for (int j = 0; j < kTT; ++j) {
+      const int r = t0 + tx + 16 * j;
+      acc[i][j] = __fsub_rn(tq[j], 2.0f * acc[i][j]);
+      if (r < r1 && before(acc[i][j], r, ws, wi)) alive |= 1u << j;
+    }
+    if (!__any_sync(kFull, alive)) continue;
+    float es = L[tx];
+    int ei = Li[tx];
+    while (__any_sync(kFull, alive)) {
+      // the half-warp's least survivor, by (score, index)
+      float ms = INFINITY;
+      int mi = kNoIndex;
+#pragma unroll
+      for (int j = 0; j < kTT; ++j)
+        if ((alive >> j & 1u) && before(acc[i][j], t0 + tx + 16 * j, ms, mi)) {
+          ms = acc[i][j];
+          mi = t0 + tx + 16 * j;
+        }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        const float os = __shfl_xor_sync(kFull, ms, off);
+        const int oi = __shfl_xor_sync(kFull, mi, off);
+        if (before(os, oi, ms, mi)) {
+          ms = os;
+          mi = oi;
+        }
+      }
+      // insert it: the slots from its place on shift up by one
+      const float ps = __shfl_up_sync(kFull, es, 1, 16);
+      const int pi = __shfl_up_sync(kFull, ei, 1, 16);
+      if (mi != kNoIndex && !before(es, ei, ms, mi)) {
+        if (tx == 0 || before(ps, pi, ms, mi)) {
+          es = ms;
+          ei = mi;
+        } else {
+          es = ps;
+          ei = pi;
+        }
+      }
+      ws = __shfl_sync(kFull, es, kth);
+      wi = __shfl_sync(kFull, ei, kth);
+#pragma unroll
+      for (int j = 0; j < kTT; ++j) {
+        const int r = t0 + tx + 16 * j;
+        if (r == mi || !before(acc[i][j], r, ws, wi)) alive &= ~(1u << j);
+      }
+    }
+    L[tx] = es;
+    Li[tx] = ei;
+  }
+}
+
+// Scores of kBQ queries against one split of the train rows, folded into
+// their k-best lists (k <= kShortK); writes the lists to the partial
+// buffer, laid out [split][query][k].
+__global__ void __launch_bounds__(kThreads, kShortBlocks)
+argkmin_short(const float* __restrict__ T, const float* __restrict__ tsq,
+              const float* __restrict__ Q, int nt, int nq, int m, int k,
+              int rows_per_split, int vec, float* __restrict__ part_d,
+              int32_t* __restrict__ part_i) {
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);  // [kStages][kBQ + kBT][kLd]
+  float* ls = stage + kStages * kStage;            // [kBQ][kShortK]
+  int32_t* li = reinterpret_cast<int32_t*>(ls + kBQ * kShortK);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * kBQ;
+  const int split = blockIdx.y;
+  const int r0 = split * rows_per_split;
+  const int r1 = min(nt, r0 + rows_per_split);
+  const int nchunks = (m + kBK - 1) / kBK;
+  const int total = (r1 - r0 + kBT - 1) / kBT * nchunks;  // (tile, chunk)s
+
+  // every slot is read and written by its own half-warp only
+#pragma unroll
+  for (int i = 0; i < kTQ; ++i) {
+    ls[(ty + 16 * i) * kShortK + tx] = INFINITY;
+    li[(ty + 16 * i) * kShortK + tx] = kNoIndex;
+  }
+  auto fetch = [&](int g) {  // chunk g of the split's (tile, chunk) walk
+    float* dst = stage + (g % kStages) * kStage;
+    const int c0 = (g % nchunks) * kBK;
+    stage_rows(dst, Q, q0, nq, m, c0, vec);
+    stage_rows(dst + kBQ * kLd, T, r0 + g / nchunks * kBT, r1, m, c0, vec);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) fetch(s);
+    cp_async_commit();
+  }
+  float acc[kTQ][kTT];
+#pragma unroll
+  for (int i = 0; i < kTQ; ++i)
+#pragma unroll
+    for (int j = 0; j < kTT; ++j) acc[i][j] = 0.f;
+  for (int g = 0; g < total; ++g) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk g landed; chunk g - 1 is consumed
+    if (g + kStages - 1 < total) fetch(g + kStages - 1);
+    cp_async_commit();
+    const float* qs = stage + (g % kStages) * kStage;
+    chunk_products(qs, qs + kBQ * kLd, tx, ty, acc);
+    if (g % nchunks == nchunks - 1) {  // the tile is done: fold it
+      fold_tile(acc, tsq, r0 + g / nchunks * kBT, r1, k, tx, ty, ls, li);
+#pragma unroll
+      for (int i = 0; i < kTQ; ++i)
+#pragma unroll
+        for (int j = 0; j < kTT; ++j) acc[i][j] = 0.f;
+    }
+  }
+  cp_async_wait<0>();
+  if (tx < k)
+#pragma unroll
+    for (int i = 0; i < kTQ; ++i) {
+      const int q = q0 + ty + 16 * i;
+      if (q < nq) {
+        const size_t off = (size_t(split) * nq + q) * k + tx;
+        part_d[off] = ls[(ty + 16 * i) * kShortK + tx];
+        part_i[off] = li[(ty + 16 * i) * kShortK + tx];
+      }
+    }
 }
 
 // Scores of one query tile against one split of the train rows, folded into
@@ -250,35 +502,73 @@ int lists_in_smem(int k, int* in_smem, size_t* bytes) {
   return cudaSuccess;
 }
 
+// The routes, by k: what sq_argkmin_route reports.
+constexpr int kRouteShort = 0;       // argkmin_short
+constexpr int kRouteLongShared = 1;  // argkmin_partial, lists in shared
+constexpr int kRouteLongGlobal = 2;  // argkmin_partial, lists in global
+
+// The route k takes on the current device and its kernel's dynamic shared
+// memory; sets the kernel's opt-in size and largest carveout.
+int route_of(int k, int* route, const void** fn, size_t* bytes) {
+  if (k <= kShortK) {
+    *route = kRouteShort;
+    *fn = reinterpret_cast<const void*>(argkmin_short);
+    *bytes = kShortBytes;
+  } else {
+    int in_smem = 0;
+    const int err = lists_in_smem(k, &in_smem, bytes);
+    if (err != cudaSuccess) return err;
+    *route = in_smem ? kRouteLongShared : kRouteLongGlobal;
+    *fn = reinterpret_cast<const void*>(argkmin_partial);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      *fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*bytes));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(*fn,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 }  // namespace
 
 extern "C" {
 
 // T (nt, m), tsq (nt), Q (nq, m) float32; part_d/part_i hold
 // splits * nq * k entries; buf_d/buf_i 2 * nq * k (may be null when
-// splits == 1); out_i (nq, k) int32, out_d (nq, k) float32.
+// splits == 1); out_i (nq, k) int32, out_d (nq, k) float32. The splits of
+// rows_per_split rows (a multiple of the tile) cover the nt rows, each
+// split at least one row.
 int sq_argkmin(const void* T, const void* tsq, const void* Q, int nt, int nq,
                int m, int k, int splits, int rows_per_split, void* part_d,
                void* part_i, void* buf_d, void* buf_i, void* out_i,
                void* out_d, void* stream) {
   if (nq <= 0 || nt <= 0 || m <= 0 || k <= 0 || k > nt || splits <= 0 ||
       rows_per_split <= 0 || rows_per_split % kTileT != 0 ||
+      size_t(splits) * rows_per_split < size_t(nt) ||
+      size_t(splits - 1) * rows_per_split >= size_t(nt) ||
       (splits > 1 && (buf_d == nullptr || buf_i == nullptr)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int in_smem = 0;
+  int route = 0;
+  const void* fn = nullptr;
   size_t bytes = 0;
-  int err = lists_in_smem(k, &in_smem, &bytes);
+  int err = route_of(k, &route, &fn, &bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(argkmin_partial,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(bytes));
-  if (err != cudaSuccess) return err;
-  const int qtiles = (nq + kTileQ - 1) / kTileQ;
-  argkmin_partial<<<dim3(qtiles, splits), kThreads, bytes, s>>>(
-      static_cast<const float*>(T), static_cast<const float*>(tsq),
-      static_cast<const float*>(Q), nt, nq, m, k, rows_per_split, in_smem,
-      static_cast<float*>(part_d), static_cast<int32_t*>(part_i));
+  if (route == kRouteShort) {
+    const int vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(T) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(Q) % 16 == 0;
+    argkmin_short<<<dim3((nq + kBQ - 1) / kBQ, splits), kThreads, bytes, s>>>(
+        static_cast<const float*>(T), static_cast<const float*>(tsq),
+        static_cast<const float*>(Q), nt, nq, m, k, rows_per_split, vec,
+        static_cast<float*>(part_d), static_cast<int32_t*>(part_i));
+  } else {
+    argkmin_partial<<<dim3((nq + kTileQ - 1) / kTileQ, splits), kThreads,
+                      bytes, s>>>(
+        static_cast<const float*>(T), static_cast<const float*>(tsq),
+        static_cast<const float*>(Q), nt, nq, m, k, rows_per_split,
+        route == kRouteLongShared, static_cast<float*>(part_d),
+        static_cast<int32_t*>(part_i));
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   argkmin_merge<<<(nq + 127) / 128, 128, 0, s>>>(
@@ -289,20 +579,31 @@ int sq_argkmin(const void* T, const void* tsq, const void* Q, int nt, int nq,
   return cudaGetLastError();
 }
 
-// 1 when the k-best lists of a block sit in shared memory, 0 when they sit
-// in the global partial buffer, a negative cudaError_t on failure.
-int sq_argkmin_lists_in_shared(int k) {
-  int in_smem = 0;
+// The route k takes on the current device: 0 short lists (argkmin_short,
+// k <= kShortK), 1 long lists in shared memory, 2 long lists in the global
+// partial buffer (argkmin_partial); a negative cudaError_t on failure.
+int sq_argkmin_route(int k) {
+  int route = 0;
+  const void* fn = nullptr;
   size_t bytes = 0;
-  const int err = lists_in_smem(k, &in_smem, &bytes);
-  return err != cudaSuccess ? -err : in_smem;
+  const int err = route_of(k, &route, &fn, &bytes);
+  return err != cudaSuccess ? -err : route;
 }
 
-// The tiles the launch plan must be cut to: queries a block owns and train
-// rows per tile (rows_per_split is a multiple of the latter).
-void sq_argkmin_tiles(int* tile_q, int* tile_t) {
-  *tile_q = kTileQ;
+// What the launch plan of k's route is cut to: queries a block owns, train
+// rows per tile (rows_per_split is a multiple of them) and the blocks of
+// that kernel resident on one SM of the current device. Returns a
+// cudaError_t.
+int sq_argkmin_tiles(int k, int* tile_q, int* tile_t, int* resident) {
+  int route = 0;
+  const void* fn = nullptr;
+  size_t bytes = 0;
+  cudaError_t err = static_cast<cudaError_t>(route_of(k, &route, &fn, &bytes));
+  if (err != cudaSuccess) return err;
+  *tile_q = route == kRouteShort ? kBQ : kTileQ;
   *tile_t = kTileT;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, fn, kThreads,
+                                                       bytes);
 }
 
 const char* sq_argkmin_error_string(int code) {

@@ -300,22 +300,40 @@ def _check_argkmin_args(X_train, x_sq_train, X_query, k):
 
 def argkmin_plan(nq, nt, k, n_sms, tiles):
     """(splits, rows per split) of the CUDA kernel, for its ``tiles`` =
-    (queries a block owns, train rows per tile) as :func:`argkmin_tiles`
-    reads them from the library. The train rows are cut into splits of a
-    whole number of tiles, so that query tiles × splits is about eight
-    blocks per SM and the partial lists stay under ``_PARTIAL_BYTES``.
-    Every split but the last holds at least k rows. The last may hold
-    fewer, down to one: its list is then padded with (inf, no index),
-    which the merge ranks after every real row."""
-    tile_q, tile_t = tiles
+    (queries a block owns, train rows per tile, blocks resident on an SM)
+    as :func:`argkmin_tiles` reads them from the library for k's route.
+
+    The train rows are cut into splits of a whole number of tiles, and a
+    block scores one query tile against one split. There are enough splits
+    to give every resident block of the card a block to run, where the
+    train rows allow it, and at most four times that many; among those the
+    plan takes the one that finishes first when blocks run in waves of
+    the card's resident blocks (waves × tiles a block walks), and the
+    fewest splits on a tie. The partial lists stay under
+    ``_PARTIAL_BYTES``. Every split but the last holds at least k rows.
+    The last may hold fewer, down to one: its list is then padded with
+    (inf, no index), which the merge ranks after every real row."""
+    tile_q, tile_t, resident = tiles
     qtiles = math.ceil(nq / tile_q)
-    target = max(1, math.ceil(8 * n_sms / qtiles))
-    min_rows = math.ceil(max(k, tile_t) / tile_t) * tile_t
+    slots = n_sms * resident
+    ntiles = math.ceil(nt / tile_t)
     cap = max(1, _PARTIAL_BYTES // (8 * nq * k))
-    splits = max(1, min(target, math.ceil(nt / min_rows), cap))
-    rows = max(min_rows,
-               math.ceil(math.ceil(nt / splits) / tile_t) * tile_t)
-    return math.ceil(nt / rows), rows
+    per_split = {}  # splits -> the fewest tiles per split that give them
+    for per in range(math.ceil(k / tile_t), ntiles + 1):
+        splits = math.ceil(ntiles / per)
+        if splits <= cap:
+            per_split.setdefault(splits, per)
+    fill = min(math.ceil(slots / qtiles), max(per_split))
+    choices = ([s for s in per_split if fill <= s <= 4 * fill]
+               or [min(s for s in per_split if s >= fill)])
+    splits = min(choices, key=lambda s: (
+        math.ceil(qtiles * s / slots) * per_split[s], s))
+    return splits, per_split[splits] * tile_t
+
+
+#: sq_argkmin_route's codes: the short-list kernel, or the long-list
+#: kernel with its lists in shared or in global memory
+_ROUTES = ("short", "shared", "global")
 
 
 def _argkmin_lib():
@@ -328,35 +346,52 @@ def _argkmin_lib():
         lib.sq_argkmin.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p,
                                    p, p]
         lib.sq_argkmin.restype = i
-        lib.sq_argkmin_lists_in_shared.argtypes = [i]
-        lib.sq_argkmin_lists_in_shared.restype = i
+        lib.sq_argkmin_route.argtypes = [i]
+        lib.sq_argkmin_route.restype = i
         lib.sq_argkmin_error_string.argtypes = [i]
         lib.sq_argkmin_error_string.restype = ctypes.c_char_p
-        lib.sq_argkmin_tiles.argtypes = [ctypes.POINTER(i)] * 2
-        lib.sq_argkmin_tiles.restype = None
-        tile_q, tile_t = i(), i()
-        lib.sq_argkmin_tiles(ctypes.byref(tile_q), ctypes.byref(tile_t))
-        _state["argkmin_tiles"] = (tile_q.value, tile_t.value)
+        lib.sq_argkmin_tiles.argtypes = [i] + [ctypes.POINTER(i)] * 3
+        lib.sq_argkmin_tiles.restype = i
         _state["argkmin"] = lib
     return lib
 
 
-def argkmin_tiles():
-    """(queries a block owns, train rows per tile) of the CUDA kernel, as
-    its library states them: the launch plan is cut to these."""
-    _argkmin_lib()
-    return _state["argkmin_tiles"]
+def _argkmin_error(lib, what, code):
+    return RuntimeError(f"argkmin {what}: "
+                        f"{lib.sq_argkmin_error_string(code).decode()} "
+                        f"(cudaError {code})")
 
 
-def argkmin_lists_in_shared(k, device):
-    """Whether the CUDA kernel keeps a block's k-best lists in shared
-    memory (True) or in the global partial buffer (False) on ``device``."""
+def argkmin_route(k, device):
+    """The kernel the CUDA search takes for k on ``device``: ``"short"``
+    (the register-tiled kernel of short lists), or the long-list kernel
+    with its k-best lists in ``"shared"`` or in ``"global"`` memory. The
+    library decides by k alone, for the device's shared memory."""
     lib = _argkmin_lib()
     with torch.cuda.device(device):
-        code = lib.sq_argkmin_lists_in_shared(int(k))
+        code = lib.sq_argkmin_route(int(k))
     if code < 0:
-        raise RuntimeError(f"argkmin: {lib.sq_argkmin_error_string(-code)}")
-    return bool(code)
+        raise _argkmin_error(lib, "route", -code)
+    return _ROUTES[code]
+
+
+def argkmin_tiles(k, device):
+    """(queries a block owns, train rows per tile, blocks resident on an
+    SM) of the kernel k's route takes on ``device``, as its library states
+    them: the launch plan is cut to these."""
+    device = torch.device(device)
+    key = ("argkmin_tiles", argkmin_route(k, device), device.index)
+    if key not in _state:
+        lib = _argkmin_lib()
+        tile_q, tile_t, resident = (ctypes.c_int() for _ in range(3))
+        with torch.cuda.device(device):
+            err = lib.sq_argkmin_tiles(int(k), ctypes.byref(tile_q),
+                                       ctypes.byref(tile_t),
+                                       ctypes.byref(resident))
+        if err != 0:
+            raise _argkmin_error(lib, "tiles", err)
+        _state[key] = (tile_q.value, tile_t.value, resident.value)
+    return _state[key]
 
 
 def argkmin(X_train, x_sq_train, X_query, k):
@@ -386,7 +421,7 @@ def argkmin(X_train, x_sq_train, X_query, k):
     if nq == 0:
         return idx, d2
     lib = _argkmin_lib()
-    splits, rows = argkmin_plan(nq, nt, k, _n_sms(dev), argkmin_tiles())
+    splits, rows = argkmin_plan(nq, nt, k, _n_sms(dev), argkmin_tiles(k, dev))
     part_d = torch.empty(splits * nq * k, dtype=torch.float32, device=dev)
     part_i = torch.empty(splits * nq * k, dtype=torch.int32, device=dev)
     buf_d = buf_i = None
@@ -404,9 +439,7 @@ def argkmin(X_train, x_sq_train, X_query, k):
             splits, rows, ptr(part_d), ptr(part_i), ptr(buf_d), ptr(buf_i),
             ptr(idx), ptr(d2), stream)
     if err != 0:
-        raise RuntimeError(
-            f"argkmin kernel launch failed: "
-            f"{lib.sq_argkmin_error_string(err).decode()} (cudaError {err})")
+        raise _argkmin_error(lib, "kernel launch failed", err)
     argkmin.launches += 1
     return idx, d2
 

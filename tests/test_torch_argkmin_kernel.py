@@ -121,8 +121,15 @@ def test_wrapper_rejects_mixed_devices():
         argkmin(T, xsq, Q.to("meta"), 2)
 
 
-#: (queries a block owns, train rows per tile), as the library states them
-TILES = (32, 128)
+#: (queries a block owns, train rows per tile, blocks resident on an SM),
+#: as the library states them: the long-list kernel's tiles with the eight
+#: blocks per SM its plan first targeted, and the short-list kernel's
+TILES = [(32, 128, 8), (128, 128, 1)]
+
+
+@pytest.fixture(params=TILES, ids=["long", "short"])
+def tiles(request):
+    return request.param
 
 
 @pytest.mark.parametrize("nq,nt,k,sms", [
@@ -135,25 +142,40 @@ TILES = (32, 128)
     (5, 300, 300, 132),           # k = nt
     (100_000, 10, 3, 8),          # one split
 ])
-def test_plan_covers_every_train_row_once(nq, nt, k, sms):
-    splits, rows = argkmin_plan(nq, nt, k, sms, TILES)
-    assert splits >= 1 and rows % TILES[1] == 0
+def test_plan_covers_every_train_row_once(nq, nt, k, sms, tiles):
+    splits, rows = argkmin_plan(nq, nt, k, sms, tiles)
+    assert splits >= 1 and rows % tiles[1] == 0
     assert (splits - 1) * rows < nt <= splits * rows
     assert rows >= k  # every split but the last holds at least k rows
     assert splits * nq * k * 8 <= max(kernels._PARTIAL_BYTES, nq * k * 8)
 
 
-def test_plan_fills_the_card():
-    splits, _ = argkmin_plan(10_000, 60_000, 7, 132, TILES)
-    assert splits * 313 >= 8 * 132  # 313 query tiles
-    splits, rows = argkmin_plan(16, 60_000, 7, 132, TILES)
-    assert rows == 128 and splits == 469
+def test_plan_fills_the_card(tiles):
+    tile_q, tile_t, resident = tiles
+    slots = 132 * resident
+    if tiles == TILES[0]:
+        splits, _ = argkmin_plan(10_000, 60_000, 7, 132, tiles)
+        assert splits * 313 >= 8 * 132  # 313 query tiles
+        splits, rows = argkmin_plan(16, 60_000, 7, 132, tiles)
+        assert rows == 128 and splits == 469
+    # a predict and a 10-fold CV fold: every resident block has work, and
+    # the blocks' tiles fill at least 95 % of the waves they run in
+    for nq, nt in ((10_000, 60_000), (7_000, 63_000)):
+        splits, rows = argkmin_plan(nq, nt, 7, 132, tiles)
+        blocks = math.ceil(nq / tile_q) * splits
+        waves = math.ceil(blocks / slots)
+        assert blocks >= slots
+        assert (math.ceil(nq / tile_q) * math.ceil(nt / tile_t)
+                >= 0.95 * waves * slots * (rows // tile_t))
+    splits, rows = argkmin_plan(16, 60_000, 7, 132, tiles)
+    assert splits >= slots or rows == tile_t
 
 
 @pytest.mark.parametrize("nt,k,tiles,want", [
-    (4097, 4096, (32, 128), (2, 4096)),
-    (129, 128, (32, 128), (2, 128)),
-    (200, 130, (16, 64), (2, 192)),  # rows rounded up to k, not halved
+    (4097, 4096, (32, 128, 8), (2, 4096)),
+    (129, 128, (32, 128, 8), (2, 128)),
+    (200, 130, (16, 64, 8), (2, 192)),  # rows rounded up to k, not halved
+    (129, 16, (128, 128, 1), (2, 128)),  # the short-list kernel's largest k
 ])
 def test_plan_last_split_may_be_shorter_than_k(nt, k, tiles, want):
     """A split shorter than k is the last one: its list is padded, and the
@@ -164,9 +186,13 @@ def test_plan_last_split_may_be_shorter_than_k(nt, k, tiles, want):
 
 
 def test_plan_follows_the_tiles_it_is_given():
-    for tiles in ((32, 128), (16, 64), (64, 256)):
+    for tiles in ((32, 128, 8), (16, 64, 8), (64, 256, 8)):
         splits, rows = argkmin_plan(16, 60_000, 7, 132, tiles)
         assert rows == tiles[1] and splits == math.ceil(60_000 / tiles[1])
+    # and the residency: twice the resident blocks, twice the splits
+    one = argkmin_plan(10_000, 60_000, 7, 132, (128, 128, 1))
+    two = argkmin_plan(10_000, 60_000, 7, 132, (128, 128, 2))
+    assert one == (5, 12032) and two == (10, 6016)
 
 
 def test_work_counts():
@@ -216,21 +242,28 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nt,nq,m,k,route", [
-    (5000, 300, 130, 7, "shared"),     # m % 4 != 0, several splits
-    (5000, 16, 64, 7, "shared"),       # few queries: one tile per split
-    (5000, 70, 61, 1, "shared"),       # k=1 at the post-PCA width
+    (5000, 300, 130, 7, "short"),      # m % 4 != 0, several splits
+    (5000, 16, 64, 7, "short"),        # few queries: one tile per split
+    (5000, 70, 61, 1, "short"),        # k=1 at the post-PCA width
     (5000, 40, 32, 600, "global"),     # lists too long for shared memory
     (300, 33, 16, 300, "global"),      # k = nt
     (129, 16, 8, 128, "shared"),       # nt = k + 1: a last split of one row
     (4097, 8, 16, 4096, "global"),     # the same with lists in global memory
+    # the short-list kernel's edges
+    (3000, 129, 64, 7, "short"),       # one query past a 128-query tile
+    (1000, 300, 32, 7, "short"),       # nt not a multiple of 128
+    (5000, 200, 61, 7, "short"),       # width 61: rows not 16-byte aligned
+    (3000, 200, 40, 16, "short"),      # the largest k it takes
+    (3000, 200, 40, 17, "shared"),     # one past it: the long-list kernel
+    (129, 16, 8, 16, "short"),         # a last split of one row, k > 1
 ])
 def test_cuda_kernel_matches_reference(cuda_device, nt, nq, m, k, route):
     """Small integer-valued data: every product and sum is exact in
     float32, so scores tie often and exactly; the kernel must then give
     the reference's lists bit for bit, ties to the lowest index."""
-    from sq_learn_tpu_torch.ops.kernels import argkmin_lists_in_shared
+    from sq_learn_tpu_torch.ops.kernels import argkmin_route
 
-    assert argkmin_lists_in_shared(k, cuda_device) == (route == "shared")
+    assert argkmin_route(k, cuda_device) == route
     rng = np.random.default_rng(0)
     T = torch.from_numpy(rng.integers(-3, 4, (nt, m)).astype(np.float32))
     Q = torch.from_numpy(rng.integers(-3, 4, (nq, m)).astype(np.float32))
