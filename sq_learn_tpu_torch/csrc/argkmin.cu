@@ -21,7 +21,11 @@
 //    issues 16 16-byte shared-memory loads for 256 FMAs. Both operands are
 //    staged kBK columns at a time through a cp.async ring that runs on
 //    across tile boundaries, so the next tile's first chunks are in flight
-//    while a tile is folded. Each score is one FMA chain over ascending
+//    while a tile is folded. A thread's copies of a later chunk are issued
+//    one per 4 columns inside the product loop, from source pointers set
+//    once per chunk: issued in one burst per chunk they took a fifth of
+//    the warps' cycles. A tile's train norms are loaded at its first chunk
+//    and read at its fold. Each score is one FMA chain over ascending
 //    columns, the arithmetic of the first design (`argkmin_partial` below),
 //    so the two give the same bits. A 128-query tile re-reads each train
 //    tile 79 times at the predict shape (14.9 GB from L2), where 32-query
@@ -73,6 +77,13 @@ constexpr int kLd = kBK + 4;   // stage row stride: 16-byte rows, float4
                                // reads free of bank conflicts
 constexpr int kStages = 3;     // cp.async ring depth
 constexpr int kStage = (kBQ + kBT) * kLd;  // floats in one stage
+constexpr int kVecRow = kBK / 4;               // 16-byte pieces of a row
+constexpr int kRowStep = kThreads / kVecRow;   // rows between a thread's
+                                               // pieces
+constexpr int kCopies = kBQ / kRowStep;        // pieces a thread copies
+                                               // per operand and chunk
+static_assert(2 * kCopies == kBK / 4,
+              "one copy per 4-column step of the products");
 constexpr int kShortBlocks = 1;            // resident blocks the launch
                                            // bounds ask for
 constexpr size_t kShortBytes =
@@ -114,22 +125,12 @@ __device__ __forceinline__ bool before(float as, int ai, float bs, int bi) {
 }
 
 // Stage 128 rows of A from row0, columns [c0, c0 + kBK), into dst (stride
-// kLd); rows from `end` on and columns beyond m are zeros. 16-byte cp.async
-// where the rows are aligned, else plain loads.
+// kLd) by plain loads, for rows that are not 16-byte aligned; rows from
+// `end` on and columns beyond m are zeros.
 __device__ __forceinline__ void stage_rows(float* dst, const float* A,
-                                           int row0, int end, int m, int c0,
-                                           int vec) {
+                                           int row0, int end, int m,
+                                           int c0) {
   static_assert(kBQ == kBT, "one staging routine for both operands");
-  if (vec) {
-    for (int v = threadIdx.x; v < kBQ * kBK / 4; v += kThreads) {
-      const int r = v / (kBK / 4), c = (v % (kBK / 4)) * 4;
-      const int i = row0 + r, j = c0 + c;
-      const bool ok = i < end && j < m;
-      cp_async16(dst + r * kLd + c, ok ? A + size_t(i) * m + j : A,
-                 ok ? 16 : 0);
-    }
-    return;
-  }
   for (int e = threadIdx.x; e < kBQ * kBK; e += kThreads) {
     const int r = e / kBK, c = e % kBK;
     const int i = row0 + r, j = c0 + c;
@@ -139,13 +140,17 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* A,
 
 // The products of one staged chunk, added to acc: acc[i][j] is the product
 // of query ty + 16 i with train row tx + 16 j, one FMA chain over ascending
-// columns.
+// columns. copy(s) issues the thread's s-th copy of a later chunk: spread
+// one per 4 columns, the copies do not stall the loop in a burst.
+template <typename Copy>
 __device__ __forceinline__ void chunk_products(const float* qs,
                                                const float* ts, int tx,
                                                int ty,
-                                               float (&acc)[kTQ][kTT]) {
+                                               float (&acc)[kTQ][kTT],
+                                               const Copy& copy) {
 #pragma unroll
   for (int kk = 0; kk < kBK; kk += 4) {
+    copy(kk / 4);
     float4 qa[kTQ];
 #pragma unroll
     for (int i = 0; i < kTQ; ++i)
@@ -165,21 +170,16 @@ __device__ __forceinline__ void chunk_products(const float* qs,
   }
 }
 
-// Fold one tile of products (train rows from t0, real below r1) into the
-// block's lists; turns acc into scores. The half-warp of lanes with this
-// ty owns queries ty + 16 i; lane tx owns slot tx of their lists.
+// Fold one tile of products (train rows from t0, real below r1, their
+// norms in tq) into the block's lists; turns acc into scores. The
+// half-warp of lanes with this ty owns queries ty + 16 i; lane tx owns slot
+// tx of their lists.
 __device__ __forceinline__ void fold_tile(float (&acc)[kTQ][kTT],
-                                          const float* __restrict__ tsq,
-                                          int t0, int r1, int k, int tx,
-                                          int ty, float* ls, int32_t* li) {
+                                          const float (&tq)[kTT], int t0,
+                                          int r1, int k, int tx, int ty,
+                                          float* ls, int32_t* li) {
   const int lane = threadIdx.x & 31;
   const int kth = (lane & 16) | (k - 1);  // lane holding this half's k-th
-  float tq[kTT];
-#pragma unroll
-  for (int j = 0; j < kTT; ++j) {
-    const int r = t0 + tx + 16 * j;
-    tq[j] = r < r1 ? tsq[r] : 0.f;
-  }
 #pragma unroll
   for (int i = 0; i < kTQ; ++i) {
     float* L = ls + (ty + 16 * i) * kShortK;
@@ -266,18 +266,65 @@ argkmin_short(const float* __restrict__ T, const float* __restrict__ tsq,
     ls[(ty + 16 * i) * kShortK + tx] = INFINITY;
     li[(ty + 16 * i) * kShortK + tx] = kNoIndex;
   }
-  auto fetch = [&](int g) {  // chunk g of the split's (tile, chunk) walk
-    float* dst = stage + (g % kStages) * kStage;
-    const int c0 = (g % nchunks) * kBK;
-    stage_rows(dst, Q, q0, nq, m, c0, vec);
-    stage_rows(dst + kBQ * kLd, T, r0 + g / nchunks * kBT, r1, m, c0, vec);
+  // Chunk g of the split's (tile, chunk) walk is staged by 16-byte
+  // cp.async where the rows are aligned: each thread copies kCopies pieces
+  // of each operand, rows crow + n kRowStep, columns ccol..ccol + 3. aim(g)
+  // points the copies at chunk g; copy(s) issues the s-th.
+  const int crow = tid / kVecRow, ccol = (tid % kVecRow) * 4;
+  const size_t step = size_t(kRowStep) * m;
+  const float* qsrc = Q + (size_t(q0) + crow) * m + ccol;
+  unsigned qrows = 0;  // bit n: query row crow + n kRowStep is real
+#pragma unroll
+  for (int n = 0; n < kCopies; ++n)
+    if (q0 + crow + n * kRowStep < nq) qrows |= 1u << n;
+  float* dst = stage;
+  const float* tsrc = T;
+  unsigned qok = 0, tok = 0;
+  int c0 = 0;
+  auto aim = [&](int g) {
+    dst = stage + (g % kStages) * kStage;
+    c0 = (g % nchunks) * kBK;
+    const int t0 = r0 + g / nchunks * kBT;
+    tsrc = T + (size_t(t0) + crow) * m + ccol;
+    const bool col_ok = c0 + ccol < m;
+    qok = col_ok ? qrows : 0u;
+    tok = 0;
+#pragma unroll
+    for (int n = 0; n < kCopies; ++n)
+      if (col_ok && t0 + crow + n * kRowStep < r1) tok |= 1u << n;
+  };
+  auto copy = [&](int s) {
+    if (s < kCopies) {
+      const bool ok = qok >> s & 1u;
+      cp_async16(dst + (crow + s * kRowStep) * kLd + ccol,
+                 ok ? qsrc + s * step + c0 : Q, ok ? 16 : 0);
+    } else {
+      const int n = s - kCopies;
+      const bool ok = tok >> n & 1u;
+      cp_async16(dst + (kBQ + crow + n * kRowStep) * kLd + ccol,
+                 ok ? tsrc + n * step + c0 : T, ok ? 16 : 0);
+    }
+  };
+  auto fetch_plain = [&](int g) {  // rows not 16-byte aligned
+    float* d = stage + (g % kStages) * kStage;
+    const int c = (g % nchunks) * kBK;
+    stage_rows(d, Q, q0, nq, m, c);
+    stage_rows(d + kBQ * kLd, T, r0 + g / nchunks * kBT, r1, m, c);
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < total) fetch(s);
+    if (s < total) {
+      if (vec) {
+        aim(s);
+#pragma unroll
+        for (int c = 0; c < 2 * kCopies; ++c) copy(c);
+      } else {
+        fetch_plain(s);
+      }
+    }
     cp_async_commit();
   }
-  float acc[kTQ][kTT];
+  float acc[kTQ][kTT], tq[kTT];
 #pragma unroll
   for (int i = 0; i < kTQ; ++i)
 #pragma unroll
@@ -285,12 +332,26 @@ argkmin_short(const float* __restrict__ T, const float* __restrict__ tsq,
   for (int g = 0; g < total; ++g) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // chunk g landed; chunk g - 1 is consumed
-    if (g + kStages - 1 < total) fetch(g + kStages - 1);
-    cp_async_commit();
+    const int ahead = g + kStages - 1;  // the chunk staged meanwhile
+    const bool vec_ahead = vec && ahead < total;
+    if (vec_ahead)
+      aim(ahead);
+    else if (ahead < total)
+      fetch_plain(ahead);
+    const int t0 = r0 + g / nchunks * kBT;
+    if (g % nchunks == 0)  // the tile's norms, read by its fold
+#pragma unroll
+      for (int j = 0; j < kTT; ++j) {
+        const int r = t0 + tx + 16 * j;
+        tq[j] = r < r1 ? tsq[r] : 0.f;
+      }
     const float* qs = stage + (g % kStages) * kStage;
-    chunk_products(qs, qs + kBQ * kLd, tx, ty, acc);
+    chunk_products(qs, qs + kBQ * kLd, tx, ty, acc, [&](int s) {
+      if (vec_ahead) copy(s);
+    });
+    cp_async_commit();
     if (g % nchunks == nchunks - 1) {  // the tile is done: fold it
-      fold_tile(acc, tsq, r0 + g / nchunks * kBT, r1, k, tx, ty, ls, li);
+      fold_tile(acc, tq, t0, r1, k, tx, ty, ls, li);
 #pragma unroll
       for (int i = 0; i < kTQ; ++i)
 #pragma unroll

@@ -112,6 +112,69 @@ def test_knn_indices_exact_matches_jax(k):
         assert ti[0, :2].tolist() == [0, 500]
 
 
+def _near_duplicates():
+    """ROADMAP §3's smallest input: two training rows a few float32 ulps
+    from the query, whose exact distances differ far below float32
+    resolution of the scores."""
+    q = np.array([[100, 100]], np.float32)
+    T = np.array([[100 - 2**-15, 100 - 2**-16],
+                  [100 + 3 * 2**-16, 100 - 2**-16]], np.float32)
+    return T, q, 1
+
+
+def _near_duplicate_clusters():
+    """200 queries, each at the center of a cluster of 1 to 6 training rows
+    a few ulps away (offsets in multiples of 2**-16 at magnitude ~100), far
+    from every other cluster, shuffled: k=8 reaches into the nearer
+    clusters, and the rows of a cluster of one stand alone."""
+    rng = np.random.default_rng(11)
+    centers = rng.uniform(-100, 100, (200, 8)).astype(np.float32)
+    sizes = rng.integers(1, 7, 200)
+    T = np.concatenate([
+        c + rng.integers(-4, 5, (n, 8)) * 2.0**-16
+        for c, n in zip(centers, sizes)]).astype(np.float32)
+    return T[rng.permutation(len(T))], centers, 8
+
+
+@pytest.mark.parametrize("case", [_near_duplicates, _near_duplicate_clusters])
+def test_knn_indices_near_duplicates_agree_with_jax_up_to_the_margin(case):
+    """Where exact distances differ below float32 resolution, the port
+    (which ranks ‖t‖²−2·q·t, as the Pallas search does) and JAX's XLA
+    route (which ranks the clamped full distance) order near-duplicate
+    rows by rounding noise. The lists must agree wherever the exact
+    float64 gap to the neighbouring positions exceeds the margin, and
+    every position where they differ must hold rows whose exact distances
+    lie within the margin of each other: 3× the larger measured float32
+    distance error of the two sides, the rule ``chip_smoke.py`` holds the
+    kernel to on the card."""
+    Xt, Xq, k = case()
+    ji, jd = (np.asarray(a) for a in jax_knn_indices(
+        jnp.asarray(Xt), jnp.asarray(Xq), k))
+    ti, td = (a.numpy() for a in knn_indices(
+        torch.from_numpy(Xt), torch.from_numpy(Xq), k))
+    exact = ((Xq.astype(np.float64)[:, None, :]
+              - Xt.astype(np.float64)[None]) ** 2).sum(-1)
+    ej = np.take_along_axis(exact, ji.astype(np.int64), 1)
+    et = np.take_along_axis(exact, ti.astype(np.int64), 1)
+    margin = 3.0 * max(np.abs(jd - ej).max(), np.abs(td - et).max())
+    differ = ti != ji
+    assert (np.abs(et - ej)[differ] <= margin).all()
+    # positions whose exact distance stands more than the margin from its
+    # neighbours' (and, at the k-th, from the (k+1)-th nearest)
+    order = np.argsort(exact, axis=1, kind="stable")
+    near = np.take_along_axis(exact, order, 1)[:, :k + 1]
+    gaps = np.diff(near, axis=1)
+    left = np.concatenate([np.full((len(Xq), 1), np.inf), gaps[:, :k - 1]],
+                          axis=1)
+    alone = (left > margin) & (gaps[:, :k] > margin)
+    np.testing.assert_array_equal(ti[alone], order[:, :k][alone])
+    np.testing.assert_array_equal(ji[alone], order[:, :k][alone])
+    if case is _near_duplicate_clusters:
+        # the data exercise both halves of the rule: the two sides break
+        # near-ties apart, and many positions stand alone
+        assert differ.any() and alone.sum() > 100
+
+
 @pytest.mark.parametrize("k", [1, 7])
 def test_knn_indices_bfloat16_matches_jax(k):
     """Shortlist in bfloat16, refine exactly: the same neighbors and the
