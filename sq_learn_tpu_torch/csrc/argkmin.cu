@@ -18,12 +18,12 @@
 //    split in tiles of kBT = 128 rows. The (query x train) score tile is a
 //    register-tiled f32 product, as `lloyd_score` computes it: 16 x 16
 //    threads each hold 8 queries x 8 train rows, so per 4 columns a thread
-//    issues 16 16-byte shared-memory loads for 256 FMAs. Both operands are
+//    makes 16 16-byte shared-memory loads for 256 FMAs. Both operands are
 //    staged kBK columns at a time through a cp.async ring that runs on
 //    across tile boundaries, so the next tile's first chunks are in flight
-//    while a tile is folded. A thread's copies of a later chunk are issued
+//    while a tile is folded. A thread's copies of a later chunk are started
 //    one per 4 columns inside the product loop, from source pointers set
-//    once per chunk: issued in one burst per chunk they took a fifth of
+//    once per chunk: started in one burst per chunk they took a fifth of
 //    the warps' cycles. A tile's train norms are loaded at its first chunk
 //    and read at its fold. Each score is one FMA chain over ascending
 //    columns, the arithmetic of the first design (`argkmin_partial` below),
@@ -140,7 +140,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* A,
 
 // The products of one staged chunk, added to acc: acc[i][j] is the product
 // of query ty + 16 i with train row tx + 16 j, one FMA chain over ascending
-// columns. copy(s) issues the thread's s-th copy of a later chunk: spread
+// columns. copy(s) starts the thread's s-th copy of a later chunk: spread
 // one per 4 columns, the copies do not stall the loop in a burst.
 template <typename Copy>
 __device__ __forceinline__ void chunk_products(const float* qs,
@@ -269,7 +269,7 @@ argkmin_short(const float* __restrict__ T, const float* __restrict__ tsq,
   // Chunk g of the split's (tile, chunk) walk is staged by 16-byte
   // cp.async where the rows are aligned: each thread copies kCopies pieces
   // of each operand, rows crow + n kRowStep, columns ccol..ccol + 3. aim(g)
-  // points the copies at chunk g; copy(s) issues the s-th.
+  // points the copies at chunk g; copy(s) starts the s-th.
   const int crow = tid / kVecRow, ccol = (tid % kVecRow) * 4;
   const size_t step = size_t(kRowStep) * m;
   const float* qsrc = Q + (size_t(q0) + crow) * m + ccol;

@@ -324,10 +324,11 @@ def argkmin_plan(nq, nt, k, n_sms, tiles):
         if splits <= cap:
             per_split.setdefault(splits, per)
     fill = min(math.ceil(slots / qtiles), max(per_split))
-    choices = ([s for s in per_split if fill <= s <= 4 * fill]
-               or [min(s for s in per_split if s >= fill)])
-    splits = min(choices, key=lambda s: (
-        math.ceil(qtiles * s / slots) * per_split[s], s))
+    # the achievable counts ceil(ntiles / per) are dense enough that one
+    # lies in [fill, 4 fill]
+    splits = min((s for s in per_split if fill <= s <= 4 * fill),
+                 key=lambda s: (math.ceil(qtiles * s / slots) * per_split[s],
+                                s))
     return splits, per_split[splits] * tile_t
 
 

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX and nothing of ``sq_learn_tpu``.
 
 In a fresh interpreter where ``import jax`` fails, every module of
-``sq_learn_tpu_torch``, ``chip_smoke.py`` and ``chip_profile.py``
-import, and no ``sq_learn_tpu`` module gets loaded. ``chip_smoke.py``
+``sq_learn_tpu_torch``, ``chip_smoke.py``, ``chip_profile.py`` and
+``chip_variants.py`` import, and no ``sq_learn_tpu`` module gets loaded. ``chip_smoke.py``
 itself fails, and prints no result, without a card or without the
 repository beside it.
 """
@@ -22,7 +22,7 @@ names = [m.name for m in pkgutil.walk_packages(
     sq_learn_tpu_torch.__path__, "sq_learn_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for script in ("chip_smoke", "chip_profile"):
+for script in ("chip_smoke", "chip_profile", "chip_variants"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
