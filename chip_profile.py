@@ -26,7 +26,18 @@ that call's wall clock, host time by operator):
   ``KNeighborsClassifier(n_neighbors=7)`` fitted on the first 60 000;
 - one fold of the 10-fold stratified CV of that classifier on all 70 000
   rows: the host's index copies, ``fit`` and ``score``, as
-  ``cross_validate`` runs a fold.
+  ``cross_validate`` runs a fold;
+- the qPCA trial (``examples/mnist_trial.py`` at ``--subsample 0``):
+  ``QPCA(n_components=61, svd_solver="full", random_state=0).fit(X,
+  estimate_all=True, eps=0.4, delta=0.4, theta_major=1e-9,
+  true_tomography=False)``, cold and warm, then under the profiler; its
+  steps one by one in device ms (CUDA events, median of 5): upload,
+  mean and centering, Gram, the 784 × 784 ``eigh`` (float64, as the fit
+  runs it, beside float32 with each one's largest relative eigenvalue
+  error against a float64 Gram), U block, μ(A) sketch, the consistent-PE
+  and tomography draws (Gaussian, and true tomography's multinomial
+  tree), the fit's host fetches; then the quantum transform and one CV
+  fold of 7-NN at width 61.
 
 It needs one NVIDIA GPU and exits non-zero without one.
 """
@@ -178,6 +189,148 @@ def knn(X, y, torch):
     profiled("CV fold", fold, torch)
 
 
+def events_ms(fn, torch, reps=5):
+    """Median ms of ``fn`` between two CUDA events, after one warm-up."""
+    import statistics
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def qpca_trial(X, y, torch):
+    """The qPCA trial's fit, step by step and whole, its transform and one
+    CV fold at width 61."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.model_selection import StratifiedKFold
+    from sq_learn_tpu_torch.models import QPCA, KNeighborsClassifier
+    from sq_learn_tpu_torch.models.qpca import singular_value_estimates
+    from sq_learn_tpu_torch.ops.kernels import argkmin
+    from sq_learn_tpu_torch.ops.linalg import gram_spectrum, svd_flip_v
+    from sq_learn_tpu_torch.ops.quantum import tomography
+    from sq_learn_tpu_torch.ops.quantum.norms import _search_grid
+    from sq_learn_tpu_torch.sketch import cache, engine
+    from sq_learn_tpu_torch.utils.validation import check_array
+
+    k, dev = 61, torch.device("cuda:0")
+    fit_kw = dict(estimate_all=True, eps=0.4, delta=0.4, theta_major=1e-9,
+                  true_tomography=False)
+
+    def fit():
+        return QPCA(n_components=k, svd_solver="full",
+                    random_state=0).fit(X, **fit_kw)
+
+    for label in ("cold", "warm", "warm", "warm"):
+        cache.clear()  # each fit computes its μ(A) sketch
+        t0 = time.perf_counter()
+        pca = fit()
+        torch.cuda.synchronize()
+        print(f"{label} qPCA trial fit: {time.perf_counter() - t0:.4f} s, "
+              f"topk {pca.topk}", flush=True)
+    cache.clear()
+    profiled("qPCA trial fit", fit, torch)
+
+    # the fit's steps, one by one
+    Xd = check_array(X, device=dev)
+    mean = torch.mean(Xd, dim=0)
+    Xc = Xd - mean
+    G = Xc.T @ Xc
+    S, V, safe = gram_spectrum(G)
+    _, Vt = svd_flip_v(None, V.T)
+    n = X.shape[0]
+    X64 = Xd.double()
+    X64 -= X64.mean(dim=0)
+    ev64 = torch.linalg.eigvalsh(X64.T @ X64).flip(0)[:k]
+    del X64
+    for name, evals in (
+            ("float32 (cuSOLVER)", torch.linalg.eigvalsh(G).flip(0)[:k]),
+            ("float64 of the float32 Gram", S[:k].double() ** 2)):
+        rel = float(((evals.double() - ev64).abs() / ev64).max())
+        print(f"784 × 784 eigh in {name}: largest relative error of the "
+              f"first {k} eigenvalues against a float64 Gram {rel:.4e}",
+              flush=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    grid = _search_grid(0.0, 1.0, 0.1)
+    right = Vt[:k].contiguous()
+    left = ((Xc @ right.T) / safe[None, :k]).T.contiguous()
+    muA = pca.muA
+    steps = {
+        "upload (check_array, pageable)": lambda: check_array(X, device=dev),
+        "mean and centering": lambda: Xd - torch.mean(Xd, dim=0),
+        "Gram Xcᵀ·Xc (float32)": lambda: Xc.T @ Xc,
+        "eigh 784 × 784 float64 (the fit's)": lambda: gram_spectrum(G),
+        "eigh 784 × 784 float32 (not used)": lambda: torch.linalg.eigh(G),
+        "U block Xc·Vtᵀ (61 columns)": lambda: (Xc @ right.T) / safe[:k],
+        "μ(A) sketch (4096 rows, 11-point grid)": lambda: engine.spectral_stats(
+            Xc, grid, sketch=4096, with_sigma=False,
+            rng=np.random.default_rng(0)),
+        "consistent PE of 61 σ": lambda: singular_value_estimates(
+            g, S[:k], muA, 0.4 / muA, X.shape[1]),
+        "Gaussian tomography, right 61 × 784": lambda: tomography(
+            g, right, 0.4, true_tomography=False),
+        "Gaussian tomography, left 61 × 70000": lambda: tomography(
+            g, left, 0.4, true_tomography=False),
+        "true tomography, right 61 × 784": lambda: tomography(
+            g, right, 0.4),
+        "true tomography, left 61 × 70000": lambda: tomography(g, left, 0.4),
+        "host fetches (left_sv and its estimate, 2 × 61 × 70000)":
+            lambda: (left.cpu(), left.cpu()),
+    }
+    total = 0.0
+    for name, fn in steps.items():
+        ms = events_ms(fn, torch)
+        if "not used" not in name and "true tomography" not in name:
+            total += ms
+        print(f"qPCA fit step, {name}: {ms:.4f} device ms", flush=True)
+    print(f"qPCA fit steps on the trial's path: {total:.4f} ms in all "
+          f"(the Gaussian route; true tomography is the smoke's second "
+          f"extraction)", flush=True)
+
+    def quantum_transform():
+        return pca.transform(X, classic_transform=False,
+                             use_classical_components=False)
+
+    for label in ("warm", "warm"):
+        t0 = time.perf_counter()
+        Xq = quantum_transform()
+        torch.cuda.synchronize()
+        print(f"{label} quantum transform 70000 × 784 → 61: "
+              f"{time.perf_counter() - t0:.4f} s", flush=True)
+    profiled("quantum transform", quantum_transform, torch)
+
+    Xq = Xq.cpu().numpy()  # cross_validate fetches its input to the host
+    train, test = next(StratifiedKFold(10).split(Xq, y))
+
+    def fold():
+        t0 = time.perf_counter()
+        Xtr, ytr = Xq[train], y[train]
+        t1 = time.perf_counter()
+        fitted = KNeighborsClassifier(n_neighbors=7).fit(Xtr, ytr)
+        t2 = time.perf_counter()
+        score = fitted.score(Xq[test], y[test])
+        t3 = time.perf_counter()
+        return t1 - t0, t2 - t1, t3 - t2, score
+
+    for label in ("warm", "warm"):
+        argkmin.launches = 0
+        index_s, fit_s, score_s, score = fold()
+        print(f"{label} CV fold at width 61 (63000 train, 7000 test rows): "
+              f"host index copy {index_s:.4f} s, fit {fit_s:.4f} s, score "
+              f"{score_s:.4f} s, accuracy {score}, argkmin launches "
+              f"{argkmin.launches}", flush=True)
+    profiled("CV fold at width 61", fold, torch)
+
+
 def main():
     import torch
 
@@ -225,6 +378,7 @@ def main():
     lloyd_kernels(X, torch)
     argkmin_kernels(X, torch)
     knn(X, y, torch)
+    qpca_trial(X, y, torch)
     return 0
 
 

@@ -50,9 +50,23 @@ each of which fails the run:
      rows, with ``predict``, ``predict_proba``, ``kneighbors`` and
      ``score`` on the last 10 000 (uniform and distance weights; accuracy
      ≥ 0.95), then ``cross_validate`` over ``StratifiedKFold(10)`` on all
-     70 000 rows, one kernel launch per fold.
-   Small fits on the card (δ=0 q-means; k-NN on 4 000 rows) are checked
-   against the same fits on the CPU (the plain versions).
+     70 000 rows, one kernel launch per fold;
+   - the reference's MNIST trial (``examples/mnist_trial.py`` at
+     ``--subsample 0``): ``QPCA(n_components=61, svd_solver="full",
+     random_state=0).fit(X, estimate_all=True, eps=0.4, delta=0.4,
+     theta_major=1e-9, true_tomography=False)``, the quantum transform
+     and ``cross_validate(KNeighborsClassifier(n_neighbors=7), Xq, y,
+     cv=StratifiedKFold(10))``: the spectrum within SPECTRUM_RTOL of a
+     float64 Gram route, every σ̂ on consistent PE's snap grid (and the
+     share on which a second fit with random_state=1 agrees), every
+     tomography row within δ, Xq finite (70 000, 61), ten
+     ``argkmin_short`` launches and every fold ≥ 0.95; then a
+     true-tomography top-k extraction at the full shape (the multinomial
+     split tree on vectors of 70 000 and 784, each row within δ). Before
+     it the tree alone: ⌈log₂ d⌉ ``torch.binomial`` calls per call.
+   Small fits on the card (δ=0 q-means; k-NN on 4 000 rows; QPCA(16) at
+   4 000 × 64, ε = δ = 0) are checked against the same fits on the CPU
+   (the plain versions).
 4. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
@@ -96,6 +110,17 @@ ERR_RATIO = 2.0
 # the search must take under this share of its plain version's time at
 # the main shape (the first design took 0.54)
 ARGKMIN_PLAIN_RATIO = 0.5
+# the qPCA trial, examples/mnist_trial.py at --subsample 0: qPCA at
+# ε = δ = 0.4, the quantum transform, a 10-fold CV of 7-NN on its output
+QPCA_COMPONENTS, QPCA_EPS, QPCA_DELTA, QPCA_THETA = 61, 0.4, 0.4, 1e-9
+# explained_variance_ of the kept components against a float64 Gram route
+# in the same run: 3× the JAX package's own float32 error at 70 000 × 784,
+# 5.079681150339217e-05 (largest relative error of its 61 values; measured
+# on a CPU by `python tests/test_torch_qpca.py`)
+SPECTRUM_RTOL = 3 * 5.079681150339217e-05
+# the small card-vs-CPU fit: QPCA(16) on synthetic_surrogate(4000, 64, 10,
+# seed=784) at ε = δ = 0, compared in norm: ‖card − cpu‖ ≤ rtol·‖cpu‖
+SMALL_QPCA_RTOL = 1e-4
 
 
 def check(cond, msg):
@@ -635,6 +660,226 @@ def knn_card_vs_cpu(X, y):
           f"each within {dev} ≤ 3 × {err} in exact distance", flush=True)
 
 
+def multinomial_tree(torch):
+    """The multinomial split tree on the card: one ``torch.binomial`` call
+    per level, ⌈log₂ d⌉ levels, at the trial's vector lengths; counts sum
+    to N, and each call is timed (CUDA events)."""
+    import math
+
+    from sq_learn_tpu_torch.ops.quantum.sampling import multinomial_counts
+    from sq_learn_tpu_torch.ops.quantum.tomography import \
+        tomography_n_measurements
+
+    g = torch.Generator(device=CARD)
+    g.manual_seed(0)
+    for rows, d in ((1, 784), (1, N), (QPCA_COMPONENTS, N),
+                    (QPCA_COMPONENTS, 2 * N)):
+        p = torch.rand((rows, d), generator=g, device=CARD) ** 4
+        n = tomography_n_measurements(min(d, N), QPCA_DELTA)
+        before = multinomial_counts.binomial_calls
+        counts = multinomial_counts(g, n, p)
+        calls = multinomial_counts.binomial_calls - before
+        check(calls == math.ceil(math.log2(d)),
+              f"multinomial tree at d={d}: {calls} binomial calls, not "
+              f"⌈log₂ d⌉ = {math.ceil(math.log2(d))}")
+        check(bool((counts.sum(-1) == n).all()) and bool((counts >= 0).all()),
+              f"multinomial tree at d={d}: counts do not sum to N={n}")
+        ms = time_ms(lambda: multinomial_counts(g, n, p), reps=5)
+        print(f"multinomial_counts ({rows} × {d}, N={n}): {calls} "
+              f"torch.binomial calls (⌈log₂ d⌉ levels), {ms:.4f} ms",
+              flush=True)
+
+
+def qpca_trial_path(X, y, torch):
+    """The reference's MNIST trial through the entry points a user calls:
+    qPCA with every top-k estimator, the quantum transform, a 10-fold
+    stratified CV of 7-NN on the transformed rows, then a true-tomography
+    top-k extraction at the full shape. Returns the argkmin launches of
+    the CV."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.model_selection import (StratifiedKFold,
+                                                    cross_validate)
+    from sq_learn_tpu_torch.models import QPCA, KNeighborsClassifier
+    from sq_learn_tpu_torch.ops.kernels import (argkmin, argkmin_reference,
+                                                argkmin_route, argkmin_work)
+    from sq_learn_tpu_torch.ops.quantum.estimation import \
+        consistent_phase_intervals
+    from sq_learn_tpu_torch.ops.quantum.sampling import multinomial_counts
+
+    fit_kw = dict(estimate_all=True, eps=QPCA_EPS, delta=QPCA_DELTA,
+                  theta_major=QPCA_THETA, true_tomography=False)
+    fits, walls = [], []
+    for seed in (0, 1):
+        t0 = time.perf_counter()
+        fits.append(QPCA(n_components=QPCA_COMPONENTS, svd_solver="full",
+                         random_state=seed).fit(X, **fit_kw))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    pca = fits[0]
+    t0 = time.perf_counter()
+    Xq = pca.transform(X, classic_transform=False,
+                       use_classical_components=False)
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    Xc = pca.transform(X)
+    f_dev = float(torch.linalg.norm(Xq - Xc))
+    check(tuple(Xq.shape) == (N, QPCA_COMPONENTS)
+          and bool(torch.isfinite(Xq).all()),
+          f"quantum transform: shape {tuple(Xq.shape)} or not finite")
+    check(pca.topk == QPCA_COMPONENTS,
+          f"top-k extraction kept {pca.topk} of {QPCA_COMPONENTS}")
+    print(f"QPCA(n_components={QPCA_COMPONENTS}, svd_solver='full').fit(X, "
+          f"estimate_all=True, eps={QPCA_EPS}, delta={QPCA_DELTA}, "
+          f"theta_major={QPCA_THETA}, true_tomography=False) {N}×{M}: "
+          f"{walls[0]:.4f} s (random_state=1: {walls[1]:.4f} s); quantum "
+          f"transform {transform_s:.4f} s; topk {pca.topk}; muA "
+          f"{pca.muA} ({pca.norm_muA}); sketch_info_ {pca.sketch_info_}; "
+          f"‖Xq − Xc‖_F {f_dev}", flush=True)
+    check(pca.sketch_info_["sketched"]
+          and pca.sketch_info_["sample_rows"] == 4096,
+          f"μ(A) sketch: {pca.sketch_info_}")
+
+    # spectrum against a float64 Gram route in this run
+    X64 = torch.from_numpy(X).to(CARD).double()
+    X64 -= X64.mean(dim=0)
+    ev64 = torch.linalg.eigvalsh(X64.T @ X64).flip(0)[:QPCA_COMPONENTS]
+    ev64 = (ev64 / (N - 1)).cpu().numpy()
+    del X64
+    rel = np.abs(pca.explained_variance_ - ev64) / ev64
+    check(rel.max() <= SPECTRUM_RTOL,
+          f"explained_variance_ off the float64 reference by {rel.max()} "
+          f"(relative), beyond {SPECTRUM_RTOL}")
+    print(f"explained_variance_ of {QPCA_COMPONENTS} components against "
+          f"float64: largest relative error {rel.max()} at component "
+          f"{int(rel.argmax())} (limit {SPECTRUM_RTOL})", flush=True)
+
+    # σ̂ on consistent PE's snap grid, decoded as the fit decodes it
+    eps_scaled = QPCA_EPS / pca.muA
+    iv, _ = consistent_phase_intervals(eps_scaled, 1.0 - 1.0 / M)
+    iv = torch.as_tensor(iv, dtype=torch.float32, device=CARD)
+    mids = torch.clamp((iv[:-1] + iv[1:]) / 2, min=0.0)
+    grid = torch.sort(torch.cos(mids * (eps_scaled + np.pi) / 2.0)
+                      * pca.muA).values.cpu().numpy()
+    est = pca.estimate_s_values
+    pos = np.clip(np.searchsorted(grid, est), 1, len(grid) - 1)
+    off = np.minimum(np.abs(est - grid[pos - 1]), np.abs(est - grid[pos]))
+    check(bool((off <= 4 * np.finfo(np.float32).eps * est).all()),
+          f"σ̂ off consistent PE's snap grid by up to {off.max()}")
+    agree = float(np.mean(est == fits[1].estimate_s_values))
+    sv_err = float(np.abs(est - pca.singular_values_).max())
+    print(f"σ̂: all {len(est)} on the snap grid ({len(grid)} points, "
+          f"ε/μ = {eps_scaled}); largest |σ̂ − σ| {sv_err}; random_state 0 "
+          f"and 1 agree on {agree:.4f} of σ̂", flush=True)
+    for side, est_v, true_v in (
+            ("right", pca.estimate_right_sv, pca.components_),
+            ("left", pca.estimate_left_sv, pca.left_sv)):
+        err = np.linalg.norm(est_v - true_v, axis=1)
+        check(err.max() <= QPCA_DELTA,
+              f"Gaussian tomography of the {side} vectors: a row off by "
+              f"{err.max()} > δ = {QPCA_DELTA}")
+        print(f"Gaussian tomography, {side} vectors {est_v.shape}: largest "
+              f"row error {err.max()} (δ = {QPCA_DELTA})", flush=True)
+
+    # the CV on the quantum transform, argkmin_short once per fold
+    check(argkmin_route(KNN_K, torch.device(CARD)) == "short",
+          f"k={KNN_K} must take argkmin_short")
+    before = argkmin.launches
+    t0 = time.perf_counter()
+    res = cross_validate(KNeighborsClassifier(n_neighbors=KNN_K), Xq, y,
+                         cv=StratifiedKFold(10))
+    cv_s = time.perf_counter() - t0
+    cv_launches = argkmin.launches - before
+    check(cv_launches == 10, f"the trial's CV launched argkmin_short "
+                             f"{cv_launches} times, not once per fold")
+    check(res["test_score"].min() >= KNN_ACCURACY_FLOOR,
+          f"trial CV fold accuracy {res['test_score'].min()}")
+    print(f"cross_validate(KNeighborsClassifier(n_neighbors={KNN_K}), Xq, "
+          f"StratifiedKFold(10)) {N}×{QPCA_COMPONENTS}: {cv_s:.4f} s, "
+          f"argkmin_short launches {cv_launches}, test_score "
+          f"{res['test_score'].tolist()}, fit_time "
+          f"{res['fit_time'].tolist()}, score_time "
+          f"{res['score_time'].tolist()}", flush=True)
+
+    # one fold's search at width 61 against its plain version (these
+    # launches come after the CV's count was read)
+    train, test = next(StratifiedKFold(10).split(np.zeros(N), y))
+    Xq_h = Xq.cpu()
+    T = Xq_h[train].to(CARD).contiguous()
+    Q = Xq_h[test].to(CARD).contiguous()
+    tsq = torch.sum(T * T, dim=1)
+    idx, d2 = argkmin(T, tsq, Q, KNN_K)
+    ref_i, ref_d = argkmin_reference(T, tsq, Q, KNN_K)
+    check(bool(((d2 - ref_d).abs() <= D2_RTOL_KNN * ref_d.abs()).all()),
+          "argkmin at width 61: d2 off the plain version's")
+    ms61 = time_ms(lambda: argkmin(T, tsq, Q, KNN_K))
+    plain61 = time_ms(lambda: argkmin_reference(T, tsq, Q, KNN_K))
+    nbytes, ops = argkmin_work(Q.shape[0], T.shape[0], T.shape[1], KNN_K)
+    bound61 = max(nbytes / 3.35e12, ops / 67e12) * 1e3
+    print(f"argkmin at the trial's fold shape {Q.shape[0]}×{T.shape[0]}×"
+          f"{T.shape[1]}, k={KNN_K}: {ms61:.4f} ms (plain {plain61:.4f} ms, "
+          f"bound {bound61:.4f} ms); {int((idx != ref_i).sum())} of "
+          f"{idx.numel()} indices differ from the plain version, max |d2 − "
+          f"plain| {float((d2 - ref_d).abs().max())}", flush=True)
+
+    # true tomography of the same top-k vectors at the full shape
+    calls = multinomial_counts.binomial_calls
+    t0 = time.perf_counter()
+    right, left, *_ = pca.topk_sv_extractors(
+        delta=QPCA_DELTA, eps=QPCA_EPS, theta=QPCA_THETA,
+        true_tomography=True)
+    tomo_s = time.perf_counter() - t0
+    calls = multinomial_counts.binomial_calls - calls
+    expect = (int(np.ceil(np.log2(M))) + int(np.ceil(np.log2(2 * M)))
+              + int(np.ceil(np.log2(N))) + int(np.ceil(np.log2(2 * N))))
+    check(calls == expect, f"true tomography made {calls} binomial calls, "
+                           f"not {expect}")
+    for side, est_v, true_v in (("right", right, pca.components_),
+                                ("left", left, pca.left_sv)):
+        err = np.linalg.norm(est_v - true_v, axis=1)
+        check(np.isfinite(est_v).all() and err.max() <= QPCA_DELTA,
+              f"true tomography of the {side} vectors: a row off by "
+              f"{err.max()} > δ = {QPCA_DELTA}")
+        print(f"true tomography, {side} vectors {est_v.shape}: largest row "
+              f"error {err.max()}, median {float(np.median(err))} (δ = "
+              f"{QPCA_DELTA})", flush=True)
+    print(f"true-tomography top-k extraction: {tomo_s:.4f} s, {calls} "
+          f"torch.binomial calls for 2 × {pca.topk} vectors", flush=True)
+    return cv_launches
+
+
+def qpca_card_vs_cpu():
+    """QPCA(16) on synthetic_surrogate(4000, 64, 10, seed=784) at
+    ε = δ = 0 with every top-k estimator, on the card and on the CPU:
+    explained variance, components and the transform equal in norm to
+    SMALL_QPCA_RTOL."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.datasets import synthetic_surrogate
+    from sq_learn_tpu_torch.models import QPCA
+
+    Xs, _ = synthetic_surrogate(4000, 64, 10, seed=784)
+    out = {}
+    for device in (CARD, "cpu"):
+        pca = QPCA(16, random_state=0, device=device).fit(
+            Xs, estimate_all=True, eps=0, delta=0, theta_major=QPCA_THETA)
+        out[device] = {
+            "explained_variance_": pca.explained_variance_,
+            "components_": pca.components_,
+            "transform": pca.transform(
+                Xs, classic_transform=False,
+                use_classical_components=False).cpu().numpy()}
+    errs = {}
+    for name, cpu in out["cpu"].items():
+        card = out[CARD][name]
+        errs[name] = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu))
+        check(errs[name] <= SMALL_QPCA_RTOL,
+              f"small qPCA: {name} on the card and the CPU differ by "
+              f"{errs[name]} (relative, in norm) > {SMALL_QPCA_RTOL}")
+    print(f"small qPCA 4000×64, 16 components, ε = δ = 0: card == CPU, "
+          f"relative differences in norm {errs}", flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -760,6 +1005,20 @@ def main():
           f"{knn_entry['launches']}, lloyd_step launches "
           f"{lloyd_step.launches}", flush=True)
     knn_card_vs_cpu(X, y)
+
+    # the qPCA trial, its argkmin launches counted from 0 and added to the
+    # k-NN path's
+    multinomial_tree(torch)
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    trial_launches = qpca_trial_path(X, y, torch)
+    check(trial_launches == 10 and lloyd_step.launches == 0,
+          f"the qPCA trial launched argkmin {trial_launches} and "
+          f"lloyd_step {lloyd_step.launches} times")
+    knn_entry["launches"] += trial_launches
+    print(f"qPCA trial path: {time.perf_counter() - t0:.3f} s, argkmin "
+          f"launches {trial_launches}", flush=True)
+    qpca_card_vs_cpu()
 
     print(smi)
     print(json.dumps({"kernels": [entry, knn_entry]}))

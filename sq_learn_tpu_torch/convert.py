@@ -3,7 +3,9 @@
 :func:`qkmeans_from_numpy` takes a fitted JAX ``QKMeans``'s attributes as
 numpy arrays and returns a fitted port :class:`~.models.QKMeans` whose
 ``predict``, ``transform`` and ``score`` compute what the JAX ones do;
-:func:`kneighbors_from_numpy` does the same for ``KNeighborsClassifier``.
+:func:`kneighbors_from_numpy` does the same for ``KNeighborsClassifier``
+and :func:`qpca_from_numpy` for ``QPCA`` (classical and quantum
+transforms).
 The port imports nothing of the JAX package: the caller reads the
 attributes (``vars(est)``) and hands them over.
 """
@@ -14,6 +16,7 @@ import torch
 from ._config import resolve_device
 from .models.neighbors import KNeighborsClassifier
 from .models.qkmeans import QKMeans
+from .models.qpca import QPCA
 from .ops.linalg import row_norms
 
 #: fitted attributes carried over, with the type each is stored as
@@ -112,4 +115,75 @@ def kneighbors_from_numpy(attrs, device=None, params=None):
     est.classes_ = classes
     est.n_samples_fit_, est.n_features_in_ = X.shape
     est._x_sq_fit = row_norms(est.X_fit_, squared=True)
+    return est
+
+
+#: fitted QPCA arrays carried over (float32, as the JAX package keeps them)
+_QPCA_ARRAYS = ("mean_", "components_", "all_components",
+                "explained_variance_", "explained_variance_ratio_",
+                "explained_variance_all", "explained_variance_ratio_all",
+                "singular_values_", "all_singular_values_", "left_sv",
+                "estimate_right_sv", "estimate_left_sv",
+                "estimate_s_values", "estimate_fs", "estimate_fs_ratio")
+_QPCA_SCALARS = {"n_components_": int, "noise_variance_": float,
+                 "n_features_in_": int, "n_samples_": int,
+                 "n_features_": int, "spectral_norm": float,
+                 "frob_norm": float}
+
+
+def qpca_from_numpy(attrs, device=None, params=None):
+    """A fitted port ``QPCA`` from a JAX ``QPCA``'s fitted state.
+
+    Parameters
+    ----------
+    attrs : dict
+        Fitted attributes (for example ``vars(est)`` of the JAX
+        estimator): ``mean_`` and ``components_`` (required), the spectra
+        (``explained_variance_(ratio_)``, ``singular_values_``,
+        ``all_components``, the ``*_all`` arrays), ``left_sv``,
+        ``muA``/``norm_muA``, where present the top-k estimates
+        ``estimate_right_sv``/``estimate_left_sv``/``estimate_s_values``/
+        ``estimate_fs`` (and ``estimate_fs_ratio``), ``n_components_`` and
+        ``noise_variance_``. Other keys are ignored.
+    device : str or torch.device, optional
+        Where the estimator's transforms run (None = the configured
+        device).
+    params : dict, optional
+        Hyperparameters (for example the JAX estimator's ``get_params()``);
+        those the port does not have are dropped, and ``mesh`` must be
+        None.
+    """
+    missing = [a for a in ("mean_", "components_") if a not in attrs]
+    if missing:
+        raise ValueError(f"attrs must hold the fitted {', '.join(missing)}")
+    names = set(QPCA._get_param_names())
+    kw = {k: v for k, v in (params or {}).items() if k in names}
+    kw["device"] = device
+    est = QPCA(**kw)
+    for name in _QPCA_ARRAYS:
+        if attrs.get(name) is not None:
+            setattr(est, name, np.asarray(attrs[name], np.float32))
+    for name, cast in _QPCA_SCALARS.items():
+        if attrs.get(name) is not None:
+            setattr(est, name, cast(attrs[name]))
+    for name in ("muA", "norm_muA"):
+        if name in attrs:
+            setattr(est, name, attrs[name])
+    comps, mean = est.components_, est.mean_
+    if comps.ndim != 2 or mean.shape != (comps.shape[1],):
+        raise ValueError(f"components_ (k, m) and mean_ (m,) do not match: "
+                         f"{comps.shape} and {mean.shape}")
+    if getattr(est, "n_components_", comps.shape[0]) != comps.shape[0]:
+        raise ValueError(f"n_components_={est.n_components_} does not match "
+                         f"components_ of shape {comps.shape}")
+    est.n_components_ = comps.shape[0]
+    if getattr(est, "n_features_in_", comps.shape[1]) != comps.shape[1]:
+        raise ValueError(f"n_features_in_={est.n_features_in_} does not "
+                         f"match components_ of width {comps.shape[1]}")
+    est.n_features_in_ = comps.shape[1]
+    right = getattr(est, "estimate_right_sv", None)
+    if right is not None and (right.ndim != 2
+                              or right.shape[1] != comps.shape[1]):
+        raise ValueError(f"estimate_right_sv of shape {right.shape} does "
+                         f"not match components_ of width {comps.shape[1]}")
     return est

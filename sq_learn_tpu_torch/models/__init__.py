@@ -2,6 +2,7 @@
 
 from .neighbors import KNeighborsClassifier, knn_indices
 from .qkmeans import KMeans, QKMeans, k_means
+from .qpca import PCA, QPCA
 
-__all__ = ["KMeans", "KNeighborsClassifier", "QKMeans", "k_means",
-           "knn_indices"]
+__all__ = ["KMeans", "KNeighborsClassifier", "PCA", "QKMeans", "QPCA",
+           "k_means", "knn_indices"]

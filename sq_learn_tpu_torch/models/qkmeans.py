@@ -35,7 +35,7 @@ from ..ops.linalg import (check_compute_dtype, is_reduced,
                           smallest_singular_value)
 from ..ops.quantum.norms import _mu_grid_unblocked
 from ..parallel.init import kmeans_plusplus_batched, resolve_init_subsample
-from ..sketch.engine import exact_bundle
+from ..sketch.engine import exact_bundle, resolve_sketch_rows
 from ..utils.random import as_generator, gumbel
 from ..utils.validation import check_sample_weight, validation_scope
 
@@ -57,14 +57,15 @@ def _stop_rule_read_due(step):
     return step < CHECK_EVERY or step % CHECK_EVERY == 0
 
 _IPE = ("true_distance_estimate=True at delta > 0 (the IPE E-step) is not "
-        "ported yet: ROADMAP.md §1 item 3, IPE and tomography modes; pass "
-        "true_distance_estimate=False for δ-means")
-_TOMOGRAPHY = ("intermediate_error=True needs vector-state tomography, "
-               "which is not ported yet: ROADMAP.md §1 item 3, IPE and "
-               "tomography modes")
+        "wired into q-means yet: ROADMAP.md §1 item 3, IPE and tomography "
+        "modes; pass true_distance_estimate=False for δ-means")
+_TOMOGRAPHY = ("intermediate_error=True (tomography of the centers in the "
+               "M-step) is not wired into q-means yet: ROADMAP.md §1 item 3, "
+               "IPE and tomography modes")
 _MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
-_SKETCH = ("sketched spectral statistics are not ported yet: ROADMAP.md §1 "
-           "item 4, sketched statistics; pass sketch=0 for the exact ones")
+_SKETCH = ("q-means' sketched spectral statistics (the σ_min/η route) are "
+           "not ported yet: ROADMAP.md §1 item 4, sketched statistics; pass "
+           "sketch=0 for the exact ones")
 _ELKAN = ("algorithm='elkan' (the host Elkan engine) is not ported: "
           "ROADMAP.md §1 item 7, remaining estimators and host engines")
 _DTYPE = ("the fused Lloyd kernel takes float32 data with compute_dtype "
@@ -401,21 +402,6 @@ def fused_fit(generator, stats, weights, centers0, tol_factor, *,
     return out
 
 
-def _sketch_rows(n_samples, n_features, setting):
-    """The sample size the JAX package's sketched statistics would use
-    (its ``resolve_sketch_rows`` without environment overrides); 0 means
-    exact statistics, the only kind this slice computes."""
-    if setting == "auto":
-        target = max(4096, 2 * int(n_features))
-    elif not setting:
-        return 0
-    else:
-        target = int(setting)
-    if n_samples < 4 * target or n_samples < n_features:
-        return 0
-    return target
-
-
 # ---------------------------------------------------------------------------
 # Estimator facade
 # ---------------------------------------------------------------------------
@@ -518,7 +504,7 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                 "algorithm='elkan' applies to the classical (delta=0) path "
                 "only: the δ-window error model needs the full distance row "
                 "per sample. Using the Lloyd kernel.", RuntimeWarning)
-        if delta > 0 and _sketch_rows(*X.shape, self.sketch):
+        if delta > 0 and resolve_sketch_rows(*X.shape, self.sketch):
             raise NotImplementedError(_SKETCH)
         _kernel_dtype(X, self._checked_compute_dtype())
 

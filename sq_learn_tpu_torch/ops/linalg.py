@@ -1,10 +1,11 @@
-"""Linear algebra on tensors (counterpart of ``sq_learn_tpu/ops/linalg.py``,
-the slice the q-means path reads).
+"""Linear algebra on tensors (counterpart of ``sq_learn_tpu/ops/linalg.py``).
 
 Plain products stay ``torch.matmul``, as the JAX package leaves them to
 XLA. On a CUDA device :func:`~sq_learn_tpu_torch._config.resolve_device`
 turns TF32 off, so float32 products run in full float32 like the
-reference's.
+reference's. Tall-skinny SVDs go through the m×m Gram eigendecomposition
+(``torch.linalg.eigh``); randomized SVD follows Halko et al. as in the
+reference's ``extmath.py:161-392``.
 """
 
 import numpy as np
@@ -18,6 +19,128 @@ def row_norms(X, squared=False):
     """Row-wise L2 norms (reference ``extmath.py:49``)."""
     norms = torch.sum(X * X, dim=-1)
     return norms if squared else torch.sqrt(norms)
+
+
+def svd_flip(u, v):
+    """Sign correction for deterministic SVD output (reference
+    ``extmath.py:522``): the largest-|.|-entry of each column of u is made
+    positive."""
+    max_abs_cols = torch.argmax(torch.abs(u), dim=0)
+    signs = torch.sign(u[max_abs_cols, torch.arange(u.shape[1],
+                                                    device=u.device)])
+    signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    return u * signs, v * signs[:, None]
+
+
+def svd_flip_v(u, v):
+    """Sign correction from V's rows (sklearn's ``u_based_decision=False``):
+    the largest-|.|-entry of each right singular vector is made positive.
+    ``u`` may be None or a partial (n, k ≤ r) block; only its first
+    ``len(signs)`` columns are flipped."""
+    max_abs_rows = torch.argmax(torch.abs(v), dim=1)
+    signs = torch.sign(v[torch.arange(v.shape[0], device=v.device),
+                         max_abs_rows])
+    signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    if u is not None:
+        u = u * signs[: u.shape[1]]
+    return u, v * signs[:, None]
+
+
+def gram_spectrum(G):
+    """Descending singular spectrum from a Gram matrix: eigh → flip →
+    clamped sqrt. Returns (S, V, safe) with ``safe`` the zero-guarded
+    divisor for recovering the paired factor.
+
+    A float32 Gram is decomposed in float64 and the results rounded back
+    to float32: cuSOLVER's float32 ``syevd`` returns the small eigenvalues
+    of the 784 × 784 Gram of the MNIST-shaped surrogate with 4.1e-4
+    relative error on an H100, a float64 solver of the same float32 Gram
+    with 8.8e-6 (``chip_profile.py`` measures both), and LAPACK's float32
+    solver, the JAX package's on a CPU, with 5.1e-5 (``python
+    tests/test_torch_qpca.py``). The m×m problem is small; the products
+    stay float32.
+    """
+    evals, V = torch.linalg.eigh(
+        G.to(torch.float64) if G.dtype == torch.float32 else G)  # ascending
+    evals, V = evals.to(G.dtype), V.to(G.dtype)
+    evals = torch.flip(evals, (0,))
+    V = torch.flip(V, (1,))
+    S = torch.sqrt(torch.clamp(evals, min=0.0))
+    return S, V, torch.where(S > 0, S, torch.ones_like(S))
+
+
+def thin_svd(X, method="auto"):
+    """Thin SVD X = U·diag(S)·Vt with U (n,r), S (r,), Vt (r,m),
+    r = min(n,m). 'gram' squares the shorter side, 'direct' calls
+    ``torch.linalg.svd``, 'auto' picks 'gram' at an aspect ratio ≥ 8."""
+    n, m = X.shape
+    if method == "auto":
+        method = "gram" if max(n, m) >= 8 * min(n, m) else "direct"
+    if method == "direct":
+        U, S, Vt = torch.linalg.svd(X, full_matrices=False)
+        return U, S, Vt
+    if n >= m:
+        S, V, safe = gram_spectrum(X.T @ X)
+        return (X @ V) / safe[None, :], S, V.T
+    S, U, safe = gram_spectrum(X @ X.T)
+    return U, S, (U.T @ X) / safe[:, None]
+
+
+def centered_svd(X, method="auto"):
+    """Column-center X and return (mean, U, S, Vt) with V-based signs
+    (:func:`svd_flip_v`, the convention every PCA path shares)."""
+    mean = torch.mean(X, dim=0)
+    U, S, Vt = thin_svd(X - mean, method=method)
+    U, Vt = svd_flip_v(U, Vt)
+    return mean, U, S, Vt
+
+
+def centered_svd_topk(X, n_left, compute_dtype=None):
+    """Centered Gram-route SVD of a TALL matrix materializing only the
+    first ``n_left`` columns of U (the qPCA fit keeps the full spectrum and
+    Vt but only U[:, :n_components]). Returns (mean, U block, S, Vt)."""
+    mean = torch.mean(X, dim=0)
+    Xc = X - mean
+    G = inner_product(Xc.T, Xc.T, compute_dtype)  # (m, m)
+    S, V, safe = gram_spectrum(G)
+    _, Vt = svd_flip_v(None, V.T)
+    Uk = inner_product(Xc, Vt[:n_left], compute_dtype) / safe[None, :n_left]
+    return mean, Uk, S, Vt
+
+
+def randomized_svd(generator, X, n_components, n_oversamples=10, n_iter=4,
+                   flip=True):
+    """Randomized truncated SVD (Halko et al.; reference
+    ``extmath.py:246-392``): Gaussian range finder drawn from
+    ``generator``, QR-normalized subspace power iterations, exact SVD of
+    the small projected matrix."""
+    n, m = X.shape
+    size = min(n_components + n_oversamples, min(n, m))
+    transpose = n < m
+    A = X.T if transpose else X  # ensure tall
+    Q = torch.randn((A.shape[1], size), generator=generator, dtype=X.dtype,
+                    device=X.device)
+    Q = A @ Q
+    for _ in range(n_iter):
+        Q, _ = torch.linalg.qr(A.T @ Q)
+        Q = A @ Q
+    Q, _ = torch.linalg.qr(Q)
+    B = Q.T @ A  # (size, min_dim)
+    Uhat, S, Vt = torch.linalg.svd(B, full_matrices=False)
+    U = Q @ Uhat
+    if transpose:
+        U, S, Vt = Vt.T, S, U.T
+    if flip:
+        U, Vt = svd_flip_v(U, Vt)
+    return U[:, :n_components], S[:n_components], Vt[:n_components]
+
+
+def stable_cumsum(arr, dim=None):
+    """Cumulative sum accumulated in float64 and cast back to the input
+    dtype (reference ``extmath.py:829``); ``dim`` None flattens."""
+    if dim is None:
+        arr, dim = arr.reshape(-1), 0
+    return torch.cumsum(arr.to(torch.float64), dim=dim).to(arr.dtype)
 
 
 def check_compute_dtype(value):

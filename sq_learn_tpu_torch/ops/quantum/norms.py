@@ -1,6 +1,5 @@
 """μ(A) quantum-memory-model norm search (counterpart of
-``sq_learn_tpu/ops/quantum/norms.py``, the part the exact δ>0 prestats
-read).
+``sq_learn_tpu/ops/quantum/norms.py``).
 
 μ_p(A) = √(s_{2p}(A) · s_{2(1−p)}(Aᵀ)) with s_q(A) = max_i ‖A_i‖_q^q,
 evaluated for every p of a grid in one elementwise sweep, then compared
@@ -9,6 +8,11 @@ against the Frobenius norm (reference ``Utility.py:196-231``).
 
 import numpy as np
 import torch
+
+# row-block height of the tiled sweep: blocks of ~2^18 elements keep the
+# whole multiplication chain cache-resident, so a large CPU matrix streams
+# from memory once
+_TILE_ELEMS = 1 << 18
 
 
 def _grid_exponents(grid):
@@ -63,6 +67,69 @@ def _mu_grid_unblocked(A, grid):
     return _combine(grid, qs, row_max, torch.max(cols, dim=1).values)
 
 
+def _mu_grid_blocked(A, grid):
+    """Row-tiled sweep for large CPU-resident matrices: each block of
+    ``_TILE_ELEMS`` elements runs the whole power chain while it is in
+    cache, so A streams from memory once. Per-block row maxima are exact
+    (rows are never split) and column power sums accumulate over the
+    blocks."""
+    n, m = A.shape
+    qs, qpos, uniform = _grid_exponents(grid)
+    block = max(1, _TILE_ELEMS // max(m, 1))
+    row_max, cols = None, None
+    for r0 in range(0, n, block):
+        r_t, c_t = _power_sweep(A[r0:r0 + block], qs, qpos, uniform)
+        row_max = r_t if row_max is None else torch.maximum(row_max, r_t)
+        cols = c_t if cols is None else cols + c_t
+    return _combine(grid, qs, row_max, torch.max(cols, dim=1).values)
+
+
+def blocked_worthwhile(n, m):
+    """True when an (n, m) matrix is large enough for the row-tiled sweep
+    to pay off."""
+    return n > 2 * max(1, _TILE_ELEMS // max(m, 1))
+
+
+def _mu_grid(A, grid):
+    """μ_p for every p of the (static) grid: the row-tiled sweep for large
+    CPU matrices, where the cache hierarchy limits repeated passes, and
+    the fused sweep otherwise (a GPU streams it at memory bandwidth)."""
+    n, m = A.shape
+    if A.device.type == "cpu" and blocked_worthwhile(n, m):
+        return _mu_grid_blocked(A, grid)
+    return _mu_grid_unblocked(A, grid)
+
+
+def mu(A, p):
+    """μ_p(A) for a single p ∈ [0, 1]."""
+    p = float(p)
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"mu is defined for p in [0, 1], got {p}")
+    return _mu_grid(A, (p,))[0]
+
+
+def _search_grid(start, end, step):
+    """Validated p-grid shared by :func:`linear_search` and
+    :func:`best_mu`."""
+    if not 0.0 <= start <= end <= 1.0:
+        raise ValueError(
+            f"mu grid must satisfy 0 <= start <= end <= 1, got "
+            f"[{start}, {end}]")
+    if step <= 0:
+        raise ValueError(f"mu grid step must be > 0, got {step}")
+    return tuple(float(p) for p in np.arange(start, end, step)) + (float(end),)
+
+
+def linear_search(A, start=0.0, end=1.0, step=0.05):
+    """Grid-minimize μ_p over p ∈ [start, end] ⊆ [0, 1] (reference
+    ``linear_search``, ``Utility.py:215-219``). Returns
+    (best_p, best_value)."""
+    grid = _search_grid(start, end, step)
+    vals = _mu_grid(A, grid).cpu().numpy()
+    idx = int(np.argmin(vals))
+    return grid[idx], float(vals[idx])
+
+
 def _combine(grid, qs, row_max, col_max):
     """μ_p = √(s_{2p}(A)·s_{2(1−p)}(Aᵀ)) from the stacked per-q factors."""
     idx = {q: i for i, q in enumerate(qs)}
@@ -79,6 +146,8 @@ def select_mu(grid, mu_vals, frob):
     Returns (description, value): description is ``"p=<best_p>"`` or
     ``"Frobenius"``.
     """
+    if isinstance(mu_vals, torch.Tensor):
+        mu_vals = mu_vals.cpu().numpy()
     mu_vals = np.asarray(mu_vals)
     idx = int(np.argmin(mu_vals))
     val = float(mu_vals[idx])
@@ -86,3 +155,16 @@ def select_mu(grid, mu_vals, frob):
     if val <= frob:
         return f"p={grid[idx]}", val
     return "Frobenius", frob
+
+
+def best_mu(A, start=0.0, end=1.0, step=0.05):
+    """Best of grid-searched μ_p and the Frobenius norm (reference
+    ``best_mu``, ``Utility.py:222-231``).
+
+    Returns (description, value): description is ``"p=<best_p>"`` or
+    ``"Frobenius"``.
+    """
+    grid = _search_grid(start, end, step)
+    vals = _mu_grid(A, grid)
+    frob = torch.linalg.norm(A)
+    return select_mu(grid, vals.cpu().numpy(), float(frob))

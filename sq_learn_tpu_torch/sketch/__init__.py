@@ -1,1 +1,22 @@
-"""Spectral statistics of the runtime model (exact part)."""
+"""Sketched spectral-statistics engine (counterpart of
+``sq_learn_tpu/sketch``): the runtime-model statistics σ_min(A), μ(A),
+‖A‖_F and η, estimated from a uniform row sample with certified bounds, or
+exact at zero budget or small shapes, and a digest-keyed cache so repeated
+fits over one array compute them once."""
+
+from . import cache
+from .engine import (SpectralStats, exact_spectral_stats, finalize_host,
+                     frobenius_squared, mu_stats, resolve_sketch_rows,
+                     sketch_delta_stat, spectral_stats)
+
+__all__ = [
+    "SpectralStats",
+    "cache",
+    "exact_spectral_stats",
+    "finalize_host",
+    "frobenius_squared",
+    "mu_stats",
+    "resolve_sketch_rows",
+    "sketch_delta_stat",
+    "spectral_stats",
+]

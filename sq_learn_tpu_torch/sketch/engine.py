@@ -1,25 +1,97 @@
-"""Spectral statistics of the q-means runtime model (counterpart of
-``sq_learn_tpu/sketch/engine.py``, exact part only).
+"""Randomized spectral-statistics estimators with certified error bounds
+(counterpart of ``sq_learn_tpu/sketch/engine.py``, its device route).
 
-The exact statistics are wrapped in a :class:`SpectralStats` bundle whose
-certified bounds equal the values, so the estimator reads μ and κ through
-the same conservative folding rule the sketched route uses in the JAX
-package. The sketched estimators wait for the qPCA slice.
+From ONE uniform row sample S of size s, scaled by n/s, plus one exact
+O(n·m) pass over the whole matrix:
+
+- σ_min(A): λ_min of the scaled sketch Gram Ĝ = (n/s)·X_Sᵀ X_S, with a
+  matrix-Bernstein bound on ‖Ĝ − G‖ (Tropp 2015, thm 6.1.1) giving the
+  certified lower bound σ_lb = √max(λ_min(Ĝ) − t, 0), P(σ_lb > σ_min) ≤ δ_σ.
+- μ_p(A) = √(s_{2p}(A)·s_{2(1−p)}(Aᵀ)): the sampled row maximum is the
+  plug-in estimate, its certified upper bound the deterministic Hölder
+  cap; the scaled column sums carry a Hoeffding/Serfling bound, union-
+  bounded over the columns and exponents. Since the reference's
+  ``best_mu`` takes min(min_p μ_p, ‖A‖_F), the conservative μ never
+  exceeds the exact Frobenius norm.
+- ‖A‖_F, η = max‖xᵢ‖², max|aᵢⱼ| and the largest column square norm are
+  exact (the cheap pass).
+
+Downstream consumers take σ_min → its lower bound and μ → its upper bound,
+so a runtime estimate is an upper bound w.p. ≥ 1 − δ_stat (δ_stat split
+evenly between the σ and μ claims). δ_stat = 0 or a shape below the
+engagement rule computes the exact kernels (:func:`exact_spectral_stats`).
+
+A numpy input is validated to a tensor on the configured device first, so
+every call takes the device route; the JAX package's host engine
+(``dispatch_host``) is not ported. ``SQ_SKETCH_ROWS`` and
+``SQ_SKETCH_DELTA`` are read as the JAX package reads them.
 """
 
 import dataclasses
+import math
+import os
 
 import numpy as np
+import torch
 
-from ..ops.quantum.norms import _grid_exponents, select_mu
+from ..ops.quantum.norms import _grid_exponents, _power_sweep, select_mu
+
+__all__ = [
+    "SpectralStats",
+    "exact_spectral_stats",
+    "finalize_host",
+    "frobenius_squared",
+    "mu_stats",
+    "resolve_sketch_rows",
+    "sketch_delta_stat",
+    "spectral_stats",
+]
+
+#: default sketch failure budget δ_stat (env ``SQ_SKETCH_DELTA``)
+DEFAULT_DELTA_STAT = 0.05
+
+
+def sketch_delta_stat():
+    """The sketch engine's failure budget δ_stat (``SQ_SKETCH_DELTA``,
+    default 0.05). 0 disables sketching entirely (zero-budget = exact)."""
+    env = os.environ.get("SQ_SKETCH_DELTA")
+    return float(env) if env else DEFAULT_DELTA_STAT
+
+
+def resolve_sketch_rows(n_samples, n_features, setting="auto"):
+    """Row count of the uniform sketch sample (0 = exact kernels).
+
+    'auto' targets ``max(4096, 2·m)`` rows and engages only when the data
+    is ≥4× larger AND tall (n ≥ m); ``SQ_SKETCH_ROWS`` overrides the 'auto'
+    target (0 disables); explicit integers are used as given (0/None/False
+    disables). A zero δ_stat also disables.
+    """
+    if setting == "auto":
+        env = os.environ.get("SQ_SKETCH_ROWS")
+        if env is not None:
+            setting = int(float(env))
+    if setting == "auto":
+        target = max(4096, 2 * int(n_features))
+    elif not setting:
+        return 0
+    else:
+        target = int(setting)
+    if n_samples < 4 * target or n_samples < n_features:
+        return 0
+    if sketch_delta_stat() <= 0:
+        return 0
+    return target
 
 
 @dataclasses.dataclass
 class SpectralStats:
-    """One bundle of runtime-model statistics with certified bounds
-    (``sigma_min_lower`` ≤ σ_min, ``mu_upper`` ≥ μ_p); on the exact path
-    the bounds coincide with the values. ``cost`` carries the estimated
-    FLOP counts of the computation."""
+    """One bundle of runtime-model statistics with certified bounds.
+
+    Plug-in estimates (``sigma_min``, ``mu_vals``) and certified bounds
+    (``sigma_min_lower`` ≤ σ_min w.p. ≥ 1−δ_stat/2; ``mu_upper`` ≥ μ_p
+    w.p. ≥ 1−δ_stat/2) coincide on the exact path. ``cost`` carries the
+    estimated FLOP counts of the computation and of the exact one.
+    """
 
     eta: float
     frob: float
@@ -72,6 +144,75 @@ class SpectralStats:
         }
 
 
+# ---------------------------------------------------------------------------
+# Device passes
+# ---------------------------------------------------------------------------
+
+
+def sample_kernel(Xs, scale, *, mu_grid, with_sigma=True):
+    """The sketch pass over the (s, m) sampled rows: one flat float32
+    tensor ``[lam_min?] + row_fac(nq) + col_fac(nq)``, where ``lam_min`` is
+    λ_min of the scaled sketch Gram (``with_sigma`` only), ``row_fac[q]``
+    the sampled maximum row power sum and ``col_fac[q]`` the scaled column
+    power sums' maximum (exponent order = ``_grid_exponents(mu_grid)[0]``).
+    """
+    qs, qpos, uniform = _grid_exponents(mu_grid)
+    row_max, cols = _power_sweep(Xs, qs, qpos, uniform)
+    parts = []
+    if with_sigma:
+        G = (Xs.T @ Xs) * scale
+        parts.append(torch.linalg.eigvalsh(G)[:1].to(torch.float32))
+    parts.append(row_max.to(torch.float32))
+    parts.append((torch.max(cols, dim=1).values * scale).to(torch.float32))
+    return torch.cat(parts)
+
+
+def cheap_pass_kernel(X):
+    """The exact O(n·m) statistics every bound feeds on:
+    ``[eta, frob, amax, colsq_max]`` (max row sq-norm, Frobenius norm,
+    max |entry|, max column sq-norm)."""
+    sq = X * X
+    rowsq = torch.sum(sq, dim=1)
+    colsq = torch.sum(sq, dim=0)
+    return torch.stack([torch.max(rowsq), torch.sqrt(torch.sum(rowsq)),
+                        torch.max(torch.abs(X)), torch.max(colsq)])
+
+
+# ---------------------------------------------------------------------------
+# Bound math (host side — plain floats)
+# ---------------------------------------------------------------------------
+
+
+def _row_cap(q, m, eta, amax):
+    """Deterministic Hölder cap on s_q(A) = max row power sum."""
+    if q == 0:
+        return float(m)
+    if q <= 2:
+        return float(m) ** (1.0 - q / 2.0) * float(eta) ** (q / 2.0)
+    return float(amax) ** (q - 2.0) * float(eta)
+
+
+def _col_cap(q, n, colsq_max, amax):
+    """Deterministic Hölder cap on s_q(Aᵀ) = max column power sum
+    (monotone in the column sq-norm, so the max column suffices)."""
+    if q == 0:
+        return float(n)
+    if q <= 2:
+        return float(n) ** (1.0 - q / 2.0) * float(colsq_max) ** (q / 2.0)
+    return float(amax) ** (q - 2.0) * float(colsq_max)
+
+
+def _bernstein_gram_deviation(n, s, m, eta, frob, delta):
+    """Matrix-Bernstein tail t with P(‖Ĝ − G‖ ≥ t) ≤ δ for the scaled
+    row-sampled Gram: per-sample range L ≤ n·η + ‖G‖ and variance proxy
+    v ≤ n·η·‖G‖, with ‖G‖ ≤ min(n·η, ‖A‖_F²)."""
+    g_ub = min(float(n) * float(eta), float(frob) ** 2)
+    ell = math.log(2.0 * max(int(m), 1) / float(delta))
+    v = float(n) * float(eta) * g_ub
+    L = float(n) * float(eta) + g_ub
+    return math.sqrt(2.0 * v * ell / s) + 2.0 * L * ell / (3.0 * s)
+
+
 def _flop_costs(n, s, m, n_qpos):
     """Estimated FLOPs of the sketched computation vs the exact one it
     replaces (Gram + μ sweep + cheap pass; transcendentals counted 1)."""
@@ -81,6 +222,56 @@ def _flop_costs(n, s, m, n_qpos):
         + 4.0 * n * m,
         "exact_flops": float(n) * m * m + float(n) * m * sweep,
     }
+
+
+def finalize_components(comp, *, n, m, s, mu_grid, delta_stat):
+    """Fold the fetched sketch components (``eta``, ``frob``, ``amax``,
+    ``colsq_max``, ``row_fac``, ``col_fac`` and, with σ, ``lam_min``) into
+    a :class:`SpectralStats` with certified bounds."""
+    qs, qpos, _ = _grid_exponents(mu_grid)
+    eta = float(comp["eta"])
+    frob = float(comp["frob"])
+    amax = float(comp["amax"])
+    colsq_max = float(comp["colsq_max"])
+    row_fac = np.asarray(comp["row_fac"], np.float64)
+    col_fac = np.asarray(comp["col_fac"], np.float64)
+    d_sigma = d_mu = float(delta_stat) / 2.0
+
+    lam_min = comp.get("lam_min")
+    if lam_min is not None:
+        lam_min = float(lam_min)
+        t = _bernstein_gram_deviation(n, s, m, eta, frob, d_sigma)
+        sigma_est = math.sqrt(max(lam_min, 0.0))
+        sigma_lb = math.sqrt(max(lam_min - t, 0.0))
+    else:
+        sigma_est = sigma_lb = 0.0
+
+    idx = {q: i for i, q in enumerate(qs)}
+    # Hoeffding deviation per exponent for the scaled column sums, union
+    # over the m columns and the exponent set (sampling without
+    # replacement: Hoeffding 1963 §6 keeps the with-replacement bound)
+    ell_mu = math.log(max(int(m), 1) * max(len(qs), 1) / d_mu)
+    mu_vals, mu_upper = [], []
+    for p in mu_grid:
+        qr, qc = round(2 * p, 12), round(2 * (1 - p), 12)
+        r_est, c_est = row_fac[idx[qr]], col_fac[idx[qc]]
+        r_ub = _row_cap(qr, m, eta, amax)
+        amax_qc = float(amax) ** qc if qc > 0 else 1.0
+        t_c = float(n) * amax_qc * math.sqrt(ell_mu / (2.0 * s))
+        c_ub = min(float(c_est) + t_c, _col_cap(qc, n, colsq_max, amax))
+        mu_vals.append(math.sqrt(max(float(r_est) * float(c_est), 0.0)))
+        mu_upper.append(math.sqrt(max(r_ub * c_ub, 0.0)))
+    return SpectralStats(
+        eta=eta, frob=frob, sigma_min=sigma_est, sigma_min_lower=sigma_lb,
+        mu_grid=tuple(mu_grid), mu_vals=np.asarray(mu_vals),
+        mu_upper=np.asarray(mu_upper), delta_stat=float(delta_stat),
+        sketched=True, sample_rows=int(s), shape=(int(n), int(m)),
+        cost=_flop_costs(n, s, m, len(qpos)))
+
+
+# ---------------------------------------------------------------------------
+# Exact short-circuit
+# ---------------------------------------------------------------------------
 
 
 def exact_bundle(mu_grid, eta, frob, sigma_min, mu_vals, shape=None):
@@ -95,3 +286,153 @@ def exact_bundle(mu_grid, eta, frob, sigma_min, mu_vals, shape=None):
         mu_vals=mu_vals, mu_upper=mu_vals.copy(), delta_stat=0.0,
         sketched=False, sample_rows=0, shape=(n, m),
         cost=_flop_costs(n, max(n, 1), m, len(qpos)))
+
+
+def exact_spectral_stats(X, mu_grid, with_sigma=True):
+    """The exact kernels, packaged: the SAME ``smallest_singular_value`` /
+    ``_mu_grid`` code the fits use, with bounds equal to the values (so
+    ``conservative_mu`` is bit-equal to :func:`best_mu`'s winner)."""
+    from ..ops.linalg import row_norms, smallest_singular_value
+    from ..ops.quantum.norms import _mu_grid
+
+    n, m = X.shape
+    eta = float(torch.max(row_norms(X, squared=True)))
+    frob = float(torch.linalg.norm(X))
+    sigma = float(smallest_singular_value(X)) if with_sigma else 0.0
+    mu_vals = _mu_grid(X, tuple(mu_grid)).cpu().numpy().astype(np.float64)
+    qs, qpos, _ = _grid_exponents(mu_grid)
+    return SpectralStats(
+        eta=eta, frob=frob, sigma_min=sigma, sigma_min_lower=sigma,
+        mu_grid=tuple(mu_grid), mu_vals=mu_vals, mu_upper=mu_vals.copy(),
+        delta_stat=0.0, sketched=False, sample_rows=0,
+        shape=(int(n), int(m)),
+        cost=_flop_costs(n, max(int(n), 1), m, len(qpos)))
+
+
+# ---------------------------------------------------------------------------
+# Dispatch and fetch
+# ---------------------------------------------------------------------------
+
+
+class _HostDispatch:
+    """In-flight sketch: the device result plus the header the bound math
+    needs at the fetch."""
+
+    __slots__ = ("handle", "header", "n", "s", "m", "mu_grid", "with_sigma",
+                 "idx")
+
+    def __init__(self, handle, header, n, s, m, mu_grid, with_sigma, idx):
+        self.handle = handle
+        self.header = header
+        self.n, self.s, self.m = n, s, m
+        self.mu_grid = mu_grid
+        self.with_sigma = with_sigma
+        self.idx = idx
+
+
+def sample_indices(rng, n, rows):
+    """Sorted uniform without-replacement row sample from a numpy
+    ``Generator`` (sorted: the gather walks memory forward; the estimators
+    are permutation-invariant)."""
+    return np.sort(rng.choice(int(n), size=int(rows), replace=False))
+
+
+def dispatch_sample(Xs, scale, mu_grid, with_sigma=True):
+    """Queue :func:`sample_kernel` on the sampled rows' device (no host
+    sync until :func:`finalize_host` fetches it)."""
+    return sample_kernel(Xs, scale, mu_grid=tuple(mu_grid),
+                         with_sigma=with_sigma)
+
+
+def finalize_host(disp, delta_stat):
+    """Fetch a dispatched sketch (one device→host copy of the flat result
+    and the cheap-pass header) and fold the bounds."""
+    flat = disp.handle.cpu().numpy().astype(np.float64)
+    header = disp.header
+    if isinstance(header, torch.Tensor):
+        header = header.cpu().numpy().astype(np.float64)
+    off = 1 if disp.with_sigma else 0
+    nq = (len(flat) - off) // 2
+    eta, frob, amax, colsq_max = (float(v) for v in header)
+    comp = {"eta": eta, "frob": frob, "amax": amax,
+            "colsq_max": colsq_max,
+            "row_fac": flat[off:off + nq],
+            "col_fac": flat[off + nq:off + 2 * nq]}
+    if disp.with_sigma:
+        comp["lam_min"] = flat[0]
+    return finalize_components(comp, n=disp.n, m=disp.m, s=disp.s,
+                               mu_grid=disp.mu_grid, delta_stat=delta_stat)
+
+
+def _as_device_tensor(X):
+    if isinstance(X, torch.Tensor):
+        return X
+    from .._config import resolve_device
+    from ..utils.validation import check_array
+
+    return check_array(X, device=resolve_device())
+
+
+def spectral_stats(X, mu_grid, *, delta_stat=None, sketch="auto",
+                   with_sigma=True, rng=None):
+    """Estimate the spectral statistics of ``X`` (a tensor, or an array
+    validated onto the configured device), sketched when the engagement
+    rule fires, exact otherwise. ``rng`` is the numpy ``Generator`` of the
+    row sample (default ``default_rng(0)``)."""
+    X = _as_device_tensor(X)
+    n, m = X.shape
+    if delta_stat is None:
+        delta_stat = sketch_delta_stat()
+    rows = resolve_sketch_rows(n, m, sketch) if delta_stat > 0 else 0
+    if not rows:
+        return exact_spectral_stats(X, mu_grid, with_sigma=with_sigma)
+    if rng is None:
+        rng = np.random.default_rng(0)
+    idx = sample_indices(rng, n, rows)
+    cheap = cheap_pass_kernel(X)
+    Xs = X[torch.as_tensor(idx, device=X.device)]
+    handle = dispatch_sample(Xs, n / rows, tuple(mu_grid), with_sigma)
+    disp = _HostDispatch(handle, cheap, n, rows, m, tuple(mu_grid),
+                         with_sigma, idx)
+    return finalize_host(disp, delta_stat)
+
+
+def mu_stats(X, mu_grid, *, sketch="auto", rng=None, tag="mu"):
+    """Digest-cached conservative μ-route statistics (no σ_min): one
+    :func:`spectral_stats` per (dataset, grid, sketch config), every repeat
+    served from the cache. Consumers take ``stats.conservative_mu()``; on
+    the exact path it is bit-equal to :func:`best_mu`'s winner."""
+    from . import cache as _cache
+
+    X = _as_device_tensor(X)
+    delta_stat = sketch_delta_stat()
+    n, m = X.shape
+    rows = resolve_sketch_rows(n, m, sketch) if delta_stat > 0 else 0
+    key = _cache.key_for(X, tag, tuple(mu_grid), int(rows),
+                         float(delta_stat) if rows else 0.0)
+    hit = _cache.lookup(key)
+    if hit is not None:
+        return hit
+    stats = spectral_stats(X, mu_grid, delta_stat=delta_stat,
+                           sketch=rows if rows else 0, with_sigma=False,
+                           rng=rng)
+    _cache.store(key, stats)
+    return stats
+
+
+def frobenius_squared(X):
+    """‖X‖_F² through the digest-keyed cache: exact (one O(n·m) pass in
+    float64), computed once per dataset across repeated fits."""
+    from . import cache as _cache
+
+    key = _cache.key_for(X, "frob2")
+    hit = _cache.lookup(key)
+    if hit is not None:
+        return float(hit)
+    if isinstance(X, torch.Tensor):
+        val = float(torch.sum(X.to(torch.float64) ** 2))
+    else:
+        Xn = np.asarray(X)
+        val = float(np.einsum("ij,ij->", Xn, Xn, dtype=np.float64))
+    _cache.store(key, val)
+    return val

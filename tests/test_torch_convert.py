@@ -138,3 +138,77 @@ def test_kneighbors_rejects_inconsistent_state(fitted_knn):
         kneighbors_from_numpy({**attrs, "classes_": attrs["classes_"][:2]})
     with pytest.raises(ValueError, match="n_features_in_"):
         kneighbors_from_numpy({**attrs, "n_features_in_": 3})
+
+
+@pytest.fixture(scope="module")
+def fitted_qpca():
+    from sq_learn_tpu.models import QPCA as JaxQPCA
+    from sq_learn_tpu_torch.datasets import synthetic_surrogate
+
+    X, _ = synthetic_surrogate(1200, 24, 6, seed=9)
+    est = JaxQPCA(n_components=7, svd_solver="full", random_state=0).fit(
+        X, estimate_all=True, eps=0.01, delta=0.05, theta_major=1e-6,
+        true_tomography=False)
+    Xq, _ = synthetic_surrogate(300, 24, 6, seed=10)
+    return est, X, Xq
+
+
+def _port_qpca(est, device="cpu"):
+    from sq_learn_tpu_torch.convert import qpca_from_numpy
+
+    return qpca_from_numpy(vars(est), device=device, params=est.get_params())
+
+
+def test_qpca_state_carries_over(fitted_qpca):
+    est, _, _ = fitted_qpca
+    port = _port_qpca(est)
+    for name in ("mean_", "components_", "all_components",
+                 "explained_variance_", "singular_values_", "left_sv",
+                 "estimate_right_sv", "estimate_left_sv",
+                 "estimate_s_values", "estimate_fs"):
+        np.testing.assert_array_equal(getattr(port, name),
+                                      np.asarray(getattr(est, name)))
+    assert (port.n_components_, port.noise_variance_, port.muA,
+            port.norm_muA) == (est.n_components_, est.noise_variance_,
+                               est.muA, est.norm_muA)
+    assert port.n_components == 7 and port.device == "cpu"
+    assert port.n_features_in_ == 24
+
+
+@pytest.mark.parametrize("data", ["train", "queries"])
+@pytest.mark.parametrize("quantum", [False, True])
+def test_qpca_transforms_match_jax(fitted_qpca, data, quantum):
+    """The classical transform, and the quantum one on the tomography
+    estimates (``use_classical_components=False``), of a JAX-fitted state,
+    at rtol 1e-4 (float32 products summed in another order)."""
+    est, X, Xq = fitted_qpca
+    Z = X if data == "train" else Xq
+    port = _port_qpca(est)
+    kw = (dict(classic_transform=False, use_classical_components=False)
+          if quantum else {})
+    out = port.transform(Z, **kw).numpy()
+    ref = np.asarray(est.transform(Z, **kw))
+    np.testing.assert_allclose(out, ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(ref).max())
+    back = port.inverse_transform(
+        out, use_classical_components=not quantum).numpy()
+    ref_back = np.asarray(est.inverse_transform(
+        ref, use_classical_components=not quantum))
+    np.testing.assert_allclose(back, ref_back, rtol=1e-4,
+                               atol=1e-4 * np.abs(ref_back).max())
+
+
+def test_qpca_rejects_inconsistent_state(fitted_qpca):
+    from sq_learn_tpu_torch.convert import qpca_from_numpy
+
+    est, _, _ = fitted_qpca
+    attrs = dict(vars(est))
+    with pytest.raises(ValueError, match="components_"):
+        qpca_from_numpy({"mean_": attrs["mean_"]})
+    with pytest.raises(ValueError, match="do not match"):
+        qpca_from_numpy({**attrs, "mean_": attrs["mean_"][:-1]})
+    with pytest.raises(ValueError, match="n_components_"):
+        qpca_from_numpy({**attrs, "n_components_": 3})
+    with pytest.raises(ValueError, match="estimate_right_sv"):
+        qpca_from_numpy({**attrs, "estimate_right_sv":
+                         attrs["estimate_right_sv"][:, :5]})
