@@ -36,8 +36,10 @@ that call's wall clock, host time by operator):
   runs it, beside float32 with each one's largest relative eigenvalue
   error against a float64 Gram), U block, μ(A) sketch, the consistent-PE
   and tomography draws (Gaussian, and true tomography's multinomial
-  tree), the fit's host fetches; then the quantum transform and one CV
-  fold of 7-NN at width 61.
+  tree), the fit's host fetches and host syncs; the binary searches the
+  trial does not run (spectral norm, σ_min, θ) with their wall clocks and
+  host syncs; then the quantum transform and one CV fold of 7-NN at
+  width 61.
 
 It needs one NVIDIA GPU and exits non-zero without one.
 """
@@ -206,6 +208,23 @@ def events_ms(fn, torch, reps=5):
     return statistics.median(times)
 
 
+def count_syncs(fn, torch):
+    """Run ``fn`` with torch's CUDA sync debug mode set to warn; returns
+    its result and the number of operations that made the host wait for
+    the device (the warnings the mode raises)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
 def qpca_trial(X, y, torch):
     """The qPCA trial's fit, step by step and whole, its transform and one
     CV fold at width 61."""
@@ -295,6 +314,37 @@ def qpca_trial(X, y, torch):
     print(f"qPCA fit steps on the trial's path: {total:.4f} ms in all "
           f"(the Gaussian route; true tomography is the smoke's second "
           f"extraction)", flush=True)
+    cache.clear()
+    _, syncs = count_syncs(fit, torch)
+    print(f"qPCA trial fit: {syncs} host syncs (CUDA sync debug mode)",
+          flush=True)
+
+    # the binary searches the trial does not run, at its shape: wall clock
+    # and host syncs (the bracket searches fetch once at the end, the θ
+    # search once per iteration)
+    # the retained mass of the first 5 components: a step of the kept
+    # spectrum, where the θ search converges
+    S = pca.singular_values_.astype(np.float64)
+    p_step = float(np.sum(S[:5] ** 2) / np.sum(S**2))
+    searches = {
+        f"spectral-norm search (ε = 0.4, δ = 0.01, 61 σ; exact "
+        f"{pca.spectral_norm})": lambda: pca.spectral_norm_estimation(
+            0.4, 0.01),
+        f"σ_min search (ε = 0.4, δ = 0.001, 784 σ; exact "
+        f"{float(pca.all_singular_values_[-1])})":
+            lambda: pca.condition_number_estimation(0.4, 0.001),
+        f"θ search (ε = 0.4, η = 0.05, p = {p_step:.4f}; σ₅ "
+        f"{float(S[4])}, σ₆ {float(S[5])})":
+            lambda: pca.estimate_theta(epsilon=0.4, eta=0.05, p=p_step),
+    }
+    for name, fn in searches.items():
+        t0 = time.perf_counter()
+        try:
+            out, syncs = count_syncs(fn, torch)
+        except ValueError as err:  # the θ search found no θ this draw
+            out, syncs = f"raised {err}", "?"
+        print(f"qPCA {name}: {time.perf_counter() - t0:.4f} s, {syncs} "
+              f"host syncs, result {out}", flush=True)
 
     def quantum_transform():
         return pca.transform(X, classic_transform=False,

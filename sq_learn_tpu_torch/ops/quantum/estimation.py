@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from .sampling import _as_tensor, fejer_grid_sample
+from .sampling import _as_tensor, _filled, fejer_grid_sample
 
 _MEDIAN_CONST = 2 * (8 / math.pi**2 - 0.5) ** 2
 
@@ -86,8 +86,7 @@ def amplitude_estimation_per_eps(generator, a, epsilon, Q=1, window=64):
     any tensor broadcastable to ``a``, and each element gets its own grid
     size M(ε)."""
     a = _as_tensor(a, generator)
-    eps = torch.broadcast_to(torch.as_tensor(epsilon, dtype=a.dtype,
-                                             device=a.device), a.shape)
+    eps = _filled(epsilon, a.shape, a.dtype, a.device)
     M = torch.ceil((math.pi / (2 * eps)) * (1 + torch.sqrt(1 + 4 * eps)))
     theta_a = torch.arcsin(torch.sqrt(torch.clamp(a, 0.0, 1.0)))
     pos = theta_a / math.pi * M
@@ -154,7 +153,11 @@ def consistent_phase_estimation(generator, omega, epsilon, gamma, n=None,
     dtype = torch.promote_types(omega.dtype, torch.float32)
     intervals, delta_prime = consistent_phase_intervals(epsilon, gamma, n,
                                                         shift)
-    intervals = torch.as_tensor(intervals, dtype=dtype, device=omega.device)
+    intervals = torch.from_numpy(intervals).to(dtype)
+    if omega.device.type == "cuda":
+        # staged through pinned memory, so the copy does not make the host
+        # wait for the device (a search calls this once per iteration)
+        intervals = intervals.pin_memory().to(omega.device, non_blocking=True)
     pe = phase_estimation(generator, omega, epsilon=delta_prime, gamma=gamma,
                           window=window).to(dtype)
     # bisect.bisect is bisect_right

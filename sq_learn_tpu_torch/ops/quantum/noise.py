@@ -11,9 +11,10 @@ inverse CDF: a uniform mapped into [Φ(−b), Φ(b)] goes through
 
 import math
 
+import numpy as np
 import torch
 
-from .sampling import _as_tensor
+from .sampling import _as_tensor, _filled
 
 
 def truncated_noise(generator, bound, shape, dtype=torch.float32):
@@ -22,8 +23,7 @@ def truncated_noise(generator, bound, shape, dtype=torch.float32):
     ``bound`` may be a tensor broadcastable to ``shape``; bound == 0 yields
     exactly 0."""
     device = generator.device
-    b = torch.broadcast_to(torch.as_tensor(bound, dtype=torch.float64,
-                                           device=device), tuple(shape))
+    b = _filled(bound, tuple(shape), torch.float64, device)
     lo = torch.special.ndtr(-b)
     u = torch.rand(tuple(shape), generator=generator, dtype=torch.float64,
                    device=device)
@@ -36,10 +36,8 @@ def introduce_error(generator, value, epsilon):
     """value + truncnorm(−ε, ε) noise (reference ``introduce_error``, :68);
     ``value`` and ``epsilon`` broadcast together."""
     value = _as_tensor(value, generator)
-    eps = torch.broadcast_to(torch.as_tensor(epsilon, dtype=torch.float64,
-                                             device=value.device),
-                             value.shape)
-    return value + truncated_noise(generator, eps, value.shape, value.dtype)
+    return value + truncated_noise(generator, epsilon, value.shape,
+                                   value.dtype)
 
 
 def introduce_error_array(generator, array, norm_error):
@@ -47,12 +45,12 @@ def introduce_error_array(generator, array, norm_error):
     (reference ``introduce_error_array``, :71), so the L2 perturbation is
     ≤ ``norm_error``."""
     array = _as_tensor(array, generator)
-    d = array.shape[-1]
-    bound = torch.as_tensor(norm_error, dtype=torch.float64,
-                            device=array.device) / math.sqrt(d)
-    if bound.ndim:
-        bound = bound[..., None]
-    bound = torch.broadcast_to(bound, array.shape)
+    scale = 1.0 / math.sqrt(array.shape[-1])
+    if isinstance(norm_error, torch.Tensor) or np.ndim(norm_error):
+        bound = _filled(norm_error, np.shape(norm_error), torch.float64,
+                        array.device)[..., None] * scale
+    else:
+        bound = float(norm_error) * scale
     return array + truncated_noise(generator, bound, array.shape, array.dtype)
 
 

@@ -13,7 +13,21 @@ every row.
 
 import math
 
+import numpy as np
 import torch
+
+
+def _filled(x, shape, dtype, device):
+    """``x`` broadcast to ``shape`` as a tensor on ``device``. A scalar is
+    written on the device (a fill): a host→device copy from pageable
+    memory makes the host wait for the device, once per call of a search
+    iteration otherwise."""
+    if isinstance(x, torch.Tensor):
+        return torch.broadcast_to(x.to(device=device, dtype=dtype), shape)
+    if np.ndim(x) == 0:
+        return torch.full(tuple(shape), float(x), dtype=dtype, device=device)
+    return torch.broadcast_to(torch.as_tensor(np.asarray(x), dtype=dtype,
+                                              device=device), shape)
 
 
 def _as_tensor(x, generator, dtype=torch.float32):
@@ -21,7 +35,7 @@ def _as_tensor(x, generator, dtype=torch.float32):
     the generator's device in ``dtype``."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(x, dtype=dtype, device=generator.device)
+    return _filled(x, np.shape(x), dtype, generator.device)
 
 
 def multinomial_counts(generator, n, probs):
@@ -64,8 +78,7 @@ def multinomial_counts(generator, n, probs):
     mass.reverse()  # mass[l]: (rows, 2^l)
     total = mass[0][:, 0]
     ok = torch.isfinite(total) & (total > 0)
-    n = torch.broadcast_to(torch.as_tensor(n, dtype=torch.float64,
-                                           device=p.device), batch)
+    n = _filled(n, batch, torch.float64, p.device)
     counts = n.reshape(rows, 1).clone()
     for level in range(levels):
         node = mass[level]
@@ -131,8 +144,7 @@ def fejer_grid_sample(generator, pos, M, window, sample_shape=()):
     j : float tensor of shape ``sample_shape + pos.shape``, in [0, M).
     """
     pos = _as_tensor(pos, generator)
-    M = torch.broadcast_to(torch.as_tensor(M, dtype=pos.dtype,
-                                           device=pos.device), pos.shape)
+    M = _filled(M, pos.shape, pos.dtype, pos.device)
     offs = torch.arange(-window, window + 1, dtype=pos.dtype,
                         device=pos.device)
     base = torch.floor(pos)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .noise import gaussian_estimate
-from .sampling import _as_tensor, multinomial_counts
+from .sampling import _as_tensor, _filled, multinomial_counts
 
 
 def tomography_n_measurements(d, delta, norm="L2"):
@@ -41,7 +41,7 @@ def _tomography_unit(generator, V, N):
     magnitudes are float64; the estimate comes back in V's dtype."""
     d = V.shape[-1]
     Vd = V.to(torch.float64)
-    N = torch.as_tensor(N, dtype=torch.float64, device=V.device)
+    N = _filled(N, np.shape(N), torch.float64, V.device)
     Nc = N[..., None] if N.ndim else N
     # part 1: magnitudes from measurement counts
     counts = multinomial_counts(generator, N, Vd * Vd)
