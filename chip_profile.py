@@ -34,9 +34,11 @@ that call's wall clock, host time by operator):
   steps one by one in device ms (CUDA events, median of 5): upload,
   mean and centering, Gram, the 784 × 784 ``eigh`` (float64, as the fit
   runs it, beside float32 with each one's largest relative eigenvalue
-  error against a float64 Gram), U block, μ(A) sketch, the consistent-PE
+  error against a float64 Gram), U block, μ(A) sketch (beside the exact
+  μ sweep over all rows, which the fit does not run), the consistent-PE
   and tomography draws (Gaussian, and true tomography's multinomial
-  tree), the fit's host fetches and host syncs; the binary searches the
+  tree), the fit's host fetches (beside the upload of U's block from
+  numpy, which the fit does not make) and host syncs; the binary searches the
   trial does not run (spectral norm, σ_min, θ) with their wall clocks and
   host syncs; then the quantum transform and one CV fold of 7-NN at
   width 61.
@@ -236,8 +238,8 @@ def qpca_trial(X, y, torch):
     from sq_learn_tpu_torch.ops.kernels import argkmin
     from sq_learn_tpu_torch.ops.linalg import gram_spectrum, svd_flip_v
     from sq_learn_tpu_torch.ops.quantum import tomography
-    from sq_learn_tpu_torch.ops.quantum.norms import _search_grid
-    from sq_learn_tpu_torch.sketch import cache, engine
+    from sq_learn_tpu_torch.ops.quantum.norms import _mu_grid, _search_grid
+    from sq_learn_tpu_torch.sketch import engine
     from sq_learn_tpu_torch.utils.validation import check_array
 
     k, dev = 61, torch.device("cuda:0")
@@ -249,13 +251,11 @@ def qpca_trial(X, y, torch):
                     random_state=0).fit(X, **fit_kw)
 
     for label in ("cold", "warm", "warm", "warm"):
-        cache.clear()  # each fit computes its μ(A) sketch
         t0 = time.perf_counter()
         pca = fit()
         torch.cuda.synchronize()
         print(f"{label} qPCA trial fit: {time.perf_counter() - t0:.4f} s, "
               f"topk {pca.topk}", flush=True)
-    cache.clear()
     profiled("qPCA trial fit", fit, torch)
 
     # the fit's steps, one by one
@@ -282,6 +282,7 @@ def qpca_trial(X, y, torch):
     grid = _search_grid(0.0, 1.0, 0.1)
     right = Vt[:k].contiguous()
     left = ((Xc @ right.T) / safe[None, :k]).T.contiguous()
+    left_np = left.cpu().numpy()
     muA = pca.muA
     steps = {
         "upload (check_array, pageable)": lambda: check_array(X, device=dev),
@@ -293,6 +294,8 @@ def qpca_trial(X, y, torch):
         "μ(A) sketch (4096 rows, 11-point grid)": lambda: engine.spectral_stats(
             Xc, grid, sketch=4096, with_sigma=False,
             rng=np.random.default_rng(0)),
+        "exact μ(A) over all 70000 rows, 11-point grid (not used)":
+            lambda: _mu_grid(Xc, grid),
         "consistent PE of 61 σ": lambda: singular_value_estimates(
             g, S[:k], muA, 0.4 / muA, X.shape[1]),
         "Gaussian tomography, right 61 × 784": lambda: tomography(
@@ -304,6 +307,8 @@ def qpca_trial(X, y, torch):
         "true tomography, left 61 × 70000": lambda: tomography(g, left, 0.4),
         "host fetches (left_sv and its estimate, 2 × 61 × 70000)":
             lambda: (left.cpu(), left.cpu()),
+        "left block back from numpy, 61 × 70000 (the fit keeps it on the "
+        "card; not used)": lambda: torch.as_tensor(left_np, device=dev),
     }
     total = 0.0
     for name, fn in steps.items():
@@ -314,7 +319,6 @@ def qpca_trial(X, y, torch):
     print(f"qPCA fit steps on the trial's path: {total:.4f} ms in all "
           f"(the Gaussian route; true tomography is the smoke's second "
           f"extraction)", flush=True)
-    cache.clear()
     _, syncs = count_syncs(fit, torch)
     print(f"qPCA trial fit: {syncs} host syncs (CUDA sync debug mode)",
           flush=True)

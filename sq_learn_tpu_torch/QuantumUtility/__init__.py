@@ -49,6 +49,7 @@ from ..ops.quantum import (
 )
 from ..ops.quantum.estimation import sv_to_theta, theta_to_sv
 from ..ops.quantum.tomography import magnitude_tomography_signed
+from ..utils.random import as_generator
 
 # reference name (misspelling and all, Utility.py:234)
 L2_tomogrphy_fakeSign = magnitude_tomography_signed
@@ -107,12 +108,11 @@ def amplitude_est_dist(w0, w1):
 
 def auxiliary_fun(q_state, i, generator=None):
     """Measure ``q_state`` ``i`` times (reference ``auxiliary_fun``,
-    ``Utility.py:404``); a fresh entropy-seeded CPU generator when none is
-    given."""
+    ``Utility.py:404``); when no generator is given, a fresh entropy-seeded
+    one on the device of the state's probabilities, so the draws stay
+    where the state lives."""
     if generator is None:
-        generator = torch.Generator()
-        generator.manual_seed(int(np.random.SeedSequence().entropy
-                                  % (2**63)))
+        generator = as_generator(None, q_state.probabilities.device)
     return q_state.measure(generator, n_times=int(i))
 
 

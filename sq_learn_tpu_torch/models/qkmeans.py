@@ -33,7 +33,7 @@ from ..ops.kernels import lloyd_step
 from ..ops.linalg import (check_compute_dtype, is_reduced,
                           pairwise_sq_distances, row_norms,
                           smallest_singular_value)
-from ..ops.quantum.norms import _mu_grid_unblocked
+from ..ops.quantum.norms import _mu_grid
 from ..parallel.init import kmeans_plusplus_batched, resolve_init_subsample
 from ..sketch.engine import exact_bundle, resolve_sketch_rows
 from ..utils.random import as_generator, gumbel
@@ -97,7 +97,7 @@ def fit_prestats(X, *, quantum=False, mu_grid=()):
     }
     if quantum:
         out["eta"] = torch.max(row_norms(X, squared=True))
-        out["mu_vals"] = _mu_grid_unblocked(X, mu_grid)
+        out["mu_vals"] = _mu_grid(X, mu_grid)
         out["frob"] = torch.linalg.norm(X)
         out["sigma_min"] = smallest_singular_value(X)
     return out

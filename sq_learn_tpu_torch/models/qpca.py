@@ -553,21 +553,33 @@ class QPCA(TransformerMixin, BaseEstimator):
         self.explained_variance_ratio_ = explained_variance_ratio_[:n_components]
         self.singular_values_ = S_np[:n_components].copy()
         self.all_singular_values_ = S_np
-        # left singular vectors, row-wise; only the kept columns transfer
-        self.left_sv = U[:, :n_components].T.cpu().numpy()
-
         self.spectral_norm = float(S_np[0])
         # ‖Xc‖_F² = Σσ², from the fetched spectrum
         self.frob_norm = float(np.sqrt((S_np**2).sum()))
+        # left singular vectors, row-wise; only the kept columns transfer.
+        # The extractions below read both blocks where they already are
+        left = U[:, :n_components].T
+        self.left_sv = left.cpu().numpy()
+        self._fit_rows = (Vt[:n_components], left)
+        try:
+            self._fit_estimators(X, mean)
+        finally:
+            del self._fit_rows
+
+    def _fit_estimators(self, X, mean):
+        """μ(A) and the quantum estimators ``fit`` asked for, on the
+        fitted spectrum."""
         if self._need_mu():
-            # the sketched, digest-cached μ route over the grid of the
-            # historical best_mu(Xc, 0.0, step=0.1) call; muA is the
-            # certified upper bound (never above ‖A‖_F)
+            # the sketched μ route over the grid of the historical
+            # best_mu(Xc, 0.0, step=0.1) call; muA is the certified upper
+            # bound (never above ‖A‖_F). Computed on every fit, never
+            # served from the digest cache: a cached μ of changed data
+            # would scale every estimate below
             rng_sk = np.random.default_rng(
                 [self._generator.initial_seed(), _SKETCH_SEED])
-            stats = _sketch.mu_stats(
+            stats = _sketch.spectral_stats(
                 X - mean, _search_grid(0.0, 1.0, 0.1), sketch=self.sketch,
-                rng=rng_sk, tag="qpca.mu")
+                with_sigma=False, rng=rng_sk)
             self.norm_muA, self.muA = stats.conservative_mu()
             self.sketch_info_ = stats.info()
         else:
@@ -759,20 +771,30 @@ class QPCA(TransformerMixin, BaseEstimator):
         left = np.asarray(self.left_sv)[: len(S)][sel]
         if k:
             device = self._device()
+            rows = torch.as_tensor(np.flatnonzero(sel), device=device)
+            right_dev, left_dev = self._extraction_rows(device)
             right_est = tomography(
-                self._next_key(), torch.as_tensor(right, device=device),
-                delta, true_tomography=true_tomography,
-                norm=norm).cpu().numpy()
+                self._next_key(), right_dev[rows], delta,
+                true_tomography=true_tomography, norm=norm).cpu().numpy()
             left_est = tomography(
-                self._next_key(), torch.as_tensor(left, device=device),
-                delta, true_tomography=true_tomography,
-                norm=norm).cpu().numpy()
+                self._next_key(), left_dev[rows], delta,
+                true_tomography=true_tomography, norm=norm).cpu().numpy()
         else:
             right_est, left_est = right, left
         fs = sv_estimation**2 / (self.n_samples_ - 1)
         fs_ratio = sv_estimation**2 / self.frob_norm**2
         return (right_est, left_est, sv_estimation, fs, fs_ratio,
                 true_selected, k, p_mass, right, left)
+
+    def _extraction_rows(self, device):
+        """(right, left) singular vectors, row-wise, on ``device``: during
+        a fit the blocks the decomposition left there, otherwise the
+        fitted arrays."""
+        rows = getattr(self, "_fit_rows", None)
+        if rows is not None:
+            return rows
+        return (torch.as_tensor(np.asarray(self.components_), device=device),
+                torch.as_tensor(np.asarray(self.left_sv), device=device))
 
     def topk_sv_extractors(self, delta, eps, theta, true_tomography=True,
                            norm="L2", **_ignored):

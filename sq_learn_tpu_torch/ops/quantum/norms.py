@@ -9,11 +9,6 @@ against the Frobenius norm (reference ``Utility.py:196-231``).
 import numpy as np
 import torch
 
-# row-block height of the tiled sweep: blocks of ~2^18 elements keep the
-# whole multiplication chain cache-resident, so a large CPU matrix streams
-# from memory once
-_TILE_ELEMS = 1 << 18
-
 
 def _grid_exponents(grid):
     """The exponent set a μ grid needs — 2p for the row factor and 2(1−p)
@@ -60,44 +55,11 @@ def _power_sweep(tile, qs, qpos, uniform):
             torch.stack([cols[q] for q in qs]))
 
 
-def _mu_grid_unblocked(A, grid):
+def _mu_grid(A, grid):
     """μ_p for every p of the (static) grid, one fused sweep over A."""
     qs, qpos, uniform = _grid_exponents(grid)
     row_max, cols = _power_sweep(A, qs, qpos, uniform)
     return _combine(grid, qs, row_max, torch.max(cols, dim=1).values)
-
-
-def _mu_grid_blocked(A, grid):
-    """Row-tiled sweep for large CPU-resident matrices: each block of
-    ``_TILE_ELEMS`` elements runs the whole power chain while it is in
-    cache, so A streams from memory once. Per-block row maxima are exact
-    (rows are never split) and column power sums accumulate over the
-    blocks."""
-    n, m = A.shape
-    qs, qpos, uniform = _grid_exponents(grid)
-    block = max(1, _TILE_ELEMS // max(m, 1))
-    row_max, cols = None, None
-    for r0 in range(0, n, block):
-        r_t, c_t = _power_sweep(A[r0:r0 + block], qs, qpos, uniform)
-        row_max = r_t if row_max is None else torch.maximum(row_max, r_t)
-        cols = c_t if cols is None else cols + c_t
-    return _combine(grid, qs, row_max, torch.max(cols, dim=1).values)
-
-
-def blocked_worthwhile(n, m):
-    """True when an (n, m) matrix is large enough for the row-tiled sweep
-    to pay off."""
-    return n > 2 * max(1, _TILE_ELEMS // max(m, 1))
-
-
-def _mu_grid(A, grid):
-    """μ_p for every p of the (static) grid: the row-tiled sweep for large
-    CPU matrices, where the cache hierarchy limits repeated passes, and
-    the fused sweep otherwise (a GPU streams it at memory bandwidth)."""
-    n, m = A.shape
-    if A.device.type == "cpu" and blocked_worthwhile(n, m):
-        return _mu_grid_blocked(A, grid)
-    return _mu_grid_unblocked(A, grid)
 
 
 def mu(A, p):

@@ -1,14 +1,17 @@
 """Digest-keyed spectral-stats cache (counterpart of
 ``sq_learn_tpu/sketch/cache.py``).
 
-The runtime-model statistics are a property of the data alone, so every
-(ε, δ) sweep that refits the same array computes them once. Keys are
-``(shape, dtype, content digest, config)``; the digest is a CRC32 over
-≤64 evenly strided rows (first and last included), so a mutated,
-re-shuffled or swapped array misses and recomputes (an interior mutation
-that dodges every sampled row would serve stale cost-model statistics,
-never stale fit results). ``SQ_STATS_CACHE=0`` disables the cache.
-Process-global, LRU-bounded (8 entries), thread-safe.
+Repeated :func:`~.engine.mu_stats` and :func:`~.engine.frobenius_squared`
+calls over one array compute their statistics once. Keys are
+``(shape, dtype, content digest, version, config)``: the digest is a
+CRC32 over ≤64 evenly strided rows (first and last included), and a
+tensor's version counter, which every in-place change to it or to a view
+of it advances, so a re-shuffled, swapped or mutated tensor misses. Two
+distinct arrays (or one numpy array changed in place) that differ only in
+rows the digest does not sample share a key and are served the first
+one's statistics; the fits therefore compute μ(A) afresh and never read
+this cache. ``SQ_STATS_CACHE=0`` disables it. Process-global, LRU-bounded
+(8 entries), thread-safe.
 """
 
 import collections
@@ -52,8 +55,9 @@ def key_for(X, *config):
     caching is disabled (None keys make lookup/store no-ops)."""
     if not enabled():
         return None
+    version = X._version if isinstance(X, torch.Tensor) else None
     return (tuple(int(v) for v in X.shape), str(X.dtype),
-            data_digest(X)) + tuple(config)
+            data_digest(X), version) + tuple(config)
 
 
 def lookup(key):

@@ -39,7 +39,6 @@ from ..ops.quantum.norms import _grid_exponents, _power_sweep, select_mu
 __all__ = [
     "SpectralStats",
     "exact_spectral_stats",
-    "finalize_host",
     "frobenius_squared",
     "mu_stats",
     "resolve_sketch_rows",
@@ -310,24 +309,8 @@ def exact_spectral_stats(X, mu_grid, with_sigma=True):
 
 
 # ---------------------------------------------------------------------------
-# Dispatch and fetch
+# Sample and fetch
 # ---------------------------------------------------------------------------
-
-
-class _HostDispatch:
-    """In-flight sketch: the device result plus the header the bound math
-    needs at the fetch."""
-
-    __slots__ = ("handle", "header", "n", "s", "m", "mu_grid", "with_sigma",
-                 "idx")
-
-    def __init__(self, handle, header, n, s, m, mu_grid, with_sigma, idx):
-        self.handle = handle
-        self.header = header
-        self.n, self.s, self.m = n, s, m
-        self.mu_grid = mu_grid
-        self.with_sigma = with_sigma
-        self.idx = idx
 
 
 def sample_indices(rng, n, rows):
@@ -335,33 +318,6 @@ def sample_indices(rng, n, rows):
     ``Generator`` (sorted: the gather walks memory forward; the estimators
     are permutation-invariant)."""
     return np.sort(rng.choice(int(n), size=int(rows), replace=False))
-
-
-def dispatch_sample(Xs, scale, mu_grid, with_sigma=True):
-    """Queue :func:`sample_kernel` on the sampled rows' device (no host
-    sync until :func:`finalize_host` fetches it)."""
-    return sample_kernel(Xs, scale, mu_grid=tuple(mu_grid),
-                         with_sigma=with_sigma)
-
-
-def finalize_host(disp, delta_stat):
-    """Fetch a dispatched sketch (one device→host copy of the flat result
-    and the cheap-pass header) and fold the bounds."""
-    flat = disp.handle.cpu().numpy().astype(np.float64)
-    header = disp.header
-    if isinstance(header, torch.Tensor):
-        header = header.cpu().numpy().astype(np.float64)
-    off = 1 if disp.with_sigma else 0
-    nq = (len(flat) - off) // 2
-    eta, frob, amax, colsq_max = (float(v) for v in header)
-    comp = {"eta": eta, "frob": frob, "amax": amax,
-            "colsq_max": colsq_max,
-            "row_fac": flat[off:off + nq],
-            "col_fac": flat[off + nq:off + 2 * nq]}
-    if disp.with_sigma:
-        comp["lam_min"] = flat[0]
-    return finalize_components(comp, n=disp.n, m=disp.m, s=disp.s,
-                               mu_grid=disp.mu_grid, delta_stat=delta_stat)
 
 
 def _as_device_tensor(X):
@@ -390,26 +346,44 @@ def spectral_stats(X, mu_grid, *, delta_stat=None, sketch="auto",
         rng = np.random.default_rng(0)
     idx = sample_indices(rng, n, rows)
     cheap = cheap_pass_kernel(X)
-    Xs = X[torch.as_tensor(idx, device=X.device)]
-    handle = dispatch_sample(Xs, n / rows, tuple(mu_grid), with_sigma)
-    disp = _HostDispatch(handle, cheap, n, rows, m, tuple(mu_grid),
-                         with_sigma, idx)
-    return finalize_host(disp, delta_stat)
+    flat = sample_kernel(X[torch.as_tensor(idx, device=X.device)], n / rows,
+                         mu_grid=tuple(mu_grid), with_sigma=with_sigma)
+    # one device→host copy of the cheap-pass header and the sketch
+    host = torch.cat([cheap.to(torch.float64),
+                      flat.to(torch.float64)]).cpu().numpy()
+    eta, frob, amax, colsq_max = (float(v) for v in host[:4])
+    flat = host[4:]
+    off = 1 if with_sigma else 0
+    nq = (len(flat) - off) // 2
+    comp = {"eta": eta, "frob": frob, "amax": amax, "colsq_max": colsq_max,
+            "row_fac": flat[off:off + nq],
+            "col_fac": flat[off + nq:off + 2 * nq]}
+    if with_sigma:
+        comp["lam_min"] = flat[0]
+    return finalize_components(comp, n=n, m=m, s=rows,
+                               mu_grid=tuple(mu_grid), delta_stat=delta_stat)
 
 
 def mu_stats(X, mu_grid, *, sketch="auto", rng=None, tag="mu"):
     """Digest-cached conservative μ-route statistics (no σ_min): one
-    :func:`spectral_stats` per (dataset, grid, sketch config), every repeat
-    served from the cache. Consumers take ``stats.conservative_mu()``; on
-    the exact path it is bit-equal to :func:`best_mu`'s winner."""
+    :func:`spectral_stats` per (dataset, grid, sketch config, state of the
+    row-sample generator), every repeat served from the cache. Consumers
+    take ``stats.conservative_mu()``; on the exact path it is bit-equal to
+    :func:`best_mu`'s winner. The fits do not read this cache (see
+    :mod:`.cache`)."""
     from . import cache as _cache
 
     X = _as_device_tensor(X)
     delta_stat = sketch_delta_stat()
     n, m = X.shape
     rows = resolve_sketch_rows(n, m, sketch) if delta_stat > 0 else 0
+    if rows and rng is None:
+        rng = np.random.default_rng(0)
+    # a sampled entry holds the draw of one generator state: another seed
+    # must not read it
+    draw = repr(rng.bit_generator.state) if rows else None
     key = _cache.key_for(X, tag, tuple(mu_grid), int(rows),
-                         float(delta_stat) if rows else 0.0)
+                         float(delta_stat) if rows else 0.0, draw)
     hit = _cache.lookup(key)
     if hit is not None:
         return hit

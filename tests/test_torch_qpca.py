@@ -517,6 +517,38 @@ def test_jax_spectrum_error_helper_at_a_small_shape():
     assert 0 < err < 1e-3
 
 
+
+def test_fit_mu_does_not_depend_on_earlier_fits():
+    """The fit's sampled μ(A) is a function of its own data and seed: a
+    fit with another seed, or of data changed in place, earlier in the
+    process does not change it."""
+    from sq_learn_tpu_torch.sketch import cache as tcache
+
+    rng = np.random.default_rng(5)
+    X = (rng.normal(size=(2000, 12)) * np.linspace(0.5, 3.0, 12)
+         ).astype(np.float32)
+
+    def info(seed, data):
+        pca = QPCA(n_components=4, svd_solver="full", compute_mu=True,
+                   sketch=256,
+                   random_state=seed).fit(data)
+        assert pca.sketch_info_["sketched"]
+        return pca.sketch_info_, pca.muA
+
+    tcache.clear()
+    alone = info(1, X)
+    tcache.clear()
+    assert info(0, X) != alone  # the plug-in μ follows the row sample
+    assert info(1, X) == alone
+    changed = X.copy()
+    changed[1] *= 10.0
+    tcache.clear()
+    fresh = info(1, changed)
+    tcache.clear()
+    info(1, X)
+    X[1] *= 10.0
+    assert info(1, X) == fresh
+
 if __name__ == "__main__":
     # the JAX package's float32 error at the trial's shape (see the module
     # docstring); run with JAX_PLATFORMS=cpu

@@ -165,19 +165,19 @@ def test_linear_search_and_best_mu_match_jax(grid):
     np.testing.assert_allclose(tval, jval, rtol=1e-5)
 
 
-def test_blocked_mu_sweep_matches_jax(monkeypatch):
-    """A matrix tall enough for the row-tiled sweep (tiles shrunk) gives
-    the values of the fused one and of the JAX function."""
+def test_tall_mu_sweep_matches_jax_blocked_sweep(monkeypatch):
+    """On a tall matrix the port's one fused sweep gives the values of the
+    JAX package's row-tiled sweep (its tiles shrunk so it engages) and of
+    its fused one."""
     A = _mu_data(2, (300, 8))
     grid = jnorms._search_grid(0.0, 1.0, 0.1)
-    monkeypatch.setattr(tnorms, "_TILE_ELEMS", 64)
-    assert tnorms.blocked_worthwhile(*A.shape)
-    blocked = tnorms._mu_grid(torch.from_numpy(A), grid)
-    fused = tnorms._mu_grid_unblocked(torch.from_numpy(A), grid)
-    np.testing.assert_allclose(blocked.numpy(), fused.numpy(), rtol=1e-5)
-    np.testing.assert_allclose(blocked.numpy(),
-                               np.asarray(jnorms._mu_grid(A, grid)),
-                               rtol=1e-5)
+    fused = np.asarray(jnorms._mu_grid(A, grid))
+    monkeypatch.setattr(jnorms, "_TILE_ELEMS", 64)
+    assert jnorms.blocked_worthwhile(*A.shape)
+    jblocked = np.asarray(jnorms._mu_grid_blocked(A, grid))
+    port = tnorms._mu_grid(torch.from_numpy(A), grid).numpy()
+    np.testing.assert_allclose(port, jblocked, rtol=1e-5)
+    np.testing.assert_allclose(port, fused, rtol=1e-5)
 
 
 def test_mu_grid_validation():
@@ -578,3 +578,26 @@ def test_quantum_utility_facade():
     assert TQU.auxiliary_fun(qs, 4, gen()).shape == (4,)
     assert TQU.vectorize_aux_fun({1: 0.25}, 1) == 0.5
     assert TQU.vectorize_aux_fun({1: 0.25}, 2) == 0
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_auxiliary_fun_default_generator_follows_the_state(device):
+    """Without a generator, the facade's measurement draws on the device
+    of the state's probabilities, never on another one."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU to hold a state on the card")
+    qs = tq.QuantumState(torch.tensor([1.0, 2.0, 3.0], device=device),
+                         torch.tensor([1.0, 0.0, 1.0], device=device))
+    seen = []
+    measure = qs.measure
+
+    def spy(generator, n_times=1):
+        seen.append(generator)
+        return measure(generator, n_times=n_times)
+
+    qs.measure = spy
+    out = TQU.auxiliary_fun(qs, 50)
+    assert seen[0].device.type == qs.probabilities.device.type == device
+    assert out.device.type == device and out.shape == (50,)
+    assert set(out.tolist()) <= {1.0, 3.0}

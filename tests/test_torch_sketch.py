@@ -163,6 +163,34 @@ def test_mu_stats_are_cached_per_dataset(monkeypatch):
         X, GRID, sketch=0)
 
 
+def test_mu_stats_cache_keys_the_seed_and_in_place_changes():
+    """A sampled entry belongs to one generator state, and an in-place
+    change to a row the digest does not sample still misses."""
+    X = torch.from_numpy(_data(4000, 16, seed=3))
+    first = tengine.mu_stats(X, MU_GRID, sketch=512,
+                             rng=np.random.default_rng(1))
+    assert tengine.mu_stats(X, MU_GRID, sketch=512,
+                            rng=np.random.default_rng(1)) is first
+    other = tengine.mu_stats(X, MU_GRID, sketch=512,
+                             rng=np.random.default_rng(2))
+    fresh = tengine.spectral_stats(X, MU_GRID, sketch=512, with_sigma=False,
+                                   rng=np.random.default_rng(2))
+    assert other is not first
+    assert other.mu_upper.tolist() == fresh.mu_upper.tolist()
+
+    exact = tengine.mu_stats(X, MU_GRID, sketch=0)
+    digested = set(np.linspace(0, 3999, num=64, dtype=np.int64).tolist())
+    row = next(i for i in range(4000) if i not in digested)
+    digest = tcache.data_digest(X)
+    X[row] *= 10.0
+    assert tcache.data_digest(X) == digest
+    after = tengine.mu_stats(X, MU_GRID, sketch=0)
+    assert after is not exact
+    assert after.mu_vals.tolist() == tengine.exact_spectral_stats(
+        X, MU_GRID, with_sigma=False).mu_vals.tolist()
+    assert not np.allclose(after.mu_vals, exact.mu_vals)
+
+
 def test_cache_digest_matches_jax_and_is_bounded():
     X = _data(300, 5)
     assert tcache.data_digest(torch.from_numpy(X)) == jcache.data_digest(X)
