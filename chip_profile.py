@@ -41,7 +41,23 @@ that call's wall clock, host time by operator):
   numpy, which the fit does not make) and host syncs; the binary searches the
   trial does not run (spectral norm, σ_min, θ) with their wall clocks and
   host syncs; then the quantum transform and one CV fold of 7-NN at
-  width 61.
+  width 61;
+- q-means at the reference's defaults (``QKMeans(n_clusters=10,
+  n_init=10, max_iter=300, delta=0.5, random_state=0)``: the IPE E-step,
+  the sketched σ_min/η statistics), cold and warm, under the profiler,
+  its host syncs, and its steps one by one in device ms: upload,
+  prestats with the sketch, init, one IPE E-step of the 10 restarts (each
+  iteration runs one, the final re-evaluation two), partial sums and
+  relocation; the σ_min of the exact route, ``eigvalsh`` of the 784 × 784
+  Gram in float32 against float64, with each one's error against a
+  float64 Gram;
+- δ-means with true tomography of the centers every iteration
+  (``intermediate_error=True``): the fit and one tomography of the 10 × 10
+  centers at δ/2 (true and Gaussian);
+- QLSSVC on classes 0 and 1 of the surrogate (8 000 training rows): the
+  fit and predict of the linear and rbf kernels, and the ``eigh`` of the
+  8 001 × 8 001 saddle matrix F in float32 against float64, with each
+  one's largest relative error on the singular values and on ``cond_``.
 
 It needs one NVIDIA GPU and exits non-zero without one.
 """
@@ -385,6 +401,142 @@ def qpca_trial(X, y, torch):
     profiled("CV fold at width 61", fold, torch)
 
 
+def qkmeans_quantum(X, torch):
+    """q-means at the reference's defaults (IPE, sketch), step by step and
+    whole; then δ-means with true tomography of the centers."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.base import clone
+    from sq_learn_tpu_torch.models import QKMeans
+    from sq_learn_tpu_torch.models import qkmeans as tqk
+    from sq_learn_tpu_torch.ops.kernels import lloyd_step
+    from sq_learn_tpu_torch.parallel.init import resolve_init_subsample
+    from sq_learn_tpu_torch.sketch import engine
+    from sq_learn_tpu_torch.utils import as_generator
+    from sq_learn_tpu_torch.utils.validation import check_array
+
+    dev = torch.device("cuda:0")
+    est = QKMeans(n_clusters=10, n_init=10, max_iter=300, delta=0.5,
+                  random_state=0)
+    for label in ("cold", "warm", "warm"):
+        t0 = time.perf_counter()
+        fit = clone(est).fit(X)
+        print(f"{label} IPE q-means fit: {time.perf_counter() - t0:.4f} s, "
+              f"n_iter {fit.n_iter_}, κ {fit.condition_number_}", flush=True)
+    profiled("IPE q-means fit", lambda: clone(est).fit(X), torch)
+    _, syncs = count_syncs(lambda: clone(est).fit(X), torch)
+    print(f"IPE q-means fit: {syncs} host syncs (CUDA sync debug mode)",
+          flush=True)
+
+    n = X.shape[0]
+    Xd = check_array(X, device=dev)
+    w = torch.ones(n, device=dev)
+    idx = torch.as_tensor(engine.sample_indices(
+        np.random.default_rng([0, engine.SKETCH_SEED]), n, 4096), device=dev)
+    stats = tqk.fit_prestats(Xd, quantum=True, mu_grid=tqk.MU_GRID,
+                             sketch_idx=idx)
+    gen = as_generator(0, dev)
+    sub = resolve_init_subsample(n, 10, "auto")
+    c0 = tqk._restart_inits(gen, stats["Xc"], w, stats["xsq"], n_init=10,
+                            init="k-means++", n_clusters=10,
+                            init_subsample=sub)
+    labels, _, min_d2 = tqk.e_step(gen, stats["Xc"], w, c0, stats["xsq"],
+                                   delta=0.5, mode="ipe")
+
+    def partials():
+        sums, counts = tqk._cluster_partials(stats["Xc"], w, labels, 10)
+        return tqk.relocate_empty_clusters(stats["Xc"], w, labels, min_d2,
+                                           sums, counts)
+
+    steps = {
+        "upload (check_array, pageable)": lambda: check_array(X, device=dev),
+        "prestats with the sketch (4096 rows)": lambda: tqk.fit_prestats(
+            Xd, quantum=True, mu_grid=tqk.MU_GRID, sketch_idx=idx),
+        "prestats exact (sketch=0; not used)": lambda: tqk.fit_prestats(
+            Xd, quantum=True, mu_grid=tqk.MU_GRID),
+        "init (k-means++, 10 restarts)": lambda: tqk._restart_inits(
+            gen, stats["Xc"], w, stats["xsq"], n_init=10, init="k-means++",
+            n_clusters=10, init_subsample=sub),
+        "IPE E-step, 10 restarts (one per iteration, two at the end)":
+            lambda: tqk.e_step(gen, stats["Xc"], w, c0, stats["xsq"],
+                               delta=0.5, mode="ipe"),
+        "partial sums and relocation": partials,
+    }
+    for name, fn in steps.items():
+        print(f"IPE q-means step, {name}: {events_ms(fn, torch):.4f} device "
+              f"ms", flush=True)
+
+    # σ_min of the exact route: the 784 × 784 Gram's λ_min both ways
+    G = Xd.T @ Xd
+    X64 = Xd.double()
+    lam64 = float(torch.linalg.eigvalsh(X64.T @ X64)[0])
+    del X64
+    for name, fn in (("float32", lambda: torch.linalg.eigvalsh(G)),
+                     ("float64 (the fit's)",
+                      lambda: torch.linalg.eigvalsh(G.double()))):
+        lam = float(fn()[0])
+        print(f"σ_min route, eigvalsh 784 × 784 in {name}: "
+              f"{events_ms(fn, torch):.4f} device ms, λ_min {lam}, κ "
+              f"relative error against a float64 Gram "
+              f"{abs((lam64 / lam) ** 0.5 - 1):.4e}", flush=True)
+
+    # δ-means with true tomography of the centers
+    est_b = QKMeans(n_clusters=10, n_init=10, delta=0.5,
+                    true_distance_estimate=False, intermediate_error=True,
+                    random_state=0)
+    for label in ("cold", "warm", "warm"):
+        lloyd_step.launches = 0
+        t0 = time.perf_counter()
+        fit = clone(est_b).fit(X)
+        print(f"{label} tomography δ-means fit: "
+              f"{time.perf_counter() - t0:.4f} s, n_iter {fit.n_iter_}, "
+              f"lloyd_step launches {lloyd_step.launches}", flush=True)
+    profiled("tomography δ-means fit", lambda: clone(est_b).fit(X), torch)
+    for name, true in (("true", True), ("Gaussian", False)):
+        ms = events_ms(lambda: tqk.center_tomography(
+            gen, c0, 0.25, true_tomography=true), torch)
+        print(f"tomography of the 10 × 10 centers at δ/2 = 0.25, {name}: "
+              f"{ms:.4f} device ms per iteration", flush=True)
+
+
+def qlssvc(X, y, torch):
+    """QLSSVC fits and the eigh of F at 8 001² both ways."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import QLSSVC
+    from sq_learn_tpu_torch.models.qlssvc import saddle_matrix
+
+    rows = np.flatnonzero(y <= 1)
+    rows = rows[np.random.default_rng(0).permutation(len(rows))]
+    tr, te = rows[:8000], rows[8000:10000]
+    ypm = np.where(y == 0, 1.0, -1.0)
+    for kernel, error_type in (("linear", "absolute"), ("rbf", "relative")):
+        for label in ("cold", "warm"):
+            t0 = time.perf_counter()
+            est = QLSSVC(kernel=kernel, error_type=error_type,
+                         random_state=0).fit(X[tr], ypm[tr])
+            fit_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            est.predict(X[te])
+            print(f"{label} QLSSVC({kernel!r}, {error_type!r}) 8000×784: "
+                  f"fit {fit_s:.4f} s, predict 2000 rows "
+                  f"{time.perf_counter() - t0:.4f} s", flush=True)
+        F = saddle_matrix(est.get_kernel(est.X_), est.penalty)
+        s64 = torch.linalg.eigvalsh(F.double()).abs().sort(
+            descending=True).values
+        for name, fn in (("float32", lambda: torch.linalg.eigh(F)),
+                         ("float64 (the fit's)",
+                          lambda: torch.linalg.eigh(F.double()))):
+            s = fn()[0].double().abs().sort(descending=True).values
+            err = float(((s - s64).abs() / s64).max())
+            cond_err = abs(float(s[0] / s[-1]) / float(s64[0] / s64[-1]) - 1)
+            print(f"QLSSVC {kernel}: eigh of F 8001 × 8001 in {name}: "
+                  f"{events_ms(fn, torch, reps=3):.4f} device ms, largest "
+                  f"relative error of |λ| {err:.4e}, of cond_ "
+                  f"{cond_err:.4e}", flush=True)
+        del F
+
+
 def main():
     import torch
 
@@ -433,6 +585,8 @@ def main():
     argkmin_kernels(X, torch)
     knn(X, y, torch)
     qpca_trial(X, y, torch)
+    qkmeans_quantum(X, torch)
+    qlssvc(X, y, torch)
     return 0
 
 

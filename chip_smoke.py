@@ -64,9 +64,29 @@ each of which fails the run:
      true-tomography top-k extraction at the full shape (the multinomial
      split tree on vectors of 70 000 and 784, each row within δ). Before
      it the tree alone: ⌈log₂ d⌉ ``torch.binomial`` calls per call.
-   Small fits on the card (δ=0 q-means; k-NN on 4 000 rows; QPCA(16) at
-   4 000 × 64, ε = δ = 0) are checked against the same fits on the CPU
-   (the plain versions).
+   - path A, q-means at the reference's defaults: ``QKMeans(n_clusters=10,
+     n_init=10, max_iter=300, delta=0.5, random_state=0).fit`` (the IPE
+     E-step, no kernel launch; sketch='auto', 4096 sampled rows), then
+     ``predict(X, delta=0.5)``, ``score``, ``transform``, both runtime
+     models and ``runtime_comparison``'s 100 × 100 surfaces: κ within
+     SKETCH_KAPPA_RTOL of κ from the float64 Gram of the same sampled
+     rows, ARI ≥ IPE_ARI_FLOOR;
+   - path B, δ-means with true tomography of the centers every iteration
+     (``intermediate_error=True``): Lloyd launches added to the kernel's,
+     ARI ≥ TOMOGRAPHY_ARI_FLOOR, and a rerun of the same steps through
+     the functional core, from the same seed, whose every restart is
+     finite and whose best restart is the fit's centers, bit for bit;
+   - path C, the qPCA trial fit's ``accumulate_q_runtime`` and
+     ``runtime_comparison``: finite positive surfaces of the mesh's shape;
+   - path D, ``QLSSVC`` (linear kernel with absolute error, rbf with
+     relative error) on classes 0 and 1 of the surrogate as ±1, 8 000
+     training and 2 000 test rows: classical accuracy, the singular
+     values of F and ``cond_`` against a float64 decomposition of the same
+     F, |P̃ − P| ≤ ε for both error types.
+   The exact δ-means fit's κ is held within EXACT_KAPPA_RTOL of κ from the
+   float64 Gram of X. Small fits on the card (δ=0 q-means; k-NN on 4 000
+   rows; QPCA(16) at 4 000 × 64, ε = δ = 0; QLSSVC on 500 rows) are
+   checked against the same fits on the CPU (the plain versions).
 4. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
@@ -121,6 +141,33 @@ SPECTRUM_RTOL = 3 * 5.079681150339217e-05
 # the small card-vs-CPU fit: QPCA(16) on synthetic_surrogate(4000, 64, 10,
 # seed=784) at ε = δ = 0, compared in norm: ‖card − cpu‖ ≤ rtol·‖cpu‖
 SMALL_QPCA_RTOL = 1e-4
+# q-means' κ against κ from a float64 eigvalsh of the float64 Gram of the
+# same rows: 3× the JAX package's float32 error on a CPU, measured by
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_qkmeans_quantum.py`
+# (exact route: σ_min of the 70 000 × 784 Gram; sketch route: λ_min of the
+# scaled Gram of the 4096 rows a fit at random_state=0 samples)
+EXACT_KAPPA_RTOL = 3 * 0.007497313154634644
+SKETCH_KAPPA_RTOL = 3 * 0.003745695597914574
+SKETCH_ROWS = 4096
+# ARI floors of q-means' quantum modes: the JAX package's ARI on
+# synthetic_surrogate(7000, 784, 10, seed=784) at the same parameters, on a
+# CPU (same script), less 0.05
+IPE_ARI_FLOOR = 1.0 - 0.05
+TOMOGRAPHY_ARI_FLOOR = 1.0 - 0.05
+# QLSSVC on classes 0 and 1 of the surrogate as ±1, 8000 training and 2000
+# test rows from a permutation seeded with 0: classical_predict accuracy at
+# least the JAX package's on the same split less 0.01, and the singular
+# values of F and cond_ within 3× the JAX package's float32 error against a
+# float64 decomposition of the same F; both measured on a CPU by
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_qlssvc.py`
+QLSSVC_TRAIN, QLSSVC_TEST = 8000, 2000
+JAX_QLSSVC = {
+    "linear": {"accuracy": 1.0, "sv_rel_err": 8.726667515270002,
+               "cond_rel_err": 41.23110782082795},
+    "rbf": {"accuracy": 1.0, "sv_rel_err": 0.00017489251146443515,
+            "cond_rel_err": 4.155346845042398e-07},
+}
+SMALL_QLSSVC_RTOL = 1e-4  # the 500-row fit on the card against the CPU
 
 
 def check(cond, msg):
@@ -695,7 +742,7 @@ def qpca_trial_path(X, y, torch):
     qPCA with every top-k estimator, the quantum transform, a 10-fold
     stratified CV of 7-NN on the transformed rows, then a true-tomography
     top-k extraction at the full shape. Returns the argkmin launches of
-    the CV."""
+    the CV and the fitted QPCA."""
     import numpy as np
 
     from sq_learn_tpu_torch.model_selection import (StratifiedKFold,
@@ -845,7 +892,7 @@ def qpca_trial_path(X, y, torch):
               f"{QPCA_DELTA})", flush=True)
     print(f"true-tomography top-k extraction: {tomo_s:.4f} s, {calls} "
           f"torch.binomial calls for 2 × {pca.topk} vectors", flush=True)
-    return cv_launches
+    return cv_launches, pca
 
 
 def qpca_card_vs_cpu():
@@ -878,6 +925,257 @@ def qpca_card_vs_cpu():
               f"{errs[name]} (relative, in norm) > {SMALL_QPCA_RTOL}")
     print(f"small qPCA 4000×64, 16 components, ε = δ = 0: card == CPU, "
           f"relative differences in norm {errs}", flush=True)
+
+
+def qkmeans_ipe_path(X, y, Xd, torch):
+    """Path A: q-means at the reference's defaults (the IPE E-step, the
+    sketched σ_min/η statistics), predict/score/transform and both runtime
+    models. Returns the fit."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import QKMeans
+    from sq_learn_tpu_torch.models.qkmeans import MU_GRID
+    from sq_learn_tpu_torch.ops.kernels import lloyd_step
+    from sq_learn_tpu_torch.sketch import engine
+
+    est = QKMeans(n_clusters=K, n_init=10, max_iter=300, delta=WINDOW,
+                  random_state=0)
+    lloyd_step.launches = 0
+    t0 = time.perf_counter()
+    est.fit(X)
+    fit_s = time.perf_counter() - t0
+    check(lloyd_step.launches == 0,
+          f"the IPE fit launched lloyd_step {lloyd_step.launches} times")
+    check(np.isfinite(est.cluster_centers_).all()
+          and np.isfinite(est.inertia_), "IPE fit is not finite")
+    info = est.sketch_info_
+    check(info["sketched"] and info["sample_rows"] == SKETCH_ROWS,
+          f"IPE fit: sketch_info_ {info}")
+    # κ against the float64 decomposition of the same sampled rows' Gram
+    idx = engine.sample_indices(
+        np.random.default_rng([0, engine.SKETCH_SEED]), N, SKETCH_ROWS)
+    idx_t = torch.as_tensor(idx, device=Xd.device)
+    comp = engine.fetch_components(engine.sketch_components(Xd, idx_t,
+                                                            MU_GRID))
+    R64 = Xd[idx_t].double()
+    lam64 = float(torch.linalg.eigvalsh((R64.T @ R64) * (N / SKETCH_ROWS))[0])
+    kappa64 = engine.finalize_components(
+        dict(comp, lam_min=lam64), n=N, m=M, s=SKETCH_ROWS, mu_grid=MU_GRID,
+        delta_stat=info["delta_stat"]).condition_number()
+    rel = abs(est.condition_number_ - kappa64) / kappa64
+    check(rel <= SKETCH_KAPPA_RTOL,
+          f"IPE fit: κ {est.condition_number_} against float64 {kappa64}, "
+          f"relative error {rel} > {SKETCH_KAPPA_RTOL}")
+    fit_ari = ari(y, est.labels_)
+    check(fit_ari >= IPE_ARI_FLOOR, f"IPE ARI {fit_ari} < {IPE_ARI_FLOOR}")
+    t0 = time.perf_counter()
+    pred = est.predict(X, delta=WINDOW)
+    predict_s = time.perf_counter() - t0
+    pred_ari = ari(est.labels_, pred)
+    check(pred.shape == (N,) and pred_ari >= IPE_ARI_FLOOR,
+          f"IPE predict: shape {pred.shape}, ARI against labels_ {pred_ari}")
+    score, dist = est.score(X), est.transform(X)
+    check(np.isfinite(score) and dist.shape == (N, K)
+          and np.isfinite(dist).all(), "IPE fit: score/transform output")
+    models = {}
+    for wc in (False, True):
+        q, c = est.quantum_runtime_model(N, M, well_clusterable=wc)
+        check(np.isfinite(q) and np.isfinite(c) and q > 0 and c > 0,
+              f"runtime model (well_clusterable={wc}): {q}, {c}")
+        models[wc] = float(q)
+    qs, cs = est.runtime_comparison(N, M)
+    check(qs.shape == cs.shape == (100, 100) and np.isfinite(qs).all()
+          and np.isfinite(cs).all(),
+          f"runtime_comparison surfaces {qs.shape}, {cs.shape}")
+    print(f"path A: QKMeans(n_clusters={K}, n_init=10, max_iter=300, "
+          f"delta={WINDOW}, random_state=0).fit (IPE E-step, sketch='auto') "
+          f"{N}×{M}: {fit_s:.4f} s, n_iter {est.n_iter_}, inertia "
+          f"{est.inertia_}, ARI {fit_ari} (floor {IPE_ARI_FLOOR}), "
+          f"lloyd_step launches {lloyd_step.launches}; predict(δ={WINDOW}) "
+          f"{predict_s:.4f} s, ARI against labels_ {pred_ari}; κ "
+          f"{est.condition_number_} against float64 {kappa64} (relative "
+          f"{rel}, limit {SKETCH_KAPPA_RTOL}; λ_min float64 {lam64}); eta "
+          f"{est.eta_}, mu {est.mu_} ({est.norm_mu_}); sketch_info_ {info}; "
+          f"quantum_runtime_model {models[False]} (well-clusterable "
+          f"{models[True]}), classical {float(c)}", flush=True)
+    return est
+
+
+def qkmeans_tomography_path(X, y, torch):
+    """Path B: δ-means with true tomography of the centers every iteration
+    (the Lloyd kernel between the tomography draws). Returns the kernel's
+    launches in the fit."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import QKMeans
+    from sq_learn_tpu_torch.models import qkmeans as tqk
+    from sq_learn_tpu_torch.ops.kernels import lloyd_step
+    from sq_learn_tpu_torch.ops.quantum.sampling import multinomial_counts
+    from sq_learn_tpu_torch.parallel.init import resolve_init_subsample
+    from sq_learn_tpu_torch.utils import as_generator, check_array
+
+    kw = dict(n_clusters=K, n_init=10, delta=WINDOW,
+              true_distance_estimate=False, intermediate_error=True,
+              random_state=0)
+    est = QKMeans(**kw)
+    lloyd_step.launches = 0
+    calls = multinomial_counts.binomial_calls
+    t0 = time.perf_counter()
+    est.fit(X)
+    fit_s = time.perf_counter() - t0
+    launches = lloyd_step.launches
+    calls = multinomial_counts.binomial_calls - calls
+    check(launches > 0, "the tomography fit never launched lloyd_step")
+    check(np.isfinite(est.cluster_centers_).all()
+          and np.isfinite(est.inertia_), "tomography fit is not finite")
+    fit_ari = ari(y, est.labels_)
+    check(fit_ari >= TOMOGRAPHY_ARI_FLOOR,
+          f"tomography fit ARI {fit_ari} < {TOMOGRAPHY_ARI_FLOOR}")
+    # every restart: the fit's steps again from the same seed, through the
+    # functional core, which returns all restarts (not counted above)
+    dev = torch.device(CARD)
+    Xt = check_array(X, device=dev)
+    w = torch.ones(N, device=dev)
+    gen = as_generator(0, dev)
+    sub = resolve_init_subsample(N, K, "auto")
+    stats, c0 = tqk.fused_init(gen, Xt, w, n_init=10, init="k-means++",
+                               n_clusters=K, quantum=False,
+                               init_subsample=sub)
+    tol = 1e-4 * stats["var_mean"]
+    _, inertia, centers, n_iter, _ = tqk.lloyd_single(
+        gen, stats["Xc"], w, c0, stats["xsq"], delta=WINDOW, mode="delta",
+        tol=tol, patience=10, intermediate_error=True)
+    check(bool(torch.isfinite(centers).all())
+          and bool(torch.isfinite(inertia).all()),
+          "tomography: a restart's centers are not finite")
+    best = int(torch.argmin(inertia))
+    same = np.array_equal((centers[best] + stats["mean"]).cpu().numpy(),
+                          est.cluster_centers_)
+    check(same, "tomography: the rerun from the same seed does not give the "
+                "fit's centers")
+    print(f"path B: QKMeans(n_clusters={K}, n_init=10, delta={WINDOW}, "
+          f"true_distance_estimate=False, intermediate_error=True, "
+          f"random_state=0).fit {N}×{M}: {fit_s:.4f} s, n_iter "
+          f"{est.n_iter_}, lloyd_step launches {launches}, torch.binomial "
+          f"calls {calls}, ARI {fit_ari} (floor {TOMOGRAPHY_ARI_FLOOR}); all "
+          f"{centers.shape[0]} restarts finite (n_iter "
+          f"{n_iter.tolist()}), the rerun's best restart equal to the fit's "
+          f"centers: {same}", flush=True)
+    return launches
+
+
+def qpca_runtime_path(pca):
+    """Path C: the runtime model of the qPCA trial's fitted QPCA, on the
+    reference's 100 × 100 mesh."""
+    import numpy as np
+
+    nn, mm, q, c = pca.runtime_comparison(N, M)
+    surfaces = pca.accumulate_q_runtime(nn, mm)
+    check(len(surfaces) >= 1 and all(
+        np.shape(sf) == nn.shape and np.isfinite(sf).all() and (sf > 0).all()
+        for sf in surfaces), "accumulate_q_runtime: surfaces not finite "
+                             "positive of the mesh's shape")
+    check(q.shape == c.shape == (100, 100) and np.isfinite(q).all()
+          and (q > 0).all(), "runtime_comparison surfaces")
+    print(f"path C: QPCA.accumulate_q_runtime on the 100 × 100 mesh to "
+          f"({N}, {M}): {len(surfaces)} surface(s), quantum cost at "
+          f"({N}, {M}) {float(q[-1, -1])}, classical {float(c[-1, -1])}",
+          flush=True)
+
+
+def qlssvc_split(X, y):
+    """Classes 0 and 1 of the surrogate as ±1 (class 0 → +1), training and
+    test rows from a permutation seeded with 0."""
+    import numpy as np
+
+    rows = np.flatnonzero(y <= 1)
+    rows = rows[np.random.default_rng(0).permutation(len(rows))]
+    tr = rows[:QLSSVC_TRAIN]
+    te = rows[QLSSVC_TRAIN:QLSSVC_TRAIN + QLSSVC_TEST]
+    ypm = np.where(y == 0, 1.0, -1.0)
+    return X[tr], ypm[tr], X[te], ypm[te]
+
+
+def qlssvc_path(X, y, torch):
+    """Path D: QLSSVC (linear kernel with absolute error, rbf with relative
+    error) on the ±1 split: fit, predict and the checks of the solve and
+    the noise model."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import QLSSVC
+    from sq_learn_tpu_torch.models.qlssvc import saddle_matrix
+
+    Xtr, ytr, Xte, yte = qlssvc_split(X, y)
+    for kernel, error_type in (("linear", "absolute"), ("rbf", "relative")):
+        ref = JAX_QLSSVC[kernel]
+        t0 = time.perf_counter()
+        est = QLSSVC(kernel=kernel, error_type=error_type, random_state=0)
+        est.fit(Xtr, ytr)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = est.predict(Xte)
+        predict_s = time.perf_counter() - t0
+        check(pred.shape == (QLSSVC_TEST,) and set(np.unique(pred)) <= {-1, 1},
+              f"QLSSVC {kernel}: predict output")
+        acc = float(np.mean(est.classical_predict(Xte) == yte))
+        q_acc = float(np.mean(pred == yte))
+        check(acc >= ref["accuracy"] - 0.01,
+              f"QLSSVC {kernel}: classical_predict accuracy {acc} < JAX's "
+              f"{ref['accuracy']} − 0.01")
+        # the solve against a float64 decomposition of the same F
+        F = saddle_matrix(est.get_kernel(est.X_), est.penalty)
+        s64 = torch.linalg.eigvalsh(F.double()).abs().sort(
+            descending=True).values.cpu().numpy()
+        del F
+        sv_err = float(np.max(np.abs(est.singular_values_F_ - s64) / s64))
+        cond64 = s64[0] / s64[-1]
+        cond_err = abs(est.cond_ - cond64) / cond64
+        check(sv_err <= 3 * ref["sv_rel_err"],
+              f"QLSSVC {kernel}: singular values of F off float64 by "
+              f"{sv_err} > 3 × {ref['sv_rel_err']}")
+        check(cond_err <= 3 * ref["cond_rel_err"],
+              f"QLSSVC {kernel}: cond_ {est.cond_} against float64 "
+              f"{cond64}, relative {cond_err} > 3 × {ref['cond_rel_err']}")
+        # the noise model's bound, for both error types: P̃ = P + z with
+        # |z| ≤ ε, rounded to float32, so |P̃ − P| ≤ ε + one float32 ulp
+        Xq = est._input(Xte)
+        h, beta = est._h(Xq), est._betas(Xq)
+        P = 0.5 * (1.0 - h / beta)
+        worst = {}
+        for et in ("absolute", "relative"):
+            est.error_type = et
+            noisy, eps = est._noisy_P(P, h, beta)
+            ulp = torch.finfo(torch.float32).eps * torch.maximum(
+                noisy.abs(), P.abs())
+            over = float(torch.max(torch.abs(noisy - P) - eps - ulp))
+            check(over <= 0, f"QLSSVC {kernel} {et}: |P̃ − P| exceeds ε by "
+                             f"{over}")
+            worst[et] = float(torch.max(torch.abs(noisy - P)))
+        est.error_type = error_type
+        print(f"path D: QLSSVC(kernel={kernel!r}, error_type="
+              f"{error_type!r}, random_state=0) {QLSSVC_TRAIN}×{M}: fit "
+              f"{fit_s:.4f} s, predict {QLSSVC_TEST} rows {predict_s:.4f} "
+              f"s; classical accuracy {acc} (JAX {ref['accuracy']}), "
+              f"quantum accuracy {q_acc}; cond_ {est.cond_} against float64 "
+              f"{cond64} (relative {cond_err}), singular values of F off "
+              f"float64 by {sv_err} (relative); largest |P̃ − P| {worst}",
+              flush=True)
+    # a small fit on the card against the same fit on the CPU
+    out = {}
+    for device in (CARD, "cpu"):
+        fit = QLSSVC(kernel="rbf", random_state=0, device=device).fit(
+            Xtr[:500], ytr[:500])
+        out[device] = (fit.b_, fit.alpha_, fit.cond_)
+    errs = [abs(out[CARD][0] - out["cpu"][0]) / abs(out["cpu"][0]),
+            float(np.linalg.norm(out[CARD][1] - out["cpu"][1])
+                  / np.linalg.norm(out["cpu"][1])),
+            abs(out[CARD][2] - out["cpu"][2]) / out["cpu"][2]]
+    check(max(errs) <= SMALL_QLSSVC_RTOL,
+          f"small QLSSVC: card and CPU differ by {errs} (b_, alpha_ in "
+          f"norm, cond_; relative) > {SMALL_QLSSVC_RTOL}")
+    print(f"small QLSSVC 500×{M} (rbf): card == CPU, relative differences "
+          f"b_ {errs[0]}, alpha_ {errs[1]} (in norm), cond_ {errs[2]}",
+          flush=True)
 
 
 def main():
@@ -946,10 +1244,20 @@ def main():
     check(est.n_iter_ >= 1, "δ-means fit ran no iteration")
     fit_ari = ari(y, est.labels_)
     check(fit_ari >= ARI_FLOOR, f"δ-means ARI {fit_ari} < {ARI_FLOOR}")
+    # κ of the exact route against the float64 Gram of the same X
+    X64 = Xd.double()
+    kappa64 = 1.0 / float(torch.linalg.eigvalsh(X64.T @ X64)[0]) ** 0.5
+    del X64
+    kappa_rel = abs(est.condition_number_ - kappa64) / kappa64
+    check(kappa_rel <= EXACT_KAPPA_RTOL,
+          f"δ-means fit: κ {est.condition_number_} against float64 "
+          f"{kappa64}, relative error {kappa_rel} > {EXACT_KAPPA_RTOL}")
     print(f"QKMeans δ=0.5 δ-means fit: {fit_s:.3f} s, n_iter {est.n_iter_}, "
           f"inertia {est.inertia_}, ARI {fit_ari}, kernel launches "
           f"{entry['launches']}, eta {est.eta_}, mu {est.mu_} "
-          f"({est.norm_mu_}), kappa {est.condition_number_}", flush=True)
+          f"({est.norm_mu_}), kappa {est.condition_number_} against float64 "
+          f"{kappa64} (relative {kappa_rel}, limit {EXACT_KAPPA_RTOL})",
+          flush=True)
     pred = est.predict(X)
     score = est.score(X)
     dist = est.transform(X)
@@ -995,6 +1303,25 @@ def main():
     print(f"small δ=0 fit 4000×784: card == CPU (labels, n_iter "
           f"{on['cpu'].n_iter_}, centers at rtol 1e-4)", flush=True)
 
+    # path A, q-means at the reference's defaults: no kernel launch
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    qkmeans_ipe_path(X, y, Xd, torch)
+    check(lloyd_step.launches == argkmin.launches == 0,
+          f"path A launched lloyd_step {lloyd_step.launches} and argkmin "
+          f"{argkmin.launches} times")
+    print(f"path A: {time.perf_counter() - t0:.3f} s", flush=True)
+    # path B, δ-means with tomography of the centers: its Lloyd launches
+    # are added to the kernel's
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    tomo_launches = qkmeans_tomography_path(X, y, torch)
+    check(tomo_launches > 0 and argkmin.launches == 0,
+          f"path B launched lloyd_step {tomo_launches} and argkmin "
+          f"{argkmin.launches} times")
+    entry["launches"] += tomo_launches
+    print(f"path B: {time.perf_counter() - t0:.3f} s", flush=True)
+
     # the k-NN main path, its launches counted from 0
     lloyd_step.launches = argkmin.launches = 0
     t0 = time.perf_counter()
@@ -1011,14 +1338,28 @@ def main():
     multinomial_tree(torch)
     lloyd_step.launches = argkmin.launches = 0
     t0 = time.perf_counter()
-    trial_launches = qpca_trial_path(X, y, torch)
+    trial_launches, pca = qpca_trial_path(X, y, torch)
     check(trial_launches == 10 and lloyd_step.launches == 0,
           f"the qPCA trial launched argkmin {trial_launches} and "
           f"lloyd_step {lloyd_step.launches} times")
     knn_entry["launches"] += trial_launches
     print(f"qPCA trial path: {time.perf_counter() - t0:.3f} s, argkmin "
           f"launches {trial_launches}", flush=True)
+    # path C, the runtime model of the trial's fitted QPCA
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    qpca_runtime_path(pca)
+    check(lloyd_step.launches == argkmin.launches == 0,
+          "path C launched a kernel")
+    print(f"path C: {time.perf_counter() - t0:.3f} s", flush=True)
     qpca_card_vs_cpu()
+    # path D, QLSSVC: no kernel launch
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    qlssvc_path(X, y, torch)
+    check(lloyd_step.launches == argkmin.launches == 0,
+          "path D launched a kernel")
+    print(f"path D: {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(smi)
     print(json.dumps({"kernels": [entry, knn_entry]}))

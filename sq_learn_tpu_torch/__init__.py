@@ -12,11 +12,13 @@ The port imports neither JAX nor any module of ``sq_learn_tpu``.
 from ._config import config_context, get_config, resolve_device, set_config
 from .base import (BaseEstimator, ClassifierMixin, ClusterMixin,
                    NotFittedError, TransformerMixin, check_is_fitted, clone)
-from .models import PCA, QPCA, KMeans, KNeighborsClassifier, QKMeans, k_means
+from .models import (PCA, QLSSVC, QPCA, KMeans, KNeighborsClassifier, QKMeans,
+                     k_means)
 
 __version__ = "0.1.0"
 
 __all__ = ["BaseEstimator", "ClassifierMixin", "ClusterMixin", "KMeans",
-           "KNeighborsClassifier", "NotFittedError", "PCA", "QKMeans", "QPCA",
+           "KNeighborsClassifier", "NotFittedError", "PCA", "QKMeans",
+           "QLSSVC", "QPCA",
            "TransformerMixin", "check_is_fitted", "clone", "config_context",
            "get_config", "k_means", "resolve_device", "set_config"]

@@ -3,9 +3,9 @@
 :func:`qkmeans_from_numpy` takes a fitted JAX ``QKMeans``'s attributes as
 numpy arrays and returns a fitted port :class:`~.models.QKMeans` whose
 ``predict``, ``transform`` and ``score`` compute what the JAX ones do;
-:func:`kneighbors_from_numpy` does the same for ``KNeighborsClassifier``
-and :func:`qpca_from_numpy` for ``QPCA`` (classical and quantum
-transforms).
+:func:`kneighbors_from_numpy` does the same for ``KNeighborsClassifier``,
+:func:`qpca_from_numpy` for ``QPCA`` (classical and quantum transforms,
+the runtime model) and :func:`qlssvc_from_numpy` for ``QLSSVC``.
 The port imports nothing of the JAX package: the caller reads the
 attributes (``vars(est)``) and hands them over.
 """
@@ -16,6 +16,7 @@ import torch
 from ._config import resolve_device
 from .models.neighbors import KNeighborsClassifier
 from .models.qkmeans import QKMeans
+from .models.qlssvc import QLSSVC
 from .models.qpca import QPCA
 from .ops.linalg import row_norms
 
@@ -129,6 +130,22 @@ _QPCA_SCALARS = {"n_components_": int, "noise_variance_": float,
                  "n_features_in_": int, "n_samples_": int,
                  "n_features_": int, "spectral_norm": float,
                  "frob_norm": float}
+#: the fit's quantum parameters, flags and selections, which the runtime
+#: model reads (``accumulate_q_runtime``)
+_QPCA_FIT_STATE = ("eps", "delta", "eps_theta", "eta", "theta_major",
+                   "theta_minor", "theta", "est_theta", "topk", "topk_p",
+                   "least_k", "least_k_p", "tomography_norm",
+                   "theta_estimate", "quantum_retained_variance",
+                   "estimate_all", "estimate_least_k")
+
+
+def _host_value(v):
+    """A numpy or 0-d array scalar as a Python number; anything else as
+    it is."""
+    if isinstance(v, np.generic) or (isinstance(v, np.ndarray)
+                                     and v.ndim == 0):
+        return v.item()
+    return v
 
 
 def qpca_from_numpy(attrs, device=None, params=None):
@@ -143,8 +160,13 @@ def qpca_from_numpy(attrs, device=None, params=None):
         ``all_components``, the ``*_all`` arrays), ``left_sv``,
         ``muA``/``norm_muA``, where present the top-k estimates
         ``estimate_right_sv``/``estimate_left_sv``/``estimate_s_values``/
-        ``estimate_fs`` (and ``estimate_fs_ratio``), ``n_components_`` and
-        ``noise_variance_``. Other keys are ignored.
+        ``estimate_fs`` (and ``estimate_fs_ratio``), ``n_components_``,
+        ``noise_variance_``, and the fit's quantum parameters, flags and
+        selections that the runtime model reads (``eps``, ``delta``,
+        ``eps_theta``, ``eta``, ``theta``/``est_theta``, ``topk``,
+        ``topk_p``, ``least_k``, ``least_k_p``, ``theta_minor``,
+        ``spectral_norm``, ``tomography_norm``, the estimator flags).
+        Other keys are ignored.
     device : str or torch.device, optional
         Where the estimator's transforms run (None = the configured
         device).
@@ -166,9 +188,9 @@ def qpca_from_numpy(attrs, device=None, params=None):
     for name, cast in _QPCA_SCALARS.items():
         if attrs.get(name) is not None:
             setattr(est, name, cast(attrs[name]))
-    for name in ("muA", "norm_muA"):
+    for name in ("muA", "norm_muA") + _QPCA_FIT_STATE:
         if name in attrs:
-            setattr(est, name, attrs[name])
+            setattr(est, name, _host_value(attrs[name]))
     comps, mean = est.components_, est.mean_
     if comps.ndim != 2 or mean.shape != (comps.shape[1],):
         raise ValueError(f"components_ (k, m) and mean_ (m,) do not match: "
@@ -186,4 +208,55 @@ def qpca_from_numpy(attrs, device=None, params=None):
                               or right.shape[1] != comps.shape[1]):
         raise ValueError(f"estimate_right_sv of shape {right.shape} does "
                          f"not match components_ of width {comps.shape[1]}")
+    return est
+
+
+#: fitted QLSSVC attributes carried over, with the type each is stored as
+_QLSSVC_ARRAYS = {"alpha_": np.float32, "singular_values_F_": np.float32,
+                  "coef_": np.float32}
+_QLSSVC_SCALARS = {"b_": float, "Nu_": float, "alpha_F_": float,
+                   "cond_": float, "normF_": float, "n_features_in_": int}
+
+
+def qlssvc_from_numpy(attrs, device=None, params=None):
+    """A fitted port ``QLSSVC`` from a JAX ``QLSSVC``'s fitted state.
+
+    Parameters
+    ----------
+    attrs : dict
+        Fitted attributes (for example ``vars(est)`` of the JAX
+        estimator): ``X_`` (N, m) and ``alpha_`` (N,) (required), ``b_``,
+        ``Nu_``, ``alpha_F_``, ``cond_``, ``normF_``,
+        ``singular_values_F_``, ``coef_`` and ``n_features_in_``. Other
+        keys are ignored.
+    device : str or torch.device, optional
+        Where the training rows are kept and inference runs (None = the
+        configured device).
+    params : dict, optional
+        Hyperparameters (for example the JAX estimator's ``get_params()``);
+        those the port does not have are dropped.
+    """
+    missing = [a for a in ("X_", "alpha_") if a not in attrs]
+    if missing:
+        raise ValueError(f"attrs must hold the fitted {', '.join(missing)}")
+    X = np.asarray(attrs["X_"], np.float32)
+    alpha = np.asarray(attrs["alpha_"])
+    if X.ndim != 2 or alpha.shape != (X.shape[0],):
+        raise ValueError(f"X_ (N, m) and alpha_ (N,) do not match: "
+                         f"{X.shape} and {alpha.shape}")
+    if int(attrs.get("n_features_in_", X.shape[1])) != X.shape[1]:
+        raise ValueError(f"n_features_in_={attrs['n_features_in_']} does "
+                         f"not match X_ of shape {X.shape}")
+    names = set(QLSSVC._get_param_names())
+    kw = {k: v for k, v in (params or {}).items() if k in names}
+    kw["device"] = device
+    est = QLSSVC(**kw)
+    est.X_ = torch.tensor(X, device=resolve_device(device))
+    for name, dtype in _QLSSVC_ARRAYS.items():
+        if attrs.get(name) is not None:
+            setattr(est, name, np.asarray(attrs[name], dtype))
+    for name, cast in _QLSSVC_SCALARS.items():
+        if attrs.get(name) is not None:
+            setattr(est, name, cast(attrs[name]))
+    est.n_features_in_ = X.shape[1]
     return est

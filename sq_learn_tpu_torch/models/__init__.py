@@ -2,7 +2,8 @@
 
 from .neighbors import KNeighborsClassifier, knn_indices
 from .qkmeans import KMeans, QKMeans, k_means
+from .qlssvc import QLSSVC
 from .qpca import PCA, QPCA
 
-__all__ = ["KMeans", "KNeighborsClassifier", "PCA", "QKMeans", "QPCA",
-           "k_means", "knn_indices"]
+__all__ = ["KMeans", "KNeighborsClassifier", "PCA", "QKMeans", "QLSSVC",
+           "QPCA", "k_means", "knn_indices"]

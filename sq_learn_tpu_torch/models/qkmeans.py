@@ -8,18 +8,31 @@ the best, and the host fetches the result once at the end.
 The Lloyd loop has no ``lax.while_loop`` here: :func:`lloyd_single` is a
 host loop over a batch of R restarts whose state lives on the device.
 Each iteration is one :func:`~sq_learn_tpu_torch.ops.kernels.lloyd_step`
-(the fused kernel on a CUDA tensor), the empty-cluster relocation and the
-center update. A restart whose stop rule fired is frozen by
+(the fused kernel on a CUDA tensor) — or, in the IPE mode
+(``true_distance_estimate=True``, the reference's q-means), the IPE
+E-step and the one-hot partial sums in plain torch, as the JAX package
+leaves that mode to XLA — then the empty-cluster relocation, the center
+update and, with ``intermediate_error``, tomography of the updated
+centers at δ/2. A restart whose stop rule fired is frozen by
 ``torch.where`` — what ``vmap`` over ``while_loop`` does — and its kernel
 blocks exit at once; the host reads the stop rule before each of the
 first ``CHECK_EVERY`` iterations and every ``CHECK_EVERY`` after them.
 Best-tracking, the NaN-padded traces, the final re-evaluation of the last
 centers against the best ones and ``n_iter`` are those of the reference.
+Every draw (Gumbel picks, IPE, tomography) comes from the fit's one
+generator, in shapes that do not depend on which restarts are frozen, so
+a fit is reproducible from ``random_state``.
+
+With δ > 0 the fit computes the runtime model's statistics: exactly, or
+with ``sketch`` engaged from a uniform row sample drawn by a numpy
+generator seeded apart from the fit's (:mod:`~sq_learn_tpu_torch.sketch`).
+They are computed on every fit and never read from the digest cache.
 
 Modes and parameters this slice does not cover raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 """
 
+import functools
 import numbers
 import warnings
 
@@ -30,12 +43,19 @@ from .._config import resolve_device
 from ..base import (BaseEstimator, ClusterMixin, TransformerMixin,
                     check_is_fitted, check_n_features)
 from ..ops.kernels import lloyd_step
-from ..ops.linalg import (check_compute_dtype, is_reduced,
+from ..ops.linalg import (check_compute_dtype, inner_product, is_reduced,
                           pairwise_sq_distances, row_norms,
                           smallest_singular_value)
+from ..ops.quantum.estimation import ipe_matrix
+from ..ops.quantum.noise import gaussian_estimate
 from ..ops.quantum.norms import _mu_grid
+from ..ops.quantum.tomography import real_tomography
 from ..parallel.init import kmeans_plusplus_batched, resolve_init_subsample
-from ..sketch.engine import exact_bundle, resolve_sketch_rows
+from ..sketch.engine import (SKETCH_SEED, exact_bundle, fetch_components,
+                             finalize_components, resolve_sketch_rows,
+                             sample_indices, sketch_components,
+                             sketch_delta_stat)
+from ..utils.plotting import plot_runtime_surfaces
 from ..utils.random import as_generator, gumbel
 from ..utils.validation import check_sample_weight, validation_scope
 
@@ -56,16 +76,14 @@ def _stop_rule_read_due(step):
     only rides along, frozen."""
     return step < CHECK_EVERY or step % CHECK_EVERY == 0
 
-_IPE = ("true_distance_estimate=True at delta > 0 (the IPE E-step) is not "
-        "wired into q-means yet: ROADMAP.md §1 item 3, IPE and tomography "
-        "modes; pass true_distance_estimate=False for δ-means")
-_TOMOGRAPHY = ("intermediate_error=True (tomography of the centers in the "
-               "M-step) is not wired into q-means yet: ROADMAP.md §1 item 3, "
-               "IPE and tomography modes")
+#: half-width of the IPE sampler's window in the E-step (the sampler's
+#: default is 64): the per-pair grids are far wider than 2W+1 for most
+#: pairs at any practical window, truncation only tightens the within-ε
+#: guarantee, and the JAX package measured equal estimate errors at
+#: W ∈ {16, 32, 64} with the E-step 4× cheaper at 16
+IPE_WINDOW = 16
+
 _MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
-_SKETCH = ("q-means' sketched spectral statistics (the σ_min/η route) are "
-           "not ported yet: ROADMAP.md §1 item 4, sketched statistics; pass "
-           "sketch=0 for the exact ones")
 _ELKAN = ("algorithm='elkan' (the host Elkan engine) is not ported: "
           "ROADMAP.md §1 item 7, remaining estimators and host engines")
 _DTYPE = ("the fused Lloyd kernel takes float32 data with compute_dtype "
@@ -81,12 +99,17 @@ def tolerance(X, tol):
     return float(tol * torch.mean(torch.var(X, dim=0, correction=0)))
 
 
-def fit_prestats(X, *, quantum=False, mu_grid=()):
+def fit_prestats(X, *, quantum=False, mu_grid=(), sketch_idx=None):
     """Every pre-fit statistic: the mean, the centered data and its row
     norms, the mean variance that scales ``tol`` and, with ``quantum``,
-    the exact runtime-model statistics η = max‖xᵢ‖², the μ_p(A) grid,
-    ‖A‖_F and σ_min (reference ``Utility.py:215-231``,
-    ``_dmeans.py:1242-1245``)."""
+    the runtime-model statistics η = max‖xᵢ‖², the μ_p(A) grid, ‖A‖_F
+    and σ_min (reference ``Utility.py:215-231``, ``_dmeans.py:1242-1245``).
+
+    ``sketch_idx`` (an (s,) row-index tensor) replaces the exact σ_min
+    Gram and μ sweep by the sketched components of
+    :func:`~sq_learn_tpu_torch.sketch.engine.sketch_components`, under a
+    ``"sketch"`` sub-dict; the host folds the certified bounds in after
+    the fetch. None keeps the exact statistics."""
     mean = torch.mean(X, dim=0)
     Xc = X - mean
     out = {
@@ -95,7 +118,9 @@ def fit_prestats(X, *, quantum=False, mu_grid=()):
         "xsq": row_norms(Xc, squared=True),
         "var_mean": torch.mean(torch.var(X, dim=0, correction=0)),
     }
-    if quantum:
+    if quantum and sketch_idx is not None:
+        out["sketch"] = sketch_components(X, sketch_idx, mu_grid)
+    elif quantum:
         out["eta"] = torch.max(row_norms(X, squared=True))
         out["mu_vals"] = _mu_grid(X, mu_grid)
         out["frob"] = torch.linalg.norm(X)
@@ -116,25 +141,37 @@ def _take_rows(C, idx):
 
 
 def e_step(generator, X, weights, centers, x_sq_norms, *, delta, mode,
-           compute_dtype=None):
-    """Assignment step with the δ-means error model.
+           ipe_q=5, compute_dtype=None):
+    """Assignment step with the quantum error model.
 
     ``centers`` is (k, m) or a batch (R, k, m). Returns (labels, inertia,
     min_d2) shaped (n,), () and (n,) or with a leading R. In ``delta``
     mode each label is a uniform pick among the centers within ``delta``
     of the nearest one, drawn as the argmax of Gumbel noise from
     ``generator`` (the reference draws ``jax.random.categorical`` over the
-    same mask: the same distribution). With a reduced ``compute_dtype``
-    the selection runs on the reduced-precision distances and the
-    selected distance is recomputed exactly.
+    same mask: the same distribution). In ``ipe`` mode the distances are
+    ‖x‖² + ‖c‖² − 2·est, with est the IPE estimates of the inner products
+    at ε = δ/2 (``ipe_q`` repetitions, window :data:`IPE_WINDOW`), and
+    the pick is uniform among exact ties of those distances. With a
+    reduced ``compute_dtype`` the selection runs on the reduced-precision
+    distances and, outside ``ipe`` mode, the selected distance is
+    recomputed exactly.
     """
-    if mode == "ipe":
-        raise NotImplementedError(_IPE)
     reduced = is_reduced(compute_dtype, X.dtype)
-    d2 = pairwise_sq_distances(X, centers, x_sq_norms,
-                               compute_dtype=compute_dtype)
+    if mode == "ipe":
+        c_sq = row_norms(centers, squared=True)
+        est = ipe_matrix(generator, inner_product(X, centers, compute_dtype),
+                         x_sq_norms, c_sq, epsilon=delta / 2, Q=ipe_q,
+                         window=IPE_WINDOW)
+        d2 = x_sq_norms[:, None] + c_sq[..., None, :] - 2.0 * est
+        window = 0.0
+    else:
+        d2 = pairwise_sq_distances(X, centers, x_sq_norms,
+                                   compute_dtype=compute_dtype)
+        window = delta if mode == "delta" else 0.0
+    # the window/tie mask uses the precision d2 was computed in
     noisy_min = torch.min(d2, dim=-1).values
-    if reduced:
+    if reduced and mode != "ipe":
         c_min = _take_rows(centers, torch.argmin(d2, dim=-1))
         min_d2 = torch.clamp(
             x_sq_norms + row_norms(c_min, squared=True)
@@ -142,15 +179,26 @@ def e_step(generator, X, weights, centers, x_sq_norms, *, delta, mode,
     else:
         min_d2 = noisy_min
     if mode == "classic":
-        labels = torch.argmin(d2, dim=-1)
+        labels = torch.argmin(d2, dim=-1).to(torch.int32)
     else:
-        mask = d2 <= (noisy_min + delta)[..., None]
-        noise = gumbel(d2.shape, generator, X.device).to(d2.dtype)
-        labels = torch.argmax(
-            torch.where(mask, noise, torch.full_like(noise, -torch.inf)),
-            dim=-1)
+        labels = pick_labels(generator, d2, window, noisy_min)
     inertia = torch.sum(min_d2 * weights, dim=-1)
-    return labels.to(torch.int32), inertia, min_d2
+    return labels, inertia, min_d2
+
+
+def pick_labels(generator, d2, window, d2_min=None):
+    """A uniform pick among the centers within ``window`` of each row's
+    nearest one in ``d2`` (..., k) — among exact ties at window 0 — drawn
+    as the argmax of Gumbel noise from ``generator`` (the reference draws
+    ``jax.random.categorical`` over the same mask: the same
+    distribution). Returns int32 labels."""
+    if d2_min is None:
+        d2_min = torch.min(d2, dim=-1).values
+    mask = d2 <= (d2_min + window)[..., None]
+    noise = gumbel(d2.shape, generator, d2.device).to(d2.dtype)
+    return torch.argmax(
+        torch.where(mask, noise, torch.full_like(noise, -torch.inf)),
+        dim=-1).to(torch.int32)
 
 
 def _cluster_partials(X, weights, labels, k):
@@ -205,18 +253,38 @@ def relocate_empty_clusters(X, weights, labels, min_d2, sums, counts):
     return sums, counts
 
 
-def m_step(X, weights, labels, old_centers, *, min_d2=None,
-           intermediate_error=False):
-    """Update step: weighted per-cluster means. With ``min_d2``, empty
+def m_step(generator, X, weights, labels, old_centers, *, delta=0.0,
+           intermediate_error=False, true_tomography=True, min_d2=None):
+    """Update step: weighted per-cluster means (reference
+    ``_centers_update``, ``_dmeans.py:780-830``). With ``min_d2``, empty
     clusters are relocated to the farthest samples; a cluster still empty
-    keeps its old center."""
-    if intermediate_error:
-        raise NotImplementedError(_TOMOGRAPHY)
+    keeps its old center. With ``intermediate_error`` and δ > 0 the new
+    centers go through tomography at δ/2 (:func:`center_tomography`)."""
     sums, counts = _cluster_partials(X, weights, labels, old_centers.shape[-2])
     if min_d2 is not None:
         sums, counts = relocate_empty_clusters(X, weights, labels, min_d2,
                                                sums, counts)
-    return _update_centers(sums, counts, old_centers)
+    centers = _update_centers(sums, counts, old_centers)
+    if intermediate_error and delta > 0:
+        centers = center_tomography(generator, centers, delta / 2,
+                                    true_tomography=true_tomography)
+    return centers
+
+
+def center_tomography(generator, centers, noise, *, true_tomography=True):
+    """Tomography of (k, m) centers or of a batch (R, k, m) at ``noise``
+    (reference ``_dmeans.py:825-828``). True tomography (Algorithm 4.1)
+    runs on all R·k rows in one batched call, each row estimated with
+    36·m·ln m/noise² measurements and rescaled by its norm; the Gaussian
+    route adds truncated noise of bound noise/√(k·m) per component, so
+    each restart's centers move by at most ``noise`` in Frobenius norm,
+    as the JAX package's per-restart call does."""
+    if true_tomography:
+        flat = centers.reshape(-1, centers.shape[-1])
+        return real_tomography(generator, flat, delta=noise).reshape(
+            centers.shape)
+    flat = centers.reshape(*centers.shape[:-2], -1)
+    return gaussian_estimate(generator, flat, noise).reshape(centers.shape)
 
 
 def _update_centers(sums, counts, centers):
@@ -240,7 +308,8 @@ def _kernel_dtype(X, compute_dtype):
 
 def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
                  delta=0.0, mode="classic", max_iter=300, tol=1e-4,
-                 patience=None, intermediate_error=False, compute_dtype=None):
+                 patience=None, intermediate_error=False,
+                 true_tomography=True, ipe_q=5, compute_dtype=None):
     """Full q-means runs of a batch of restarts (reference
     ``_kmeans_single_lloyd``, ``_dmeans.py:534-671``).
 
@@ -252,17 +321,22 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
     last and the best centers are re-evaluated by :func:`e_step`, the
     better one returned with consistent labels.
 
+    The classic and δ modes run the fused kernel; the ``ipe`` mode runs
+    :func:`e_step` and the one-hot partial sums in plain torch, launching
+    no kernel (the JAX package routes only those two modes through its
+    Pallas kernel). With ``intermediate_error`` and δ > 0 every
+    iteration's new centers go through :func:`center_tomography` at δ/2;
+    a frozen restart's centers stay bit-equal.
+
     Returns (labels (R, n), inertia (R,), centers (R, k, m), n_iter (R,),
     history) with history ``{"inertia", "center_shift"}`` (R, max_iter)
     traces, NaN beyond each restart's ``n_iter``.
     """
     if mode not in LloydMode:
         raise ValueError(f"mode must be one of {LloydMode}, got {mode!r}")
-    if mode == "ipe":
-        raise NotImplementedError(_IPE)
-    if intermediate_error and delta > 0:
-        raise NotImplementedError(_TOMOGRAPHY)
     Xk = X.to(_kernel_dtype(X, compute_dtype))
+    estep = functools.partial(e_step, delta=delta, mode=mode, ipe_q=ipe_q,
+                              compute_dtype=compute_dtype)
     window = float(delta) if mode == "delta" else 0.0
     dev = X.device
     n = X.shape[0]
@@ -289,13 +363,22 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
     for step in range(max_iter):
         if _stop_rule_read_due(step) and not bool(active.any()):
             break
-        noise = (gumbel((R, n, k), generator, dev) if window > 0 else None)
-        labels, min_d2, sums, counts, inertia = lloyd_step(
-            Xk, weights, x_sq_norms, centers, gumbel=noise, window=window,
-            active=active)
+        if mode == "ipe":
+            labels, inertia, min_d2 = estep(generator, X, weights, centers,
+                                            x_sq_norms)
+            sums, counts = _cluster_partials(X, weights, labels, k)
+        else:
+            noise = (gumbel((R, n, k), generator, dev) if window > 0
+                     else None)
+            labels, min_d2, sums, counts, inertia = lloyd_step(
+                Xk, weights, x_sq_norms, centers, gumbel=noise,
+                window=window, active=active)
         sums, counts = relocate_empty_clusters(X, weights, labels, min_d2,
                                                sums, counts)
         new_centers = _update_centers(sums, counts, centers)
+        if intermediate_error and delta > 0:
+            new_centers = center_tomography(generator, new_centers, delta / 2,
+                                            true_tomography=true_tomography)
         better = active & (inertia < best_inertia)
         best_it = torch.where(better, it, best_it)
         best_inertia = torch.where(better, inertia, best_inertia)
@@ -311,12 +394,10 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
         active = running()
     # the final post-update centers may beat every evaluated iterate
     # (classical convergence); re-evaluate both, return a consistent triple
-    labels_l, inertia_l, _ = e_step(generator, X, weights, centers,
-                                    x_sq_norms, delta=delta, mode=mode,
-                                    compute_dtype=compute_dtype)
-    labels_b, inertia_b, _ = e_step(generator, X, weights, best_centers,
-                                    x_sq_norms, delta=delta, mode=mode,
-                                    compute_dtype=compute_dtype)
+    labels_l, inertia_l, _ = estep(generator, X, weights, centers,
+                                   x_sq_norms)
+    labels_b, inertia_b, _ = estep(generator, X, weights, best_centers,
+                                   x_sq_norms)
     last_wins = inertia_l < inertia_b
     labels = torch.where(last_wins[:, None], labels_l, labels_b)
     inertia = torch.where(last_wins, inertia_l, inertia_b)
@@ -363,12 +444,14 @@ def lloyd_restarts_from(generator, X, weights, x_sq_norms, centers0, **kw):
 
 
 def fused_init(generator, X, weights, *, n_init, init, n_clusters, quantum,
-               mu_grid=(), init_subsample=0):
-    """Step 1 of the fit: pre-fit statistics (:func:`fit_prestats`) and
-    every restart's initial centers (:func:`_restart_inits`), in the
-    centered space. An array ``init`` (a (k, m) tensor in the data's
-    space) is centered and runs as the one restart."""
-    stats = fit_prestats(X, quantum=quantum, mu_grid=mu_grid)
+               mu_grid=(), init_subsample=0, sketch_idx=None):
+    """Step 1 of the fit: pre-fit statistics (:func:`fit_prestats`,
+    sketched when ``sketch_idx`` holds sampled rows) and every restart's
+    initial centers (:func:`_restart_inits`), in the centered space. An
+    array ``init`` (a (k, m) tensor in the data's space) is centered and
+    runs as the one restart."""
+    stats = fit_prestats(X, quantum=quantum, mu_grid=mu_grid,
+                         sketch_idx=sketch_idx)
     if isinstance(init, torch.Tensor):
         return stats, (init.to(X) - stats["mean"])[None]
     centers0 = _restart_inits(generator, stats["Xc"], weights, stats["xsq"],
@@ -380,23 +463,26 @@ def fused_init(generator, X, weights, *, n_init, init, n_clusters, quantum,
 
 def fused_fit(generator, stats, weights, centers0, tol_factor, *,
               delta=0.0, mode="classic", max_iter=300, patience=None,
-              intermediate_error=False, compute_dtype=None):
+              intermediate_error=False, true_tomography=True, ipe_q=5,
+              compute_dtype=None):
     """Step 2 of the fit: the tolerance scale (reference ``_tolerance``),
     all restarts' Lloyd loops (:func:`lloyd_restarts_from`) and the
     winner moved back to the data's space. Returns a dict of device
-    tensors; the caller fetches it once."""
+    tensors (the sketched components under ``"sketch"``); the caller
+    fetches it once."""
     tol = (tol_factor * stats["var_mean"] if tol_factor > 0
            else torch.zeros_like(stats["var_mean"]))
     labels, inertia, centers, n_iter, history = lloyd_restarts_from(
         generator, stats["Xc"], weights, stats["xsq"], centers0,
         delta=delta, mode=mode, max_iter=max_iter, tol=tol,
         patience=patience, intermediate_error=intermediate_error,
+        true_tomography=true_tomography, ipe_q=ipe_q,
         compute_dtype=compute_dtype)
     out = {"labels": labels, "inertia": inertia,
            "centers": centers + stats["mean"], "n_iter": n_iter,
            "inertia_trace": history["inertia"],
            "shift_trace": history["center_shift"]}
-    for name in ("eta", "frob", "sigma_min", "mu_vals"):
+    for name in ("eta", "frob", "sigma_min", "mu_vals", "sketch"):
         if name in stats:
             out[name] = stats[name]
     return out
@@ -412,8 +498,11 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
     ``_dmeans.py:833-1410``).
 
     Parameters mirror the JAX ``QKMeans``; ``delta`` is the quantum error
-    budget (δ=0 runs classical Lloyd), and with
-    ``true_distance_estimate=False`` δ>0 runs δ-means. ``use_pallas`` is
+    budget (δ=0 runs classical Lloyd). δ>0 runs q-means with the IPE
+    E-step (``true_distance_estimate=True``, the default) or δ-means
+    (False); ``intermediate_error`` adds tomography of the centers at δ/2
+    each iteration (``true_tomography`` picks Algorithm 4.1 over its
+    Gaussian stand-in). ``use_pallas`` is
     gone: the device of the data decides, and ``device`` (None = the
     configured one, ``'cuda'`` by default) says where a fit computes.
     ``multiprocess``, ``stop_when_reached_accuracy`` and ``copy_x`` are
@@ -423,8 +512,9 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
     has not improved for that many iterations ('auto' = 10 on noisy fits,
     disabled on classical ones). After ``fit``, ``fit_history_`` holds the
     winning restart's per-iteration traces, and with δ>0 the runtime-model
-    statistics land in ``eta_``, ``mu_``, ``norm_mu_`` and
-    ``condition_number_``.
+    statistics land in ``eta_``, ``mu_``, ``norm_mu_``,
+    ``condition_number_`` and ``sketch_info_`` (``sketch`` as in the JAX
+    package: 'auto' samples 4096 rows from 16 384 tall rows up).
     """
 
     def __init__(self, n_clusters=8, *, init="k-means++", n_init=10,
@@ -489,14 +579,10 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             return "classic"
         return "ipe" if self.true_distance_estimate else "delta"
 
-    def _check_ported(self, X, delta, mode):
+    def _check_ported(self, X, mode):
         """Raise NotImplementedError on what this slice does not cover."""
         if self.mesh is not None:
             raise NotImplementedError(_MESH)
-        if mode == "ipe":
-            raise NotImplementedError(_IPE)
-        if self.intermediate_error:
-            raise NotImplementedError(_TOMOGRAPHY)
         if self.algorithm == "elkan":
             if mode == "classic":
                 raise NotImplementedError(_ELKAN)
@@ -504,9 +590,14 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                 "algorithm='elkan' applies to the classical (delta=0) path "
                 "only: the δ-window error model needs the full distance row "
                 "per sample. Using the Lloyd kernel.", RuntimeWarning)
-        if delta > 0 and resolve_sketch_rows(*X.shape, self.sketch):
-            raise NotImplementedError(_SKETCH)
-        _kernel_dtype(X, self._checked_compute_dtype())
+        cd = self._checked_compute_dtype()
+        _kernel_dtype(X, cd)
+        if mode == "ipe" and is_reduced(cd, X.dtype):
+            warnings.warn(
+                "compute_dtype with true_distance_estimate (IPE mode) feeds "
+                "reduced-precision inner products into the quantum noise "
+                "model — an unmodeled O(eps·‖x‖‖c‖) error on top of δ/2.",
+                RuntimeWarning)
 
     def _resolved_n_init(self, init):
         """Array inits run once (sklearn's contract); 'auto' is 1 for
@@ -552,7 +643,7 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                 raise ValueError(
                     "intermediate_error cannot be True if delta is zero.")
         mode = self._mode(delta)
-        self._check_ported(X, delta, mode)
+        self._check_ported(X, mode)
         w = check_sample_weight(sample_weight, X)
         init = self.init
         if hasattr(init, "__array__") and not callable(init):
@@ -573,24 +664,42 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             sub = resolve_init_subsample(X.shape[0], self.n_clusters,
                                          self.init_subsample)
         generator = as_generator(self.random_state, device)
+        delta_stat = sketch_delta_stat()
+        rows = (resolve_sketch_rows(*X.shape, self.sketch)
+                if quantum and delta_stat > 0 else 0)
+        sk_idx = None
+        if rows:
+            # the row sample's own generator, seeded apart from the fit's
+            # (the JAX package folds the same constant into its key)
+            rng_sk = np.random.default_rng(
+                [generator.initial_seed(), SKETCH_SEED])
+            sk_idx = torch.as_tensor(
+                sample_indices(rng_sk, X.shape[0], rows), device=device)
         stats, centers0 = fused_init(
             generator, X, w, n_init=self._resolved_n_init(self.init),
             init=init, n_clusters=self.n_clusters, quantum=quantum,
-            mu_grid=MU_GRID if quantum else (), init_subsample=sub)
+            mu_grid=MU_GRID if quantum else (), init_subsample=sub,
+            sketch_idx=sk_idx)
         out = fused_fit(
             generator, stats, w, centers0, float(self.tol), delta=delta,
             mode=mode, max_iter=self.max_iter,
             patience=self._resolved_patience(mode),
             intermediate_error=self.intermediate_error,
+            true_tomography=self.true_tomography, ipe_q=self.ipe_q,
             compute_dtype=self._checked_compute_dtype())
-        # the one fetch of the fit
+        # the fit's fetch, after every step was queued
+        sketch = out.pop("sketch", None)
         host = {name: t.cpu().numpy() for name, t in out.items()}
         n_iter = int(host["n_iter"])
         self._set_fit_results(host["labels"].astype(np.int32),
                               host["centers"].astype(np.float32),
                               float(host["inertia"]), n_iter,
                               host["inertia_trace"], host["shift_trace"])
-        if quantum:
+        if sketch is not None:
+            self._apply_spectral_stats(finalize_components(
+                fetch_components(sketch), n=X.shape[0], m=X.shape[1],
+                s=rows, mu_grid=MU_GRID, delta_stat=delta_stat))
+        elif quantum:
             self._apply_spectral_stats(exact_bundle(
                 MU_GRID, host["eta"], host["frob"], host["sigma_min"],
                 host["mu_vals"], shape=tuple(X.shape)))
@@ -641,15 +750,16 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             self, self._validated_X(X, resolve_device(self.device)))
 
     def predict(self, X, sample_weight=None, delta=None):
-        """Closest-center assignment, with optional quantum error δ
-        (δ-means picks; the IPE mode is not ported)."""
+        """Closest-center assignment, with optional quantum error δ: the
+        δ-means pick or, with ``true_distance_estimate``, the IPE E-step
+        (reference intent, JAX ``_predict_impl``)."""
         X = self._inference_input(X)
         delta = 0.0 if delta is None else float(delta)
         labels, _, _ = e_step(
             as_generator(self.random_state, X.device), X,
             torch.ones(X.shape[0], dtype=X.dtype, device=X.device),
             self._centers_tensor(X), row_norms(X, squared=True),
-            delta=delta, mode=self._mode(delta),
+            delta=delta, mode=self._mode(delta), ipe_q=self.ipe_q,
             compute_dtype=self._checked_compute_dtype())
         return labels.cpu().numpy()
 
@@ -671,6 +781,54 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         w = check_sample_weight(sample_weight, X)
         d2 = pairwise_sq_distances(X, self._centers_tensor(X))
         return -float(torch.sum(torch.min(d2, dim=1).values * w))
+
+    # -- theoretical runtime (reference runtime_comparison,
+    #    _dmeans.py:1412-1469) ----------------------------------------------
+
+    def quantum_runtime_model(self, n_samples, n_features,
+                              well_clusterable=False):
+        """Closed-form theoretical q-means cost (reference
+        ``_dmeans.py:1440-1449``): O(k·m·η·κ·(μ+kη/δ)/δ² +
+        k²·η^1.5·κ·μ/δ²), or the well-clusterable variant without the κ·μ
+        coupling; returns (quantum, classical) cost arrays broadcast over
+        ``n_samples`` (FLOP-equivalents, not wall clock). Host numpy on
+        the fitted statistics."""
+        check_is_fitted(self, "cluster_centers_")
+        delta = 0.0 if self.delta is None else float(self.delta)
+        if delta == 0:
+            raise ValueError("quantum runtime model requires delta > 0")
+        k = self.n_clusters
+        eta, kappa, mu = self.eta_, self.condition_number_, self.mu_
+        n_samples = np.asarray(n_samples, dtype=float)
+        n_features = np.asarray(n_features, dtype=float)
+        if well_clusterable:
+            quantum = (k**2 * n_features * eta**2.5 / delta**3
+                       + k**2.5 * eta**2 / delta**3)
+        else:
+            quantum = (k * n_features * eta * kappa * (mu + k * eta / delta)
+                       / delta**2
+                       + k**2 * eta**1.5 * kappa * mu / delta**2)
+        classical = (n_samples * n_features * k
+                     * self._resolved_n_init(self.init))
+        return np.broadcast_to(quantum, n_samples.shape), classical
+
+    def runtime_comparison(self, n_samples, n_features, saveas=None,
+                           well_clusterable=False, plot=False):
+        """Quantum-vs-classical cost surfaces over the reference's 100×100
+        int64 mesh up to (``n_samples``, ``n_features``)
+        (``_dmeans.py:1437-1438``); returns (quantum, classical). A
+        non-None ``saveas`` renders the 3-D comparison with matplotlib,
+        imported only then."""
+        nn, mm = np.meshgrid(
+            np.linspace(0, n_samples, dtype=np.int64, num=100),
+            np.linspace(0, n_features, dtype=np.int64, num=100))
+        quantum, classical = self.quantum_runtime_model(
+            nn, mm, well_clusterable=well_clusterable)
+        if saveas:
+            plot_runtime_surfaces(nn, mm, quantum, classical, saveas,
+                                  title="k_means VS q_means")
+        return quantum, classical
+
 
 
 def k_means(X, n_clusters, *, sample_weight=None, init="k-means++",

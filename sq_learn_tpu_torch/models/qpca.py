@@ -38,8 +38,7 @@ Reference latent bugs NOT replicated (as in the JAX package):
   (``_base.py:125``); here it uses the top-k factor-score estimates.
 
 Not ported: ``mesh`` (ROADMAP.md §1 item 6), streamed and store-backed
-ingest, a ``compute_dtype`` other than float32 and the runtime model
-``accumulate_q_runtime`` / ``runtime_comparison`` (item 7) raise
+ingest and a ``compute_dtype`` other than float32 (item 7) raise
 ``NotImplementedError``; the tiny-fit host routing is not ported at all
 (a fit computes on the device it was given), nor are the ``obs`` spans,
 ledger steps and guarantee audits (item 7's ``obs/``).
@@ -62,6 +61,7 @@ from ..ops.quantum import (QuantumState, amplitude_estimation,
                            tomography)
 from ..ops.quantum.norms import _search_grid
 from ..sketch import engine as _sketch
+from ..utils.plotting import plot_runtime_surfaces
 from ..utils.random import as_generator
 from ..utils.validation import check_array, validation_scope
 
@@ -71,14 +71,6 @@ _INGEST = ("{} is not ported yet: ROADMAP.md §1 item 7, the data planes "
 _DTYPE = ("compute_dtype={!r} is not ported yet (the port's qPCA computes "
           "in float32): ROADMAP.md §1 item 7, remaining estimators and "
           "host engines")
-_RUNTIME = ("the QADRA runtime model (accumulate_q_runtime, "
-            "runtime_comparison) is not ported yet: ROADMAP.md §1 item 7, "
-            "remaining estimators")
-
-#: seed offset of the μ(A) sketch's row sample (the JAX package folds the
-#: same constant into its key)
-_SKETCH_SEED = 0x5CE7
-
 
 # ---------------------------------------------------------------------------
 # Functional core
@@ -576,7 +568,7 @@ class QPCA(TransformerMixin, BaseEstimator):
             # served from the digest cache: a cached μ of changed data
             # would scale every estimate below
             rng_sk = np.random.default_rng(
-                [self._generator.initial_seed(), _SKETCH_SEED])
+                [self._generator.initial_seed(), _sketch.SKETCH_SEED])
             stats = _sketch.spectral_stats(
                 X - mean, _search_grid(0.0, 1.0, 0.1), sketch=self.sketch,
                 with_sigma=False, rng=rng_sk)
@@ -1027,18 +1019,123 @@ class QPCA(TransformerMixin, BaseEstimator):
         cum = np.cumsum(freqs[order])
         return int(np.searchsorted(cum, variance) + 1)
 
+    # -- theoretical runtime (reference accumulate_q_runtime,
+    #    _qPCA.py:1123-1208) ------------------------------------------------
+
     def accumulate_q_runtime(self, n_samples, n_features,
                              estimate_components="all"):
-        """The QADRA runtime model (reference ``_qPCA.py:1123-1208``):
-        not ported yet."""
-        raise NotImplementedError(_RUNTIME)
+        """Closed-form QADRA runtime accounting over an (n, m) mesh
+        (reference ``_qPCA.py:1123-1208``), host numpy on the fitted
+        statistics.
+
+        ``quantum_runtime_container`` is rebuilt with one cost surface per
+        estimator that ran: θ estimation μ·log(μ/ε_θ)·log(nm)/(ε_θ·η); the
+        retained-variance cost μ/(ε·η); the top-k extraction's tomography
+        costs (L2 or L∞) plus its singular-value term, for the left, right
+        or both sides as ``estimate_components`` says; the least-k
+        analogues.
+        """
+        # fresh accounting per call (the reference accumulates across
+        # calls, counting twice on a repeated call)
+        self.quantum_runtime_container = []
+        n = np.asarray(n_samples, dtype=float)
+        m = np.asarray(n_features, dtype=float)
+        if self.theta_major == 0 and hasattr(self, "est_theta"):
+            self.theta = self.est_theta
+        if self.theta_estimate:
+            self.quantum_runtime_container.append(
+                (self.muA * np.log(self.muA / self.eps_theta)
+                 * np.log(n * m)) / (self.eps_theta * self.eta))
+        if self.quantum_retained_variance:
+            self.quantum_runtime_container.append(
+                np.broadcast_to(self.muA / (self.eps * self.eta), n.shape))
+        if self.estimate_all:
+            theta = getattr(self, "theta", self.theta_major)
+            if self.tomography_norm == "L2":
+                cost_left = (self.spectral_norm * self.muA * self.topk
+                             * np.log(self.topk) * n * np.log(n)) / (
+                    theta * np.sqrt(self.topk_p) * self.eps * self.delta**2)
+                cost_right = ((self.spectral_norm / theta)
+                              * (1 / np.sqrt(self.topk_p))
+                              * (self.muA / self.eps)
+                              * (self.topk * np.log(self.topk)
+                                 * m * np.log(m)) / self.delta**2)
+            else:
+                fill = (self.spectral_norm * self.muA * self.topk) / (
+                    theta * self.eps * self.delta**2)
+                cost_left = np.full(n.shape, fill)
+                cost_right = np.full(m.shape, fill)
+            sv_term = (self.spectral_norm * self.muA * self.topk
+                       * np.log(self.topk)) / (
+                theta * np.sqrt(self.topk_p) * self.eps)
+            self._append_extraction_cost(cost_left, cost_right, sv_term,
+                                         estimate_components)
+        if self.estimate_least_k and self.least_k:
+            S = np.asarray(self.singular_values_)
+            S_nz = S[~np.isclose(S, 0.0)]
+            sigma_last = S_nz[-1]
+            sigma_penult = S_nz[-2] if len(S_nz) > 1 else S_nz[-1]
+            if self.tomography_norm == "L2":
+                cost_left = ((self.theta_minor / sigma_last)
+                             * (1 / np.sqrt(self.least_k_p))
+                             * (self.muA / self.eps)
+                             * (self.least_k * np.log(self.least_k)
+                                * n * np.log(n)) / self.delta**2)
+                cost_right = ((self.theta_minor / sigma_penult)
+                              * (1 / np.sqrt(self.least_k_p))
+                              * (self.muA / self.eps)
+                              * (self.least_k * np.log(self.least_k)
+                                 * m * np.log(m)) / self.delta**2)
+            else:
+                fill = (self.spectral_norm * self.muA * self.least_k) / (
+                    self.theta_minor * self.eps * self.delta**2)
+                cost_left = np.full(n.shape, fill)
+                cost_right = np.full(m.shape, fill)
+            sv_term = (self.theta_minor * self.muA * self.least_k) / (
+                sigma_penult * np.sqrt(self.least_k_p) * self.eps)
+            self._append_extraction_cost(cost_left, cost_right, sv_term,
+                                         estimate_components)
+        return self.quantum_runtime_container
+
+    def _append_extraction_cost(self, cost_left, cost_right, sv_term,
+                                estimate_components):
+        """Add one extraction's cost for the sides asked for."""
+        sides = {"all": cost_left + cost_right, "left_sv": cost_left,
+                 "right_sv": cost_right}
+        if estimate_components in sides:
+            self.quantum_runtime_container.append(
+                sides[estimate_components] + sv_term)
 
     def runtime_comparison(self, n_samples, n_features, saveas=None,
                            estimate_components="all",
                            classic_runtime="classic"):
-        """Quantum-vs-classical runtime surfaces (reference
-        ``_qPCA.py:1235-1315``): not ported yet."""
-        raise NotImplementedError(_RUNTIME)
+        """Quantum-vs-classical runtime surfaces over the reference's
+        100×100 mesh from 1 to (``n_samples``, ``n_features``) (reference
+        ``_qPCA.py:1235-1315``, which plots through the MATLAB engine; a
+        non-None ``saveas`` renders with matplotlib, imported only then).
+
+        Returns (n_mesh, m_mesh, quantum_runtime, classic_runtime).
+        """
+        n, m = np.meshgrid(
+            np.linspace(1, n_samples, dtype=np.int64, num=100),
+            np.linspace(1, n_features, dtype=np.int64, num=100))
+        if classic_runtime == "rand":
+            c_runtime = n * m * np.log(self.n_components_)
+        else:
+            c_runtime = n * m.astype(float)**2
+        q_runtime = self.accumulate_q_runtime(
+            n_samples=n, n_features=m,
+            estimate_components=estimate_components)
+        if not q_runtime:
+            raise ValueError(
+                "no quantum estimator ran during fit — runtime_comparison "
+                "needs at least one of theta_estimate, "
+                "quantum_retained_variance, estimate_all, estimate_least_k")
+        q_runtime = (np.sum(q_runtime, axis=0) if len(q_runtime) > 1
+                     else q_runtime[0])
+        if saveas:
+            plot_runtime_surfaces(n, m, q_runtime, c_runtime, saveas)
+        return n, m, q_runtime, c_runtime
 
 
 class PCA(QPCA):

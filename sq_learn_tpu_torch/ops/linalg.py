@@ -46,23 +46,31 @@ def svd_flip_v(u, v):
     return u, v * signs[:, None]
 
 
-def gram_spectrum(G):
-    """Descending singular spectrum from a Gram matrix: eigh → flip →
-    clamped sqrt. Returns (S, V, safe) with ``safe`` the zero-guarded
-    divisor for recovering the paired factor.
+def symmetric_eigh(G, eigenvectors=True):
+    """Ascending eigenvalues (and eigenvectors) of a symmetric matrix, in
+    G's dtype. A float32 G is decomposed in float64 and the results
+    rounded back: cuSOLVER's float32 ``syevd`` loses the small eigenvalues
+    on an H100, which set every spectrum's tail and condition number. On
+    the MNIST-shaped surrogate: the 784 × 784 Gram's spectrum 4.1e-4
+    relative error against 8.8e-6 in float64 (LAPACK's float32, the JAX
+    package's on a CPU: 5.1e-5, ``python tests/test_torch_qpca.py``), its
+    κ 1.2e-2 against 4.2e-4 (JAX: 7.5e-3), and QLSSVC's 8 001² saddle
+    matrix put a 500-row fit's ``b_`` 3.7e-4 off the CPU's
+    (``chip_profile.py``, ``chip_smoke.py``). The products stay in G's
+    dtype."""
+    Gd = G.to(torch.float64) if G.dtype == torch.float32 else G
+    if not eigenvectors:
+        return torch.linalg.eigvalsh(Gd).to(G.dtype)
+    evals, V = torch.linalg.eigh(Gd)
+    return evals.to(G.dtype), V.to(G.dtype)
 
-    A float32 Gram is decomposed in float64 and the results rounded back
-    to float32: cuSOLVER's float32 ``syevd`` returns the small eigenvalues
-    of the 784 × 784 Gram of the MNIST-shaped surrogate with 4.1e-4
-    relative error on an H100, a float64 solver of the same float32 Gram
-    with 8.8e-6 (``chip_profile.py`` measures both), and LAPACK's float32
-    solver, the JAX package's on a CPU, with 5.1e-5 (``python
-    tests/test_torch_qpca.py``). The m×m problem is small; the products
-    stay float32.
-    """
-    evals, V = torch.linalg.eigh(
-        G.to(torch.float64) if G.dtype == torch.float32 else G)  # ascending
-    evals, V = evals.to(G.dtype), V.to(G.dtype)
+
+def gram_spectrum(G):
+    """Descending singular spectrum from a Gram matrix: eigh (in float64
+    for a float32 Gram, :func:`symmetric_eigh`) → flip → clamped sqrt.
+    Returns (S, V, safe) with ``safe`` the zero-guarded divisor for
+    recovering the paired factor."""
+    evals, V = symmetric_eigh(G)  # ascending
     evals = torch.flip(evals, (0,))
     V = torch.flip(V, (1,))
     S = torch.sqrt(torch.clamp(evals, min=0.0))
@@ -196,9 +204,16 @@ def pairwise_sq_distances(X, C, x_sq_norms=None, compute_dtype=None):
     return torch.clamp(d2, min=0.0)
 
 
+def smallest_eigenvalue(G):
+    """λ_min of a symmetric matrix, in G's dtype (:func:`symmetric_eigh`:
+    float64 for a float32 G)."""
+    return symmetric_eigh(G, eigenvectors=False)[0]
+
+
 def smallest_singular_value(X):
-    """σ_min via a Gram eigendecomposition (reference ``linalg.py:225``)."""
+    """σ_min via a Gram eigendecomposition (reference ``linalg.py:225``):
+    the Gram is formed in X's dtype, its λ_min found by
+    :func:`smallest_eigenvalue`."""
     n, m = X.shape
     G = X.T @ X if n >= m else X @ X.T
-    evals = torch.linalg.eigvalsh(G)
-    return torch.sqrt(torch.clamp(evals[0], min=0.0))
+    return torch.sqrt(torch.clamp(smallest_eigenvalue(G), min=0.0))

@@ -208,19 +208,23 @@ def ipe(generator, x_sq_norm, y_sq_norm, inner, epsilon, Q=None, gamma=0.1,
 
 def ipe_matrix(generator, inner, x_sq, c_sq, epsilon, Q=None, gamma=0.1,
                window=64):
-    """IPE over a precomputed (n, k) inner-product matrix, with the
-    sampler's (rows, k, Q, 2·window+1) transient capped at
-    ``_IPE_BLOCK_ELEMS`` by taking the rows in blocks."""
-    n, k = inner.shape
+    """IPE over a precomputed (n, k) inner-product matrix, or an (R, n, k)
+    batch of them (one per restart, with ``c_sq`` (R, k) and the rows'
+    ``x_sq`` (n,) shared). The sampler's (R, rows, k, Q, 2·window+1)
+    transient is capped at ``_IPE_BLOCK_ELEMS`` by taking the rows in
+    blocks; no block fetches anything."""
+    n, k = inner.shape[-2:]
+    batch = inner.numel() // max(n * k, 1)
     q_eff = Q if Q is not None else median_q(gamma)
-    per_row = k * q_eff * (2 * window + 1)
+    per_row = batch * k * q_eff * (2 * window + 1)
     block = max(1, _IPE_BLOCK_ELEMS // max(per_row, 1))
+    c_sq = c_sq[..., None, :]
     out = torch.empty_like(inner)
     for r0 in range(0, n, block):
         r1 = min(n, r0 + block)
-        out[r0:r1] = ipe(generator, x_sq[r0:r1, None], c_sq[None, :],
-                         inner[r0:r1], epsilon=epsilon, Q=Q, gamma=gamma,
-                         window=window)
+        out[..., r0:r1, :] = ipe(generator, x_sq[r0:r1, None], c_sq,
+                                 inner[..., r0:r1, :], epsilon=epsilon, Q=Q,
+                                 gamma=gamma, window=window)
     return out
 
 

@@ -34,17 +34,24 @@ import os
 import numpy as np
 import torch
 
+from ..ops.linalg import smallest_eigenvalue
 from ..ops.quantum.norms import _grid_exponents, _power_sweep, select_mu
 
 __all__ = [
     "SpectralStats",
     "exact_spectral_stats",
+    "fetch_components",
     "frobenius_squared",
     "mu_stats",
     "resolve_sketch_rows",
+    "sketch_components",
     "sketch_delta_stat",
     "spectral_stats",
 ]
+
+#: seed offset of a fit's row sample (the JAX package folds the same
+#: constant into its key)
+SKETCH_SEED = 0x5CE7
 
 #: default sketch failure budget δ_stat (env ``SQ_SKETCH_DELTA``)
 DEFAULT_DELTA_STAT = 0.05
@@ -160,7 +167,7 @@ def sample_kernel(Xs, scale, *, mu_grid, with_sigma=True):
     parts = []
     if with_sigma:
         G = (Xs.T @ Xs) * scale
-        parts.append(torch.linalg.eigvalsh(G)[:1].to(torch.float32))
+        parts.append(smallest_eigenvalue(G)[None].to(torch.float32))
     parts.append(row_max.to(torch.float32))
     parts.append((torch.max(cols, dim=1).values * scale).to(torch.float32))
     return torch.cat(parts)
@@ -175,6 +182,42 @@ def cheap_pass_kernel(X):
     colsq = torch.sum(sq, dim=0)
     return torch.stack([torch.max(rowsq), torch.sqrt(torch.sum(rowsq)),
                         torch.max(torch.abs(X)), torch.max(colsq)])
+
+
+def sketch_components(X, idx, mu_grid, with_sigma=True):
+    """The sketched components of ``X`` from its sampled rows ``idx`` (an
+    (s,) index tensor on X's device), as device tensors (counterpart of
+    ``sketch_components_traced``, the variant a fit folds into its own
+    steps): ``eta``, ``frob``, ``amax``, ``colsq_max`` from
+    :func:`cheap_pass_kernel`, ``row_fac``, ``col_fac`` and, with
+    ``with_sigma``, ``lam_min`` from :func:`sample_kernel`. Nothing is
+    fetched; :func:`finalize_components` takes the host copies."""
+    cheap = cheap_pass_kernel(X)
+    flat = sample_kernel(X[idx], X.shape[0] / idx.shape[0],
+                         mu_grid=tuple(mu_grid), with_sigma=with_sigma)
+    off = 1 if with_sigma else 0
+    nq = (flat.shape[0] - off) // 2
+    out = {"eta": cheap[0], "frob": cheap[1], "amax": cheap[2],
+           "colsq_max": cheap[3], "row_fac": flat[off:off + nq],
+           "col_fac": flat[off + nq:]}
+    if with_sigma:
+        out["lam_min"] = flat[0]
+    return out
+
+
+def fetch_components(comp):
+    """Host copies of :func:`sketch_components`' tensors, in one
+    device→host copy: floats for the scalars, float64 arrays for the
+    factors."""
+    names = list(comp)
+    flat = torch.cat([comp[k].reshape(-1).to(torch.float64)
+                      for k in names]).cpu().numpy()
+    out, pos = {}, 0
+    for k in names:
+        size = comp[k].numel()
+        out[k] = flat[pos:pos + size] if comp[k].ndim else float(flat[pos])
+        pos += size
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -344,22 +387,9 @@ def spectral_stats(X, mu_grid, *, delta_stat=None, sketch="auto",
         return exact_spectral_stats(X, mu_grid, with_sigma=with_sigma)
     if rng is None:
         rng = np.random.default_rng(0)
-    idx = sample_indices(rng, n, rows)
-    cheap = cheap_pass_kernel(X)
-    flat = sample_kernel(X[torch.as_tensor(idx, device=X.device)], n / rows,
-                         mu_grid=tuple(mu_grid), with_sigma=with_sigma)
-    # one device→host copy of the cheap-pass header and the sketch
-    host = torch.cat([cheap.to(torch.float64),
-                      flat.to(torch.float64)]).cpu().numpy()
-    eta, frob, amax, colsq_max = (float(v) for v in host[:4])
-    flat = host[4:]
-    off = 1 if with_sigma else 0
-    nq = (len(flat) - off) // 2
-    comp = {"eta": eta, "frob": frob, "amax": amax, "colsq_max": colsq_max,
-            "row_fac": flat[off:off + nq],
-            "col_fac": flat[off + nq:off + 2 * nq]}
-    if with_sigma:
-        comp["lam_min"] = flat[0]
+    idx = torch.as_tensor(sample_indices(rng, n, rows), device=X.device)
+    comp = fetch_components(sketch_components(X, idx, mu_grid,
+                                              with_sigma=with_sigma))
     return finalize_components(comp, n=n, m=m, s=rows,
                                mu_grid=tuple(mu_grid), delta_stat=delta_stat)
 

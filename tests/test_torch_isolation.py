@@ -30,6 +30,7 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert sys.modules["jax"] is None
 print(len(names), "modules")
+print(" ".join(names))
 """
 
 
@@ -48,6 +49,13 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15
+    # the modules of q-means' quantum modes, the runtime models and QLSSVC
+    names = set(out.stdout.splitlines()[1].split())
+    assert {"sq_learn_tpu_torch.models.qlssvc", "sq_learn_tpu_torch.svm",
+            "sq_learn_tpu_torch.metrics.pairwise",
+            "sq_learn_tpu_torch.utils.plotting",
+            "sq_learn_tpu_torch.sketch.engine",
+            "sq_learn_tpu_torch.ops.quantum.estimation"} <= names
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -403,20 +403,34 @@ def test_random_init_kmeans_and_functional_api():
     (dict(compute_dtype="float16"), "float16"),
 ])
 def test_unported_modes_raise_naming_the_roadmap(kw, match):
+    """Modes the port leaves out raise naming their ROADMAP item. The IPE
+    E-step and tomography of the centers were ported since: those cases
+    now fit, with finite centers and the runtime-model statistics."""
     X = _data(n=64)
+    if match in ("IPE", "tomography"):
+        est = QKMeans(n_clusters=3, random_state=0, **kw).fit(X)
+        assert np.isfinite(est.cluster_centers_).all() and est.n_iter_ >= 1
+        assert np.isfinite(est.condition_number_) and est.eta_ > 0
+        return
     with pytest.raises(NotImplementedError, match=match) as err:
         QKMeans(n_clusters=3, **kw).fit(X)
     assert "ROADMAP.md" in str(err.value)
 
 
 def test_sketch_auto_at_scale_raises_sketch_zero_runs():
+    """sketch='auto' engages from 16 384 tall rows (4 · 4096) and samples
+    4096 of them; sketch=0 keeps the exact statistics. (Both raised or
+    were exact only before the sketched route was ported.)"""
     rng = np.random.default_rng(0)
     X = rng.normal(size=(16_384, 2)).astype(np.float32)
     kw = dict(n_clusters=2, delta=0.5, true_distance_estimate=False,
               n_init=1, max_iter=2)
-    with pytest.raises(NotImplementedError, match="sketched"):
-        QKMeans(**kw).fit(X)
-    assert QKMeans(sketch=0, **kw).fit(X).n_iter_ >= 1
+    sketched = QKMeans(**kw).fit(X)
+    assert sketched.sketch_info_["sketched"]
+    assert sketched.sketch_info_["sample_rows"] == 4096
+    exact = QKMeans(sketch=0, **kw).fit(X)
+    assert exact.n_iter_ >= 1 and not exact.sketch_info_["sketched"]
+    assert exact.sketch_info_["sample_rows"] == 0
 
 
 def test_bf16_compute_dtype_fit_clusters():
