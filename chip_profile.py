@@ -57,7 +57,21 @@ that call's wall clock, host time by operator):
 - QLSSVC on classes 0 and 1 of the surrogate (8 000 training rows): the
   fit and predict of the linear and rbf kernels, and the ``eigh`` of the
   8 001 × 8 001 saddle matrix F in float32 against float64, with each
-  one's largest relative error on the singular values and on ``cond_``.
+  one's largest relative error on the singular values and on ``cond_``;
+- one fit of the δ-sweep (BASELINE #5: the CICIDS surrogate, 50 000 ×
+  78, standardized on the card; ``QKMeans(n_clusters=6, n_init=10,
+  delta=0.5, true_distance_estimate=False, random_state=0)``), cold and
+  warm, under the profiler, its host syncs, and its steps in device ms:
+  the scaler, prestats with the sketch, init, the Gumbel draw, one Lloyd
+  step of the 10 restarts, relocation and update, the final E-step;
+- one fold of the error-budget grid search (scale → QPCA(61) → 7-NN,
+  56 000 training and 14 000 test rows): the host's index copies, the
+  pipeline's fit and score, then under the profiler;
+- one mini-batch q-means fit (``MiniBatchQKMeans(n_clusters=10,
+  batch_size=1024, delta=0.5, random_state=0)`` at 70 000 × 784), cold
+  and warm with its steps per second, under the profiler, its host syncs,
+  and in device ms: the upload, one step, one epoch, the init selection
+  and the final assignment of all rows.
 
 It needs one NVIDIA GPU and exits non-zero without one.
 """
@@ -537,6 +551,172 @@ def qlssvc(X, y, torch):
         del F
 
 
+def delta_sweep_fit(torch):
+    """One fit of the δ-sweep (BASELINE #5) at width 78, δ=0.5, whole and
+    step by step."""
+    import warnings
+
+    import numpy as np
+
+    from sq_learn_tpu_torch.base import clone
+    from sq_learn_tpu_torch.datasets import load_cicids
+    from sq_learn_tpu_torch.models import QKMeans
+    from sq_learn_tpu_torch.models import qkmeans as tqk
+    from sq_learn_tpu_torch.ops.kernels import lloyd_step
+    from sq_learn_tpu_torch.parallel.init import resolve_init_subsample
+    from sq_learn_tpu_torch.preprocessing import StandardScaler
+    from sq_learn_tpu_torch.sketch import engine
+    from sq_learn_tpu_torch.utils import as_generator
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        X, _, _ = load_cicids(n_samples=50_000)
+    dev = torch.device("cuda:0")
+    print(f"δ-sweep: StandardScaler on the card "
+          f"{events_ms(lambda: StandardScaler().fit_transform(X), torch):.4f}"
+          f" device ms", flush=True)
+    Xs = StandardScaler().fit_transform(X)
+    est = QKMeans(n_clusters=6, n_init=10, delta=0.5,
+                  true_distance_estimate=False, random_state=0)
+    for label in ("cold", "warm", "warm"):
+        lloyd_step.launches = 0
+        t0 = time.perf_counter()
+        fit = clone(est).fit(Xs)
+        print(f"{label} δ-sweep fit (δ=0.5, 50000×78, k=6): "
+              f"{time.perf_counter() - t0:.4f} s, n_iter {fit.n_iter_}, "
+              f"lloyd_step launches {lloyd_step.launches}", flush=True)
+    profiled("δ-sweep fit", lambda: clone(est).fit(Xs), torch)
+    _, syncs = count_syncs(lambda: clone(est).fit(Xs), torch)
+    print(f"δ-sweep fit: {syncs} host syncs (CUDA sync debug mode)",
+          flush=True)
+    n = Xs.shape[0]
+    w = torch.ones(n, device=dev)
+    idx = torch.as_tensor(engine.sample_indices(
+        np.random.default_rng([0, engine.SKETCH_SEED]), n, 4096), device=dev)
+    stats = tqk.fit_prestats(Xs, quantum=True, mu_grid=tqk.MU_GRID,
+                             sketch_idx=idx)
+    gen = as_generator(0, dev)
+    sub = resolve_init_subsample(n, 6, "auto")
+    c0 = tqk._restart_inits(gen, stats["Xc"], w, stats["xsq"], n_init=10,
+                            init="k-means++", n_clusters=6,
+                            init_subsample=sub)
+    gum = torch.empty((10, n, 6), device=dev).exponential_(
+        generator=gen).log_().neg_()
+    labels, min_d2, sums, counts, _ = lloyd_step(
+        stats["Xc"], w, stats["xsq"], c0, gumbel=gum, window=0.5)
+
+    def relocate():
+        s, c = tqk.relocate_empty_clusters(stats["Xc"], w, labels, min_d2,
+                                           sums, counts)
+        return tqk._update_centers(s, c, c0)
+
+    steps = {
+        "prestats with the sketch (4096 rows)": lambda: tqk.fit_prestats(
+            Xs, quantum=True, mu_grid=tqk.MU_GRID, sketch_idx=idx),
+        "init (k-means++, 10 restarts, subsample)": lambda:
+            tqk._restart_inits(gen, stats["Xc"], w, stats["xsq"], n_init=10,
+                               init="k-means++", n_clusters=6,
+                               init_subsample=sub),
+        "Gumbel draw (10 × 50000 × 6)": lambda: torch.empty(
+            (10, n, 6), device=dev).exponential_(generator=gen).log_().neg_(),
+        "Lloyd step, 10 restarts, window 0.5": lambda: lloyd_step(
+            stats["Xc"], w, stats["xsq"], c0, gumbel=gum, window=0.5),
+        "relocation and center update": relocate,
+        "E-step of the final re-evaluation (twice per fit)": lambda:
+            tqk.e_step(gen, stats["Xc"], w, c0, stats["xsq"], delta=0.5,
+                       mode="delta"),
+    }
+    for name, fn in steps.items():
+        print(f"δ-sweep step, {name}: {events_ms(fn, torch):.4f} device ms",
+              flush=True)
+
+
+def minibatch_fit(X, torch):
+    """One mini-batch q-means fit at 70 000 × 784 (δ=0.5, batch 1024),
+    whole and step by step."""
+    from sq_learn_tpu_torch.base import clone
+    from sq_learn_tpu_torch.models import MiniBatchQKMeans
+    from sq_learn_tpu_torch.models import minibatch as tmb
+    from sq_learn_tpu_torch.utils import as_generator
+    from sq_learn_tpu_torch.utils.validation import check_array
+
+    dev = torch.device("cuda:0")
+    est = MiniBatchQKMeans(n_clusters=10, batch_size=1024, delta=0.5,
+                           random_state=0)
+    for label in ("cold", "warm", "warm"):
+        t0 = time.perf_counter()
+        fit = clone(est).fit(X)
+        wall = time.perf_counter() - t0
+        print(f"{label} mini-batch fit: {wall:.4f} s, n_iter_ {fit.n_iter_}, "
+              f"n_steps_ {fit.n_steps_} ({fit.n_steps_ / wall:.1f} steps/s)",
+              flush=True)
+    profiled("mini-batch fit", lambda: clone(est).fit(X), torch)
+    _, syncs = count_syncs(lambda: clone(est).fit(X), torch)
+    print(f"mini-batch fit: {syncs} host syncs (CUDA sync debug mode)",
+          flush=True)
+    Xd = check_array(X, device=dev)
+    w = torch.ones(Xd.shape[0], device=dev)
+    gen = as_generator(0, dev)
+    centers = torch.as_tensor(fit.cluster_centers_, device=dev)
+    counts = torch.as_tensor(fit.counts_, device=dev)
+    n_pad = -(-Xd.shape[0] // 1024) * 1024 - Xd.shape[0]
+    Xp = torch.cat([Xd, Xd[:n_pad]])
+    wp = torch.cat([w, torch.zeros(n_pad, device=dev)])
+    kw = {"delta": 0.5, "mode": "delta", "reassignment_ratio": 0.01}
+    steps = {
+        "upload (check_array, pageable)": lambda: check_array(X, device=dev),
+        "one step, 1024 rows, with the reassignment draw": lambda:
+            tmb.minibatch_step(gen, Xd[:1024], w[:1024], centers, counts, 9,
+                               **kw),
+        "one epoch (69 steps, the permutation included)": lambda:
+            tmb.minibatch_epoch(gen, Xp, wp, centers, counts, 0, batch=1024,
+                                **kw),
+        "init selection (3 candidates on 3072 rows)": lambda:
+            fit._select_init(gen, Xp, wp, 1024, Xd.shape[0], 3, 0.5),
+        "labels and inertia of all rows": lambda: fit._full_assign(Xd, w),
+    }
+    for name, fn in steps.items():
+        print(f"mini-batch step, {name}: {events_ms(fn, torch):.4f} device "
+              f"ms", flush=True)
+
+
+def grid_fold(X, y, torch):
+    """One fold of the error-budget grid search as ``cross_validate``
+    runs it (``GridSearchCV(Pipeline(StandardScaler, QPCA(61),
+    KNeighborsClassifier(7)))``, StratifiedKFold(5)): the host's index
+    copies, the pipeline's fit and its score, then under the profiler."""
+    from sq_learn_tpu_torch import Pipeline
+    from sq_learn_tpu_torch.model_selection import StratifiedKFold
+    from sq_learn_tpu_torch.models import QPCA, KNeighborsClassifier
+    from sq_learn_tpu_torch.preprocessing import StandardScaler
+
+    train, test = next(StratifiedKFold(5).split(X, y))
+
+    def pipe():
+        return Pipeline([("scale", StandardScaler()),
+                         ("pca", QPCA(n_components=61, svd_solver="full",
+                                      random_state=0)),
+                         ("knn", KNeighborsClassifier(n_neighbors=7))])
+
+    def fold():
+        t0 = time.perf_counter()
+        X_tr, y_tr, X_te, y_te = X[train], y[train], X[test], y[test]
+        t1 = time.perf_counter()
+        est = pipe().fit(X_tr, y_tr)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        score = est.score(X_te, y_te)
+        t3 = time.perf_counter()
+        return t1 - t0, t2 - t1, t3 - t2, score
+
+    for label in ("cold", "warm", "warm"):
+        index_s, fit_s, score_s, score = fold()
+        print(f"{label} grid-search fold (56000 train, 14000 test rows): "
+              f"host index copy {index_s:.4f} s, pipeline fit {fit_s:.4f} s,"
+              f" score {score_s:.4f} s, accuracy {score}", flush=True)
+    profiled("grid-search fold", fold, torch)
+
+
 def main():
     import torch
 
@@ -587,6 +767,9 @@ def main():
     qpca_trial(X, y, torch)
     qkmeans_quantum(X, torch)
     qlssvc(X, y, torch)
+    delta_sweep_fit(torch)
+    grid_fold(X, y, torch)
+    minibatch_fit(X, torch)
     return 0
 
 

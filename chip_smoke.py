@@ -87,7 +87,38 @@ each of which fails the run:
    float64 Gram of X. Small fits on the card (δ=0 q-means; k-NN on 4 000
    rows; QPCA(16) at 4 000 × 64, ε = δ = 0; QLSSVC on 500 rows) are
    checked against the same fits on the CPU (the plain versions).
-4. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
+4. The reference's error-budget sweeps, each path with the counts set to
+   0 before it and read after it:
+   - the Lloyd kernel at the δ-sweep's shape (50 000 × 78, k=6, R=10,
+     rows of 312 bytes that take the kernel's unaligned staging) against
+     its plain version at window 0 and 0.5, as in phase 2, and timed;
+   - BASELINE #5 (``examples/delta_tradeoff.py`` at ``--n-samples
+     50000``): ``load_cicids`` (the surrogate), ``StandardScaler`` on the
+     card, then ``QKMeans(n_clusters=6, n_init=10, delta=δ,
+     true_distance_estimate=False, random_state=0)`` for δ in (0, 0.1,
+     0.3, 0.5, 1.0): Lloyd launches in every fit, ARI 1.0 at δ=0 and at
+     least the JAX package's less SWEEP_MARGIN above it; a δ=0 fit from
+     one init, card == CPU (labels, n_iter);
+   - BASELINE #4: ``TruncatedSVD(n_components=10, n_iter=5,
+     random_state=0)`` on the covertype surrogate (581 012 × 54),
+     'randomized' and 'arpack': singular values within 3× the JAX
+     package's float32 error of a float64 spectrum computed on the card,
+     orthonormal components, explained variance ratios in [0, 1]; a small
+     arpack fit card == CPU;
+   - the error-budget grid search: ``GridSearchCV(Pipeline(StandardScaler,
+     QPCA(svd_solver='full'), KNeighborsClassifier), GRID,
+     cv=StratifiedKFold(5))`` on the MNIST-shaped surrogate: every split ≥
+     GRID_SCORE_FLOOR, one argkmin launch per fold and none for the refit,
+     the refit's predict equal to its steps run one by one, a small search
+     card == CPU; then argkmin at the folds' shape (14 000 × 56 000 at
+     widths 40 and 61) against its plain version, timed;
+   - ``MiniBatchQKMeans(n_clusters=10, batch_size=1024, delta=δ,
+     random_state=0)`` for δ in (0, 0.5): two fits with the same bits,
+     ARI ≥ MB_ARI_FLOOR, inertia within MB_INERTIA_RTOL of the δ=0
+     QKMeans fit's, five ``partial_fit`` calls;
+   - ``FeatureHasher(1024)`` over 100 000 dict rows: the card's tensor
+     equals the CPU's.
+5. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
 import json
@@ -168,6 +199,47 @@ JAX_QLSSVC = {
             "cond_rel_err": 4.155346845042398e-07},
 }
 SMALL_QLSSVC_RTOL = 1e-4  # the 500-row fit on the card against the CPU
+# BASELINE #5, examples/delta_tradeoff.py at --n-samples 50000: the CICIDS
+# surrogate (50 000 × 78, 6 classes) standardized, then δ-means q-means
+# with k=6, n_init=10 at each δ. The Lloyd kernel runs at 50 000 × 78,
+# k=6, R=10: 312-byte rows, not 16-byte aligned.
+SWEEP_N, SWEEP_M, SWEEP_K = 50_000, 78, 6
+SWEEP_DELTAS = (0.0, 0.1, 0.3, 0.5, 1.0)
+# The JAX package's ARI at random_state=0 (its labels scored by sklearn's
+# ARI: its own adjusted_rand_score overflows int32 past 46 341 samples and
+# reads 0.88364 and 0.86252 at δ=0.5 and 1.0), and the largest drop below
+# it among 20 fits on a CPU (random_state 0–9 of the JAX package and of
+# the port: the Gumbel streams differ, so the card's fit is one more draw
+# from that spread). Both measured by `PYTHONPATH=. JAX_PLATFORMS=cpu
+# python tests/test_torch_baselines.py`. δ=0.3 spreads most: at some
+# seeds the tight pair merges for good.
+JAX_SWEEP_ARI = {0.1: 0.9999521388312199, 0.3: 0.9926016792421699,
+                 0.5: 0.8278957695391554, 1.0: 0.796734141497832}
+SWEEP_ARI_DROP = {0.1: 0.0, 0.3: 0.08189553533719529,
+                  0.5: 0.022162069117578564, 1.0: 0.0043493320148193515}
+# the margin: 1.5 × that drop, and at least 0.005
+SWEEP_MARGIN = {d: max(1.5 * drop, 0.005)
+                for d, drop in SWEEP_ARI_DROP.items()}
+# BASELINE #4: TruncatedSVD(n_components=10, n_iter=5, random_state=0) on
+# the covertype surrogate (581 012 × 54). singular_values_ within 3× the
+# JAX package's float32 error against a float64 spectrum of the same data
+# (same script): randomized 9.055416292452883e-07, arpack
+# 3.49901462968096e-06
+COVTYPE_N, COVTYPE_M, SVD_K = 581_012, 54, 10
+JAX_SVD_ERR = {"randomized": 9.055416292452883e-07,
+               "arpack": 3.49901462968096e-06}
+ORTHONORMAL_ATOL = 1e-4
+# the error-budget grid search on the MNIST-shaped surrogate: every split
+# must score at least this (the classes are far apart)
+GRID = {"pca__n_components": [40, 61], "knn__n_neighbors": [5, 7]}
+GRID_FOLDS = 5
+GRID_SCORE_FLOOR = 0.95
+SMALL_GRID_ATOL = 1e-6  # cv_results_ of the small search, card against CPU
+# mini-batch q-means at 70 000 × 784: ARI against the labels, and inertia_
+# within 10 % of the δ=0 QKMeans fit's on the same X
+# (tests/test_minibatch.py:240's own tolerance)
+MB_BATCH, MB_ARI_FLOOR, MB_INERTIA_RTOL = 1024, 0.95, 0.10
+HASH_ROWS, HASH_FEATURES = 100_000, 1024
 
 
 def check(cond, msg):
@@ -231,28 +303,27 @@ def unexplained_flips(d2, lab_k, lab_r, window, margin):
     return int((~explained).sum())
 
 
-def kernel_phase(Xc, torch):
-    """Hold the Lloyd kernel against its plain version at the slice
-    shape; returns the kernel's JSON entry (launches filled in later)."""
+def lloyd_operands(Xc, k, r, torch):
+    """The operands of a Lloyd launch on the centered rows ``Xc``: unit
+    weights, row norms, r × k centers drawn from the rows, one shared
+    Gumbel operand, the min_d2 tolerance, and the exact (float64)
+    distances of the float32 operands with each row's two smallest:
+    where a label is decided and how near each row lies to a deciding
+    boundary. Also prints how many rows the δ-window leaves a choice."""
     import numpy as np
 
-    from sq_learn_tpu_torch.ops.kernels import (lloyd_step,
-                                                lloyd_step_reference,
-                                                lloyd_step_work)
-
     dev = Xc.device
-    w = torch.ones(N, device=dev)
+    n = Xc.shape[0]
+    w = torch.ones(n, device=dev)
     xsq = torch.sum(Xc * Xc, dim=1)
     rng = np.random.default_rng(0)
-    C = Xc[torch.from_numpy(rng.choice(N, (R, K))).to(dev)]
+    C = Xc[torch.from_numpy(rng.choice(n, (r, k))).to(dev)]
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    gum = torch.empty((R, N, K), device=dev).exponential_(
+    gum = torch.empty((r, n, k), device=dev).exponential_(
         generator=g).log_().neg_()
     csq = torch.sum(C * C, dim=-1)
     tol = D2_RTOL * (xsq[None, :] + csq.max(dim=1).values[:, None])
-    # the exact distances of the float32 operands, in float64: where a
-    # label is decided and how near each row lies to a deciding boundary
     d2_exact = ((xsq.double()[None, :, None]
                  + (C.double() ** 2).sum(-1)[:, None, :])
                 - 2.0 * torch.matmul(Xc.double(),
@@ -263,16 +334,32 @@ def kernel_phase(Xc, torch):
                                 WIDE_WINDOW_QUANTILE))
     in_window = int(((d2_exact <= top2[..., :1] + WINDOW).sum(-1) >= 2)
                     .sum())
-    print(f"rows with two or more centers in the δ-window: {in_window} of "
-          f"{R * N} at window {WINDOW}; wide window {wide:.4f} (the "
-          f"{WIDE_WINDOW_QUANTILE} quantile of the nearest-center gap)",
-          flush=True)
+    print(f"{n}×{Xc.shape[1]}, k={k}, R={r}: rows with two or more centers "
+          f"in the δ-window: {in_window} of {r * n} at window {WINDOW}; "
+          f"wide window {wide:.4f} (the {WIDE_WINDOW_QUANTILE} quantile of "
+          f"the nearest-center gap)", flush=True)
+    return {"w": w, "xsq": xsq, "C": C, "gum": gum, "tol": tol,
+            "d2_exact": d2_exact, "top2": top2, "wide": wide}
 
-    # (name, X, Gumbel operand, window, timed)
-    cases = [("float32", Xc, None, 0.0, True),
-             ("float32", Xc, gum, WINDOW, True),
-             ("float32", Xc, gum, wide, False),
-             ("bfloat16", Xc.to(torch.bfloat16), None, 0.0, True)]
+
+def hold_lloyd_cases(cases, operands, torch):
+    """Hold the Lloyd kernel against its plain version in each case
+    (name, X, Gumbel operand, window, timed) on the operands of
+    :func:`lloyd_operands`: labels against the exact decision and the
+    plain version's up to the float32 margin, min_d2, sums, counts and
+    inertia at their tolerances, two launches bit-equal; the timed cases
+    are also timed against the plain version and the bound. Returns the
+    timed cases' results by (name, window)."""
+    from sq_learn_tpu_torch.ops.kernels import (lloyd_step,
+                                                lloyd_step_reference,
+                                                lloyd_step_work)
+
+    w, xsq, C, tol = (operands[name] for name in ("w", "xsq", "C", "tol"))
+    d2_exact, top2, wide = (operands[name]
+                            for name in ("d2_exact", "top2", "wide"))
+    dev = C.device
+    R, K = C.shape[:2]
+    N, M = w.shape[0], C.shape[2]
     report = {}
     for name, Xk, noise, window, timed in cases:
         out = lloyd_step(Xk, w, xsq, C, gumbel=noise, window=window)
@@ -371,6 +458,24 @@ def kernel_phase(Xc, torch):
                      f"{max(bytes_ms, ops_ms):.4f} ms by "
                      f"{report[(name, window)]['bound_by']})")
         print(line, flush=True)
+    return report
+
+
+def kernel_phase(Xc, torch):
+    """Hold the Lloyd kernel against its plain version at the slice
+    shape; returns the kernel's JSON entry (launches filled in later)."""
+    from sq_learn_tpu_torch.ops.kernels import lloyd_step
+
+    dev = Xc.device
+    operands = lloyd_operands(Xc, K, R, torch)
+    w, xsq, C, gum, wide = (operands[name]
+                            for name in ("w", "xsq", "C", "gum", "wide"))
+    # (name, X, Gumbel operand, window, timed)
+    cases = [("float32", Xc, None, 0.0, True),
+             ("float32", Xc, gum, WINDOW, True),
+             ("float32", Xc, gum, wide, False),
+             ("bfloat16", Xc.to(torch.bfloat16), None, 0.0, True)]
+    report = hold_lloyd_cases(cases, operands, torch)
     # the restart compaction the graded fit's launches run: an active
     # restart gets the bits of the unmasked launch (held against the plain
     # version above), an inactive one zeros
@@ -1178,6 +1283,403 @@ def qlssvc_path(X, y, torch):
           flush=True)
 
 
+def cicids_standardized(torch):
+    """BASELINE #5's data: the CICIDS surrogate, standardized on the card
+    (a tensor there). Returns (X on the card, labels, seconds to scale)."""
+    import warnings
+
+    from sq_learn_tpu_torch.datasets import load_cicids
+    from sq_learn_tpu_torch.preprocessing import StandardScaler
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the surrogate's notice
+        X, y, real = load_cicids(n_samples=SWEEP_N)
+    check(not real and X.shape == (SWEEP_N, SWEEP_M),
+          f"load_cicids gave {X.shape}, real={real}")
+    t0 = time.perf_counter()
+    Xs = StandardScaler().fit_transform(X)
+    torch.cuda.synchronize()
+    scale_s = time.perf_counter() - t0
+    check(Xs.is_cuda and Xs.shape == (SWEEP_N, SWEEP_M)
+          and bool(torch.isfinite(Xs).all())
+          and float(Xs.mean(0).abs().max()) < 1e-4,
+          "StandardScaler output on the card")
+    return Xs, y, scale_s
+
+
+def lloyd_shape_phase(torch):
+    """The Lloyd kernel at the δ-sweep's shape (50 000 × 78, k=6, R=10;
+    rows of 312 bytes take the kernel's unaligned staging) against its
+    plain version: window 0, and 0.5 on a fed Gumbel operand. Returns the
+    shape's entry for the kernel's JSON line."""
+    Xs, _, _ = cicids_standardized(torch)
+    Xc = Xs - Xs.mean(dim=0)
+    operands = lloyd_operands(Xc, SWEEP_K, R, torch)
+    cases = [("float32", Xc, None, 0.0, True),
+             ("float32", Xc, operands["gum"], WINDOW, True)]
+    report = hold_lloyd_cases(cases, operands, torch)
+    main = report[("float32", WINDOW)]
+    return {"shape": f"{SWEEP_N}x{SWEEP_M} k={SWEEP_K} R={R}",
+            "window": WINDOW, "launches": None,
+            "max_abs_err": max(main["err"].values()), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "window_0_ms": report[("float32", 0.0)]["ms"],
+            "window_0_plain_ms": report[("float32", 0.0)]["plain_ms"]}
+
+
+def delta_sweep_path(torch):
+    """BASELINE #5, ``examples/delta_tradeoff.py:48-85`` at
+    ``--n-samples 50000``: the CICIDS surrogate standardized on the card,
+    then QKMeans(n_clusters=6, n_init=10, delta=δ,
+    true_distance_estimate=False, random_state=0) at each δ, with the
+    Lloyd launches of each fit counted from 0. Then a δ=0 fit on the card
+    against the same fit on the CPU. Returns the sweep's launches."""
+    import warnings
+
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import QKMeans
+    from sq_learn_tpu_torch.ops.kernels import lloyd_step
+
+    Xs, y, scale_s = cicids_standardized(torch)
+    print(f"δ-sweep: load_cicids({SWEEP_N}) surrogate, StandardScaler on "
+          f"the card {scale_s:.4f} s", flush=True)
+    total = 0
+    for delta in SWEEP_DELTAS:
+        est = QKMeans(n_clusters=SWEEP_K, n_init=10, delta=delta,
+                      true_distance_estimate=False, random_state=0)
+        lloyd_step.launches = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # δ=0's classic notice
+            est.fit(Xs)
+        wall = time.perf_counter() - t0
+        launches = lloyd_step.launches
+        total += launches
+        check(launches > 0, f"δ-sweep δ={delta}: no Lloyd launch")
+        check(np.isfinite(est.cluster_centers_).all()
+              and np.isfinite(est.inertia_), f"δ-sweep δ={delta}: not finite")
+        fit_ari = ari(y, est.labels_)
+        if delta == 0:
+            check(fit_ari == 1.0, f"δ-sweep δ=0: ARI {fit_ari} ≠ 1.0")
+            floor = 1.0
+        else:
+            floor = JAX_SWEEP_ARI[delta] - SWEEP_MARGIN[delta]
+            check(fit_ari >= floor,
+                  f"δ-sweep δ={delta}: ARI {fit_ari} < the JAX package's "
+                  f"{JAX_SWEEP_ARI[delta]} − {SWEEP_MARGIN[delta]}")
+        print(f"δ-sweep δ={delta}: QKMeans fit {wall:.4f} s, n_iter "
+              f"{est.n_iter_}, Lloyd launches {launches}, inertia "
+              f"{est.inertia_}, ARI {fit_ari} (floor {floor})", flush=True)
+    # δ=0 from one init of seeded rows, card against CPU
+    Xn = Xs.cpu().numpy()
+    init = Xn[np.random.default_rng(1).choice(SWEEP_N, SWEEP_K,
+                                              replace=False)]
+    fits = {}
+    for device in (CARD, "cpu"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            fits[device] = QKMeans(n_clusters=SWEEP_K, init=init, n_init=1,
+                                   delta=0.0, device=device).fit(Xn)
+    card, cpu = fits[CARD], fits["cpu"]
+    check(np.array_equal(card.labels_, cpu.labels_)
+          and card.n_iter_ == cpu.n_iter_,
+          f"δ-sweep δ=0: card (n_iter {card.n_iter_}) and CPU (n_iter "
+          f"{cpu.n_iter_}) fits differ in "
+          f"{int((card.labels_ != cpu.labels_).sum())} labels")
+    print(f"δ-sweep δ=0 from one init: card == CPU (labels, n_iter "
+          f"{cpu.n_iter_})", flush=True)
+    return total
+
+
+def truncated_svd_path(torch):
+    """BASELINE #4: TruncatedSVD(n_components=10, algorithm=a, n_iter=5,
+    random_state=0).fit_transform on the covertype surrogate for a in
+    ('randomized', 'arpack'); the spectrum against a float64 one of the
+    same data, computed on the card; then a small arpack fit, card
+    against CPU."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.datasets import load_covtype
+    from sq_learn_tpu_torch.decomposition import TruncatedSVD
+
+    t0 = time.perf_counter()
+    X, _, real = load_covtype()
+    check(not real and X.shape == (COVTYPE_N, COVTYPE_M),
+          f"load_covtype gave {X.shape}, real={real}")
+    print(f"TruncatedSVD: load_covtype() surrogate {COVTYPE_N}×{COVTYPE_M} "
+          f"({X.nbytes / 1e6:.0f} MB) made in {time.perf_counter() - t0:.4f} "
+          f"s", flush=True)
+    X64 = torch.from_numpy(X).to(CARD).double()
+    s64 = torch.sqrt(torch.linalg.eigvalsh(X64.T @ X64).flip(0)[:SVD_K])
+    s64 = s64.cpu().numpy()
+    del X64
+    for algorithm in ("randomized", "arpack"):
+        est = TruncatedSVD(n_components=SVD_K, algorithm=algorithm,
+                           n_iter=5, random_state=0)
+        t0 = time.perf_counter()
+        Xt = est.fit_transform(X)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        err = float(np.max(np.abs(est.singular_values_ - s64) / s64))
+        check(err <= 3 * JAX_SVD_ERR[algorithm],
+              f"TruncatedSVD {algorithm}: singular values {err} off float64,"
+              f" more than 3 × {JAX_SVD_ERR[algorithm]}")
+        comps = est.components_.astype(np.float64)
+        orth = float(np.abs(comps @ comps.T - np.eye(SVD_K)).max())
+        check(orth <= ORTHONORMAL_ATOL,
+              f"TruncatedSVD {algorithm}: components_ off orthonormal by "
+              f"{orth}")
+        evr = est.explained_variance_ratio_
+        check(bool((evr >= 0).all() and (evr <= 1).all())
+              and float(evr.sum()) <= 1.0,
+              f"TruncatedSVD {algorithm}: explained_variance_ratio_ {evr}")
+        check(Xt.is_cuda and Xt.shape == (COVTYPE_N, SVD_K)
+              and bool(torch.isfinite(Xt).all()),
+              f"TruncatedSVD {algorithm}: fit_transform output")
+        print(f"TruncatedSVD(n_components={SVD_K}, algorithm={algorithm!r}, "
+              f"n_iter=5, random_state=0) {COVTYPE_N}×{COVTYPE_M}: "
+              f"fit_transform {wall:.4f} s; singular values "
+              f"{est.singular_values_.tolist()}, largest relative error "
+              f"against float64 {err} (limit {3 * JAX_SVD_ERR[algorithm]}); "
+              f"components_ orthonormal within {orth}; explained variance "
+              f"ratio sum {float(evr.sum())}", flush=True)
+    small = X[:20_000]
+    fits = {device: TruncatedSVD(n_components=SVD_K, algorithm="arpack",
+                                 device=device).fit(small)
+            for device in (CARD, "cpu")}
+    sv = float(np.max(np.abs(fits[CARD].singular_values_
+                              / fits["cpu"].singular_values_ - 1)))
+    comp = float(np.abs(fits[CARD].components_
+                        - fits["cpu"].components_).max())
+    check(sv <= 1e-5 and comp <= 1e-4,
+          f"small TruncatedSVD: card and CPU differ by {sv} (singular "
+          f"values, relative) and {comp} (components)")
+    print(f"small TruncatedSVD arpack 20000×{COVTYPE_M}: card == CPU, "
+          f"singular values within {sv} (relative), components within "
+          f"{comp}", flush=True)
+
+
+def grid_pipeline():
+    """The error-budget search's pipeline: scale, qPCA, k-NN."""
+    from sq_learn_tpu_torch import Pipeline
+    from sq_learn_tpu_torch.models import QPCA, KNeighborsClassifier
+    from sq_learn_tpu_torch.preprocessing import StandardScaler
+
+    return Pipeline([("scale", StandardScaler()),
+                     ("pca", QPCA(svd_solver="full", random_state=0)),
+                     ("knn", KNeighborsClassifier())])
+
+
+def grid_search_path(X, y, torch):
+    """The error-budget grid search on the MNIST-shaped surrogate:
+    GridSearchCV(Pipeline(StandardScaler, QPCA, KNeighborsClassifier))
+    over GRID with StratifiedKFold(5), one argkmin launch per fold's
+    predict and none for the refit; then the refit pipeline's predict
+    against its steps run one by one, and a small search on the card
+    against the CPU. Returns the search's argkmin launches."""
+    import numpy as np
+
+    from sq_learn_tpu_torch import config_context
+    from sq_learn_tpu_torch.model_selection import (GridSearchCV,
+                                                    ParameterGrid,
+                                                    StratifiedKFold)
+    from sq_learn_tpu_torch.ops.kernels import argkmin
+
+    def search(Xs, ys):
+        return GridSearchCV(grid_pipeline(), GRID,
+                            cv=StratifiedKFold(GRID_FOLDS)).fit(Xs, ys)
+
+    argkmin.launches = 0
+    t0 = time.perf_counter()
+    gs = search(X, y)
+    wall = time.perf_counter() - t0
+    launches = argkmin.launches
+    n_fits = len(ParameterGrid(GRID)) * GRID_FOLDS
+    check(launches == n_fits, f"grid search launched argkmin {launches} "
+                              f"times, not once per fold ({n_fits})")
+    res = gs.cv_results_
+    scores = res["split_test_scores"]
+    check(scores.min() >= GRID_SCORE_FLOOR,
+          f"grid search: a split scored {scores.min()}")
+    best = res["params"].index(gs.best_params_)
+    check(gs.best_score_ == float(np.mean(scores[best]))
+          and gs.best_score_ == float(res["mean_test_score"].max()),
+          f"grid search: best_score_ {gs.best_score_} is not its row's mean")
+    print(f"GridSearchCV(scale → QPCA → k-NN, {GRID}, StratifiedKFold("
+          f"{GRID_FOLDS})) {N}×{M}: {wall:.4f} s, argkmin launches "
+          f"{launches}, best_params_ {gs.best_params_}, best_score_ "
+          f"{gs.best_score_}, split_test_scores {scores.tolist()}",
+          flush=True)
+    Xq = X[:10_000]
+    steps = gs.best_estimator_.named_steps
+    t0 = time.perf_counter()
+    pred = gs.best_estimator_.predict(Xq)
+    predict_s = time.perf_counter() - t0
+    by_step = steps["knn"].predict(steps["pca"].transform(
+        steps["scale"].transform(Xq)))
+    check(np.array_equal(pred, by_step),
+          "grid search: best_estimator_.predict differs from its steps")
+    print(f"grid search: best_estimator_.predict of 10000 rows "
+          f"{predict_s:.4f} s, equal to the steps run one by one",
+          flush=True)
+    small = {}
+    for device in (CARD, "cpu"):
+        with config_context(device=device):
+            small[device] = search(X[:3000], y[:3000]).cv_results_
+    diff = float(np.abs(small[CARD]["split_test_scores"]
+                        - small["cpu"]["split_test_scores"]).max())
+    check(small[CARD]["params"] == small["cpu"]["params"]
+          and diff <= SMALL_GRID_ATOL,
+          f"small grid search: card and CPU cv_results_ differ by {diff}")
+    print(f"small grid search 3000×{M}: card == CPU (split scores within "
+          f"{diff})", flush=True)
+    return launches
+
+
+def argkmin_fold_phase(X, torch):
+    """The search kernel at the grid search's fold shape: 14 000 queries
+    against 56 000 training rows of the standardized surrogate projected
+    by QPCA to width 40 and 61, k=7, held against its plain version and
+    the exact lists and timed. Returns the shapes' entries."""
+    from sq_learn_tpu_torch.models import QPCA
+    from sq_learn_tpu_torch.ops.kernels import (argkmin, argkmin_reference,
+                                                argkmin_work)
+    from sq_learn_tpu_torch.preprocessing import StandardScaler
+
+    n_train = N * (GRID_FOLDS - 1) // GRID_FOLDS
+    Xs = StandardScaler().fit_transform(X)
+    entries = []
+    for width in GRID["pca__n_components"]:
+        pca = QPCA(n_components=width, svd_solver="full",
+                   random_state=0).fit(Xs[:n_train])
+        T = pca.transform(Xs[:n_train]).contiguous()
+        Q = pca.transform(Xs[n_train:]).contiguous()
+        tsq = torch.sum(T * T, dim=1)
+        idx, d2 = argkmin(T, tsq, Q, KNN_K)
+        ref_i, ref_d = argkmin_reference(T, tsq, Q, KNN_K)
+        torch.cuda.synchronize()
+        err = float((d2 - ref_d).abs().max())
+        # projected rows lie close: d2 cancels ‖q‖² + ‖t‖² against 2·q·t,
+        # so its float32 error is held at D2_RTOL of those terms
+        tol = D2_RTOL * (torch.sum(Q * Q, dim=1)[:, None] + tsq.max())
+        check(bool(((d2 - ref_d).abs() <= tol).all()),
+              f"argkmin width {width}: d2 off the plain version's by {err}")
+        held = hold_lists(f"width {width}", idx, d2, ref_i, ref_d, Q, T,
+                          torch)
+        again = argkmin(T, tsq, Q, KNN_K)
+        check(bool(torch.equal(again[0], idx) and torch.equal(again[1], d2)),
+              f"argkmin width {width}: two launches differ")
+        ms = time_ms(lambda: argkmin(T, tsq, Q, KNN_K))
+        plain_ms = time_ms(lambda: argkmin_reference(T, tsq, Q, KNN_K))
+        nbytes, ops = argkmin_work(Q.shape[0], T.shape[0], width, KNN_K)
+        bytes_ms, ops_ms = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+        entry = {"shape": f"{Q.shape[0]}x{T.shape[0]}x{width} k={KNN_K}",
+                 "launches": None, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms
+                 else "operations"}
+        entries.append(entry)
+        print(f"argkmin at the grid search's fold shape {entry['shape']}: "
+              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+              f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}); {held}",
+              flush=True)
+    return entries
+
+
+def minibatch_path(X, y, full_inertia, torch):
+    """MiniBatchQKMeans(n_clusters=10, batch_size=1024, delta=δ,
+    random_state=0) at 70 000 × 784 for δ in (0, 0.5): fit twice (the
+    same bits), predict, then five partial_fit calls on 1024-row
+    slices."""
+    import warnings
+
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import MiniBatchQKMeans
+
+    for delta in (0.0, 0.5):
+        fits, walls = [], []
+        for _ in range(2):
+            est = MiniBatchQKMeans(n_clusters=K, batch_size=MB_BATCH,
+                                   delta=delta, random_state=0)
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # δ=0's classic notice
+                est.fit(X)
+            walls.append(time.perf_counter() - t0)
+            fits.append(est)
+        a, b = fits
+        check(all(np.array_equal(getattr(a, name), getattr(b, name))
+                  for name in ("cluster_centers_", "counts_", "labels_"))
+              and (a.n_iter_, a.n_steps_, a.inertia_)
+              == (b.n_iter_, b.n_steps_, b.inertia_),
+              f"mini-batch δ={delta}: two fits differ")
+        check(a.n_steps_ >= a.n_iter_ >= 1,
+              f"mini-batch δ={delta}: n_steps_ {a.n_steps_}, n_iter_ "
+              f"{a.n_iter_}")
+        check(np.isfinite(a.cluster_centers_).all()
+              and np.isfinite(a.inertia_), f"mini-batch δ={delta}: finite")
+        t0 = time.perf_counter()
+        pred = a.predict(X)
+        predict_s = time.perf_counter() - t0
+        fit_ari = ari(y, pred)
+        check(fit_ari >= MB_ARI_FLOOR,
+              f"mini-batch δ={delta}: ARI {fit_ari} < {MB_ARI_FLOOR}")
+        ratio = a.inertia_ / full_inertia
+        check(abs(ratio - 1) <= MB_INERTIA_RTOL,
+              f"mini-batch δ={delta}: inertia_ {a.inertia_} is {ratio}× the "
+              f"δ=0 QKMeans fit's")
+        steps = a.n_steps_
+        for i in range(5):
+            a.partial_fit(X[i * MB_BATCH:(i + 1) * MB_BATCH])
+        check(a.n_steps_ == steps + 5
+              and np.isfinite(a.cluster_centers_).all(),
+              f"mini-batch δ={delta}: partial_fit bookkeeping")
+        print(f"MiniBatchQKMeans(n_clusters={K}, batch_size={MB_BATCH}, "
+              f"delta={delta}, random_state=0) {N}×{M}: fit {walls[0]:.4f} s "
+              f"then {walls[1]:.4f} s ({steps / walls[1]:.1f} steps/s), "
+              f"n_iter_ {a.n_iter_}, n_steps_ {steps}, the same bits twice; "
+              f"predict {predict_s:.4f} s, ARI {fit_ari}, inertia_ "
+              f"{ratio:.7f}× the δ=0 QKMeans fit's; 5 partial_fit calls",
+              flush=True)
+
+
+def hasher_path(torch):
+    """FeatureHasher over 100 000 rows of token dicts (counts of tokens
+    from a 5 000-word vocabulary and a categorical field): the tensor lands
+    on the card and equals the CPU's."""
+    import numpy as np
+
+    from sq_learn_tpu_torch import FeatureHasher
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(1, 16, HASH_ROWS)
+    ends = np.cumsum(lengths)
+    words = [f"tok{i}" for i in rng.integers(0, 5000, int(ends[-1]))]
+    counts = rng.integers(1, 4, int(ends[-1])).tolist()
+    protos = ("tcp", "udp", "icmp")
+    rows = []
+    for i, (lo, hi) in enumerate(zip(ends - lengths, ends)):
+        row = dict(zip(words[lo:hi], counts[lo:hi]))
+        row["proto"] = protos[i % 3]
+        rows.append(row)
+    t0 = time.perf_counter()
+    out = FeatureHasher(HASH_FEATURES).transform(rows)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    ref = FeatureHasher(HASH_FEATURES, device="cpu").transform(rows)
+    check(out.is_cuda and out.shape == (HASH_ROWS, HASH_FEATURES)
+          and out.dtype == torch.float32, "FeatureHasher output")
+    check(bool(torch.equal(out.cpu(), ref)),
+          "FeatureHasher: the card's tensor differs from the CPU's")
+    print(f"FeatureHasher({HASH_FEATURES}) over {HASH_ROWS} dict rows "
+          f"({int(ends[-1])} tokens): {card_s:.4f} s onto the card, "
+          f"{int((ref != 0).sum())} nonzeros, equal to the CPU's",
+          flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -1360,6 +1862,64 @@ def main():
     check(lloyd_step.launches == argkmin.launches == 0,
           "path D launched a kernel")
     print(f"path D: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # the Lloyd kernel at the δ-sweep's shape, against its plain version
+    t0 = time.perf_counter()
+    sweep_entry = lloyd_shape_phase(torch)
+    print(f"Lloyd kernel phase at {sweep_entry['shape']}: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    # BASELINE #5, the δ-sweep: its Lloyd launches join the kernel's
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    sweep_entry["launches"] = delta_sweep_path(torch)
+    check(argkmin.launches == 0, "the δ-sweep launched argkmin")
+    entry["launches"] += sweep_entry["launches"]
+    entry["shapes"] = [sweep_entry]
+    print(f"δ-sweep path: {time.perf_counter() - t0:.3f} s, lloyd_step "
+          f"launches {sweep_entry['launches']}, argkmin launches "
+          f"{argkmin.launches}", flush=True)
+    # BASELINE #4, TruncatedSVD: no kernel launch
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    truncated_svd_path(torch)
+    check(lloyd_step.launches == argkmin.launches == 0,
+          "the TruncatedSVD path launched a kernel")
+    print(f"TruncatedSVD path: {time.perf_counter() - t0:.3f} s, lloyd_step "
+          f"launches {lloyd_step.launches}, argkmin launches "
+          f"{argkmin.launches}", flush=True)
+    # the error-budget grid search: its argkmin launches join the kernel's
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    grid_launches = grid_search_path(X, y, torch)
+    check(lloyd_step.launches == 0, "the grid search launched lloyd_step")
+    knn_entry["launches"] += grid_launches
+    print(f"grid search path: {time.perf_counter() - t0:.3f} s, argkmin "
+          f"launches {grid_launches}, lloyd_step launches "
+          f"{lloyd_step.launches}", flush=True)
+    t0 = time.perf_counter()
+    knn_entry["shapes"] = argkmin_fold_phase(X, torch)
+    for shape in knn_entry["shapes"]:
+        # each width is half of the grid's settings
+        shape["launches"] = grid_launches // 2
+    print(f"argkmin fold-shape phase: {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    # mini-batch q-means: plain torch steps, no kernel launch
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    minibatch_path(X, y, classic.inertia_, torch)
+    check(lloyd_step.launches == argkmin.launches == 0,
+          "the mini-batch path launched a kernel")
+    print(f"mini-batch path: {time.perf_counter() - t0:.3f} s, lloyd_step "
+          f"launches {lloyd_step.launches}, argkmin launches "
+          f"{argkmin.launches}", flush=True)
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    hasher_path(torch)
+    check(lloyd_step.launches == argkmin.launches == 0,
+          "the hasher launched a kernel")
+    print(f"FeatureHasher path: {time.perf_counter() - t0:.3f} s, "
+          f"lloyd_step launches {lloyd_step.launches}, argkmin launches "
+          f"{argkmin.launches}", flush=True)
 
     print(smi)
     print(json.dumps({"kernels": [entry, knn_entry]}))

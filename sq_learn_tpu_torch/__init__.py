@@ -12,13 +12,19 @@ The port imports neither JAX nor any module of ``sq_learn_tpu``.
 from ._config import config_context, get_config, resolve_device, set_config
 from .base import (BaseEstimator, ClassifierMixin, ClusterMixin,
                    NotFittedError, TransformerMixin, check_is_fitted, clone)
-from .models import (PCA, QLSSVC, QPCA, KMeans, KNeighborsClassifier, QKMeans,
-                     k_means)
+from . import feature_extraction, pipeline, preprocessing
+from .feature_extraction import FeatureHasher
+from .models import (PCA, QLSSVC, QPCA, KMeans, KNeighborsClassifier,
+                     MiniBatchKMeans, MiniBatchQKMeans, QKMeans,
+                     TruncatedSVD, k_means)
+from .pipeline import Pipeline, make_pipeline
 
 __version__ = "0.1.0"
 
-__all__ = ["BaseEstimator", "ClassifierMixin", "ClusterMixin", "KMeans",
-           "KNeighborsClassifier", "NotFittedError", "PCA", "QKMeans",
-           "QLSSVC", "QPCA",
-           "TransformerMixin", "check_is_fitted", "clone", "config_context",
-           "get_config", "k_means", "resolve_device", "set_config"]
+__all__ = ["BaseEstimator", "ClassifierMixin", "ClusterMixin",
+           "FeatureHasher", "KMeans", "KNeighborsClassifier",
+           "MiniBatchKMeans", "MiniBatchQKMeans", "NotFittedError", "PCA",
+           "Pipeline", "QKMeans", "QLSSVC", "QPCA", "TransformerMixin",
+           "TruncatedSVD", "check_is_fitted", "clone", "config_context",
+           "feature_extraction", "get_config", "k_means", "make_pipeline",
+           "pipeline", "preprocessing", "resolve_device", "set_config"]

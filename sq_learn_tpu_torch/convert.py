@@ -5,7 +5,10 @@ numpy arrays and returns a fitted port :class:`~.models.QKMeans` whose
 ``predict``, ``transform`` and ``score`` compute what the JAX ones do;
 :func:`kneighbors_from_numpy` does the same for ``KNeighborsClassifier``,
 :func:`qpca_from_numpy` for ``QPCA`` (classical and quantum transforms,
-the runtime model) and :func:`qlssvc_from_numpy` for ``QLSSVC``.
+the runtime model), :func:`qlssvc_from_numpy` for ``QLSSVC``,
+:func:`minibatch_from_numpy` for ``MiniBatchQKMeans``/``MiniBatchKMeans``,
+:func:`truncated_svd_from_numpy` for ``TruncatedSVD`` and
+:func:`scaler_from_numpy` for each of the three scalers.
 The port imports nothing of the JAX package: the caller reads the
 attributes (``vars(est)``) and hands them over.
 """
@@ -13,12 +16,36 @@ attributes (``vars(est)``) and hands them over.
 import numpy as np
 import torch
 
+from . import preprocessing
 from ._config import resolve_device
+from .models.minibatch import MiniBatchKMeans, MiniBatchQKMeans
 from .models.neighbors import KNeighborsClassifier
 from .models.qkmeans import QKMeans
 from .models.qlssvc import QLSSVC
 from .models.qpca import QPCA
+from .models.truncated_svd import TruncatedSVD
 from .ops.linalg import row_norms
+
+def _unfitted(cls, params, device, **fixed):
+    """An unfitted ``cls`` on ``device`` from the hyperparameters in
+    ``params`` that it has (the JAX estimator's ``get_params()``; the
+    others, such as ``use_pallas``, are dropped), ``fixed`` on top."""
+    names = set(cls._get_param_names())
+    kw = {k: v for k, v in (params or {}).items() if k in names}
+    kw.update(fixed, device=device)
+    return cls(**kw)
+
+
+def _set_attrs(est, attrs, arrays, scalars):
+    """Copy the fitted arrays (as the given dtypes) and scalars (through
+    the given casts) that ``attrs`` holds and that are not None."""
+    for name, dtype in arrays.items():
+        if attrs.get(name) is not None:
+            setattr(est, name, np.array(attrs[name], dtype))
+    for name, cast in scalars.items():
+        if attrs.get(name) is not None:
+            setattr(est, name, cast(attrs[name]))
+
 
 #: fitted attributes carried over, with the type each is stored as
 _ARRAYS = {"cluster_centers_": np.float32, "labels_": np.int32,
@@ -50,11 +77,7 @@ def qkmeans_from_numpy(attrs, device=None, params=None):
     if centers.ndim != 2:
         raise ValueError(f"cluster_centers_ must be 2-D, got shape "
                          f"{centers.shape}")
-    names = set(QKMeans._get_param_names())
-    kw = {k: v for k, v in (params or {}).items() if k in names}
-    kw["n_clusters"] = centers.shape[0]
-    kw["device"] = device
-    est = QKMeans(**kw)
+    est = _unfitted(QKMeans, params, device, n_clusters=centers.shape[0])
     for name, dtype in _ARRAYS.items():
         if name in attrs:
             value = np.asarray(attrs[name])
@@ -107,10 +130,7 @@ def kneighbors_from_numpy(attrs, device=None, params=None):
         if int(attrs.get(name, value)) != value:
             raise ValueError(f"{name}={attrs[name]} does not match X_fit_ "
                              f"of shape {X.shape}")
-    names = set(KNeighborsClassifier._get_param_names())
-    kw = {k: v for k, v in (params or {}).items() if k in names}
-    kw["device"] = device
-    est = KNeighborsClassifier(**kw)
+    est = _unfitted(KNeighborsClassifier, params, device)
     est.X_fit_ = torch.tensor(X, device=resolve_device(device))
     est.y_fit_ = y
     est.classes_ = classes
@@ -178,10 +198,7 @@ def qpca_from_numpy(attrs, device=None, params=None):
     missing = [a for a in ("mean_", "components_") if a not in attrs]
     if missing:
         raise ValueError(f"attrs must hold the fitted {', '.join(missing)}")
-    names = set(QPCA._get_param_names())
-    kw = {k: v for k, v in (params or {}).items() if k in names}
-    kw["device"] = device
-    est = QPCA(**kw)
+    est = _unfitted(QPCA, params, device)
     for name in _QPCA_ARRAYS:
         if attrs.get(name) is not None:
             setattr(est, name, np.asarray(attrs[name], np.float32))
@@ -247,16 +264,101 @@ def qlssvc_from_numpy(attrs, device=None, params=None):
     if int(attrs.get("n_features_in_", X.shape[1])) != X.shape[1]:
         raise ValueError(f"n_features_in_={attrs['n_features_in_']} does "
                          f"not match X_ of shape {X.shape}")
-    names = set(QLSSVC._get_param_names())
-    kw = {k: v for k, v in (params or {}).items() if k in names}
-    kw["device"] = device
-    est = QLSSVC(**kw)
+    est = _unfitted(QLSSVC, params, device)
     est.X_ = torch.tensor(X, device=resolve_device(device))
-    for name, dtype in _QLSSVC_ARRAYS.items():
-        if attrs.get(name) is not None:
-            setattr(est, name, np.asarray(attrs[name], dtype))
-    for name, cast in _QLSSVC_SCALARS.items():
-        if attrs.get(name) is not None:
-            setattr(est, name, cast(attrs[name]))
+    _set_attrs(est, attrs, _QLSSVC_ARRAYS, _QLSSVC_SCALARS)
     est.n_features_in_ = X.shape[1]
+    return est
+
+
+def _check_width(est, width, what):
+    if int(getattr(est, "n_features_in_", width)) != width:
+        raise ValueError(f"n_features_in_={est.n_features_in_} does not "
+                         f"match {what} of width {width}")
+    est.n_features_in_ = width
+
+
+#: fitted mini-batch attributes carried over, with their types
+_MINIBATCH_ARRAYS = {"cluster_centers_": np.float32, "counts_": np.float32,
+                     "labels_": np.int32}
+_MINIBATCH_SCALARS = {"inertia_": float, "n_iter_": int, "n_steps_": int,
+                      "n_features_in_": int}
+
+
+def minibatch_from_numpy(attrs, device=None, params=None):
+    """A fitted port ``MiniBatchQKMeans`` (a ``MiniBatchKMeans`` when
+    ``params`` has no ``delta``, as that class's ``get_params()`` has
+    not) from a JAX one's fitted state: ``cluster_centers_`` and
+    ``counts_`` (required), ``labels_``, ``inertia_``, ``n_iter_``,
+    ``n_steps_`` and ``n_features_in_``. ``predict``, ``transform``,
+    ``score`` and further ``partial_fit`` calls go on from that state."""
+    missing = [a for a in ("cluster_centers_", "counts_") if a not in attrs]
+    if missing:
+        raise ValueError(f"attrs must hold the fitted {', '.join(missing)}")
+    est = _unfitted(MiniBatchQKMeans if params is None or "delta" in params
+                    else MiniBatchKMeans, params, device)
+    _set_attrs(est, attrs, _MINIBATCH_ARRAYS, _MINIBATCH_SCALARS)
+    centers, counts = est.cluster_centers_, est.counts_
+    if centers.ndim != 2 or counts.shape != (centers.shape[0],):
+        raise ValueError(f"cluster_centers_ (k, m) and counts_ (k,) do not "
+                         f"match: {centers.shape} and {counts.shape}")
+    est.n_clusters = centers.shape[0]
+    _check_width(est, centers.shape[1], "cluster_centers_")
+    return est
+
+
+_SVD_ARRAYS = {"components_": np.float32, "singular_values_": np.float32,
+               "explained_variance_": np.float32,
+               "explained_variance_ratio_": np.float32}
+
+
+def truncated_svd_from_numpy(attrs, device=None, params=None):
+    """A fitted port ``TruncatedSVD`` from a JAX one's fitted state:
+    ``components_`` (required), ``singular_values_``,
+    ``explained_variance_(ratio_)`` and ``n_features_in_``."""
+    if "components_" not in attrs:
+        raise ValueError("attrs must hold the fitted components_")
+    est = _unfitted(TruncatedSVD, params, device)
+    _set_attrs(est, attrs, _SVD_ARRAYS, {"n_features_in_": int})
+    comps = est.components_
+    if comps.ndim != 2:
+        raise ValueError(f"components_ must be 2-D, got shape "
+                         f"{comps.shape}")
+    est.n_components = comps.shape[0]
+    _check_width(est, comps.shape[1], "components_")
+    return est
+
+
+#: each scaler's fitted arrays, the required one (which sets the width)
+#: first; a Normalizer carries only its width
+_SCALER_ARRAYS = {
+    "StandardScaler": ("scale_", "mean_", "var_"),
+    "MinMaxScaler": ("scale_", "min_", "data_min_", "data_max_"),
+    "Normalizer": (),
+}
+
+
+def scaler_from_numpy(attrs, scaler="StandardScaler", device=None,
+                      params=None):
+    """A fitted port scaler from a JAX scaler's fitted state; ``scaler``
+    names its class (``type(est).__name__``): ``"StandardScaler"``
+    (``mean_``, ``scale_``, ``var_``, ``n_samples_seen_``),
+    ``"MinMaxScaler"`` (``data_min_``, ``data_max_``, ``scale_``,
+    ``min_``) or ``"Normalizer"`` (``n_features_in_``). Arrays keep their
+    dtype; ``transform`` then computes on ``device``."""
+    if scaler not in _SCALER_ARRAYS:
+        raise ValueError(f"scaler must be one of {sorted(_SCALER_ARRAYS)}, "
+                         f"got {scaler!r}")
+    arrays = _SCALER_ARRAYS[scaler]
+    required = arrays[0] if arrays else "n_features_in_"
+    if required not in attrs:
+        raise ValueError(f"attrs must hold the fitted {required}")
+    est = _unfitted(getattr(preprocessing, scaler), params, device)
+    for name in arrays:
+        value = attrs.get(name)
+        setattr(est, name, None if value is None else np.array(value))
+    _set_attrs(est, attrs, {}, {"n_samples_seen_": int,
+                                "n_features_in_": int})
+    _check_width(est, len(est.scale_) if arrays else est.n_features_in_,
+                 required)
     return est

@@ -1,17 +1,18 @@
-"""Model selection: CV splitters and cross-validation (counterpart of
-``sq_learn_tpu/model_selection.py:29-256``).
+"""Model selection: CV splitters, cross-validation and grid search
+(counterpart of ``sq_learn_tpu/model_selection.py``).
 
 The slice the MNIST pipeline uses (``MnistTrial.py:20-22`` runs
 ``cross_validate(KNN, ..., cv=StratifiedKFold(10))``): ``KFold``,
 ``StratifiedKFold``, ``train_test_split``, ``cross_validate`` and
-``cross_val_score``. They are host-side numpy index bookkeeping; each fold's
+``cross_val_score``, and the exhaustive ``GridSearchCV`` over a
+``ParameterGrid``. They are host-side numpy index bookkeeping; each fold's
 estimator computes on the device it is configured for. ``n_jobs`` fans the
 folds out over a thread pool, and every worker thread runs under the
 caller's thread-local config, so the folds compute on the caller's device.
-``ParameterGrid`` and ``GridSearchCV`` are not ported yet (``ROADMAP.md``
-§1 item 2).
 """
 
+import itertools
+import math
 import numbers
 import os
 import time
@@ -249,3 +250,71 @@ def cross_val_score(estimator, X, y=None, *, cv=5, scoring=None, n_jobs=None):
     """The ``test_score`` of :func:`cross_validate`."""
     return cross_validate(estimator, X, y, cv=cv, scoring=scoring,
                           n_jobs=n_jobs)["test_score"]
+
+
+class ParameterGrid:
+    """Every combination of a parameter grid (a dict or a list of dicts):
+    keys in sorted order, values in ``itertools.product`` order."""
+
+    def __init__(self, param_grid):
+        if isinstance(param_grid, dict):
+            param_grid = [param_grid]
+        self.param_grid = param_grid
+
+    def __iter__(self):
+        for grid in self.param_grid:
+            keys = sorted(grid)
+            for values in itertools.product(*(grid[k] for k in keys)):
+                yield dict(zip(keys, values))
+
+    def __len__(self):
+        return sum(math.prod(len(v) for v in grid.values()) or 1
+                   for grid in self.param_grid)
+
+
+class GridSearchCV:
+    """Exhaustive search over a parameter grid by cross-validation: fit
+    sets ``cv_results_`` (``params``, ``mean_test_score``,
+    ``split_test_scores``), ``best_params_`` and ``best_score_`` (the first
+    of tied means in grid order) and, with ``refit``, ``best_estimator_``
+    fitted on all of X."""
+
+    def __init__(self, estimator, param_grid, *, cv=5, scoring=None,
+                 n_jobs=None, refit=True):
+        self.estimator = estimator
+        self.param_grid = param_grid
+        self.cv = cv
+        self.scoring = scoring
+        self.n_jobs = n_jobs
+        self.refit = refit
+
+    def fit(self, X, y=None, **fit_params):
+        grid = list(ParameterGrid(self.param_grid))
+        all_scores = [
+            cross_val_score(clone(self.estimator).set_params(**params), X, y,
+                            cv=self.cv, scoring=self.scoring,
+                            n_jobs=self.n_jobs)
+            for params in grid]
+        mean_scores = [float(np.mean(s)) for s in all_scores]
+        best = int(np.argmax(mean_scores))
+        self.best_params_ = grid[best]
+        self.best_score_ = mean_scores[best]
+        self.cv_results_ = {
+            "params": grid,
+            "mean_test_score": np.asarray(mean_scores),
+            "split_test_scores": np.asarray(all_scores),
+        }
+        if self.refit:
+            self.best_estimator_ = clone(self.estimator).set_params(
+                **self.best_params_)
+            if y is None:
+                self.best_estimator_.fit(X, **fit_params)
+            else:
+                self.best_estimator_.fit(X, y, **fit_params)
+        return self
+
+    def predict(self, X):
+        return self.best_estimator_.predict(X)
+
+    def score(self, X, y=None):
+        return _score(self.best_estimator_, X, y, self.scoring)

@@ -1,9 +1,12 @@
 """Estimators."""
 
+from .minibatch import MiniBatchKMeans, MiniBatchQKMeans
 from .neighbors import KNeighborsClassifier, knn_indices
 from .qkmeans import KMeans, QKMeans, k_means
 from .qlssvc import QLSSVC
 from .qpca import PCA, QPCA
+from .truncated_svd import TruncatedSVD
 
-__all__ = ["KMeans", "KNeighborsClassifier", "PCA", "QKMeans", "QLSSVC",
-           "QPCA", "k_means", "knn_indices"]
+__all__ = ["KMeans", "KNeighborsClassifier", "MiniBatchKMeans",
+           "MiniBatchQKMeans", "PCA", "QKMeans", "QLSSVC", "QPCA",
+           "TruncatedSVD", "k_means", "knn_indices"]

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX and nothing of ``sq_learn_tpu``.
 
-In a fresh interpreter where ``import jax`` fails, every module of
-``sq_learn_tpu_torch``, ``chip_smoke.py``, ``chip_profile.py`` and
-``chip_variants.py`` import, and no ``sq_learn_tpu`` module gets loaded. ``chip_smoke.py``
+In a fresh interpreter where ``import jax`` and ``import sklearn`` fail,
+every module of ``sq_learn_tpu_torch``, ``chip_smoke.py``,
+``chip_profile.py`` and ``chip_variants.py`` import, and no
+``sq_learn_tpu`` module gets loaded. ``chip_smoke.py``
 itself fails, and prints no result, without a card or without the
 repository beside it.
 """
@@ -17,6 +18,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["sklearn"] = None  # the card's machine has no sklearn
 import sq_learn_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     sq_learn_tpu_torch.__path__, "sq_learn_tpu_torch.")]
@@ -28,7 +30,7 @@ for script in ("chip_smoke", "chip_profile", "chip_variants"):
 bad = sorted(m for m in sys.modules
              if m == "sq_learn_tpu" or m.startswith("sq_learn_tpu."))
 assert not bad, bad
-assert sys.modules["jax"] is None
+assert sys.modules["jax"] is None and sys.modules["sklearn"] is None
 print(len(names), "modules")
 print(" ".join(names))
 """
@@ -56,6 +58,12 @@ def test_port_imports_without_jax_or_the_jax_package():
             "sq_learn_tpu_torch.utils.plotting",
             "sq_learn_tpu_torch.sketch.engine",
             "sq_learn_tpu_torch.ops.quantum.estimation"} <= names
+    # the experiment scaffolding and the remaining classical estimators
+    assert {"sq_learn_tpu_torch.preprocessing", "sq_learn_tpu_torch.pipeline",
+            "sq_learn_tpu_torch.feature_extraction",
+            "sq_learn_tpu_torch.utils.murmurhash",
+            "sq_learn_tpu_torch.models.minibatch",
+            "sq_learn_tpu_torch.models.truncated_svd"} <= names
 
 
 def test_chip_smoke_fails_without_a_card():

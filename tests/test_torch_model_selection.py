@@ -280,3 +280,22 @@ def test_ari_of_a_single_sample_is_one():
     returns nan. The port follows the reference."""
     assert tm.adjusted_rand_score([1], [2]) == 1.0
     assert tm.adjusted_rand_score([0, 0], [0, 1]) == 0.0
+
+
+@pytest.mark.parametrize("n", [46_341, 46_342, 50_000])
+def test_ari_past_int32_pair_counts_follows_sklearn(n):
+    """From n = 46 342 samples n·(n − 1) passes 2³¹: the JAX package
+    multiplies the pair counts in int32 and its ARI is off (0.6735 against
+    sklearn's 0.0204 at 46 342, below). The port counts in float64 and
+    gives sklearn's value at every n."""
+    from sklearn.metrics import adjusted_rand_score as sk_ari
+
+    t = np.arange(n) % 2
+    p = (np.arange(n) // 7) % 2
+    assert tm.adjusted_rand_score(t, p) == pytest.approx(sk_ari(t, p),
+                                                         rel=1e-9)
+    jax_value = float(jm.adjusted_rand_score(t, p))
+    if n == 46_341:
+        assert jax_value == pytest.approx(sk_ari(t, p), rel=1e-5)
+    elif n == 46_342:
+        assert abs(jax_value - sk_ari(t, p)) > 0.5

@@ -371,8 +371,10 @@ def test_unported_options_raise_naming_the_roadmap(data, kw, fit_input,
 
 
 def test_runtime_model_and_truncated_svd_raise_naming_the_roadmap(data):
-    """TruncatedSVD still raises naming its ROADMAP item; the runtime
-    model, ported since, returns finite positive cost surfaces."""
+    """Both parts of this test's old subject are ported now: the runtime
+    model returns finite positive cost surfaces, and the decomposition
+    facade's TruncatedSVD fits (its parity with the JAX package is in
+    ``tests/test_torch_truncated_svd.py``)."""
     from sq_learn_tpu_torch.decomposition import TruncatedSVD
 
     pca = QPCA(n_components=3).fit(data, estimate_all=True, eps=0.01,
@@ -382,8 +384,10 @@ def test_runtime_model_and_truncated_svd_raise_naming_the_roadmap(data):
     n, m, q, c = pca.runtime_comparison(100, 10)
     assert q.shape == c.shape == n.shape == (100, 100)
     assert np.isfinite(q).all() and (q > 0).all()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TruncatedSVD(n_components=2)
+    svd = TruncatedSVD(n_components=2, algorithm="arpack").fit(data)
+    assert svd.components_.shape == (2, data.shape[1])
+    assert np.isfinite(svd.singular_values_).all()
+    assert (np.diff(svd.singular_values_) <= 0).all()
 
 
 def test_float32_compute_dtype_engages_the_partial_u_route():
