@@ -660,7 +660,6 @@ def minibatch_fit(X, torch):
     centers = torch.as_tensor(fit.cluster_centers_, device=dev)
     counts = torch.as_tensor(fit.counts_, device=dev)
     n_pad = -(-Xd.shape[0] // 1024) * 1024 - Xd.shape[0]
-    Xp = torch.cat([Xd, Xd[:n_pad]])
     wp = torch.cat([w, torch.zeros(n_pad, device=dev)])
     kw = {"delta": 0.5, "mode": "delta", "reassignment_ratio": 0.01}
     steps = {
@@ -669,10 +668,10 @@ def minibatch_fit(X, torch):
             tmb.minibatch_step(gen, Xd[:1024], w[:1024], centers, counts, 9,
                                **kw),
         "one epoch (69 steps, the permutation included)": lambda:
-            tmb.minibatch_epoch(gen, Xp, wp, centers, counts, 0, batch=1024,
+            tmb.minibatch_epoch(gen, Xd, wp, centers, counts, 0, batch=1024,
                                 **kw),
         "init selection (3 candidates on 3072 rows)": lambda:
-            fit._select_init(gen, Xp, wp, 1024, Xd.shape[0], 3, 0.5),
+            fit._select_init(gen, Xd, w, 1024, 3, 0.5),
         "labels and inertia of all rows": lambda: fit._full_assign(Xd, w),
     }
     for name, fn in steps.items():

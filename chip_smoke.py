@@ -1307,12 +1307,12 @@ def cicids_standardized(torch):
     return Xs, y, scale_s
 
 
-def lloyd_shape_phase(torch):
+def lloyd_shape_phase(Xs, torch):
     """The Lloyd kernel at the δ-sweep's shape (50 000 × 78, k=6, R=10;
     rows of 312 bytes take the kernel's unaligned staging) against its
-    plain version: window 0, and 0.5 on a fed Gumbel operand. Returns the
-    shape's entry for the kernel's JSON line."""
-    Xs, _, _ = cicids_standardized(torch)
+    plain version on the standardized CICIDS surrogate ``Xs``: window 0,
+    and 0.5 on a fed Gumbel operand. Returns the shape's entry for the
+    kernel's JSON line."""
     Xc = Xs - Xs.mean(dim=0)
     operands = lloyd_operands(Xc, SWEEP_K, R, torch)
     cases = [("float32", Xc, None, 0.0, True),
@@ -1328,11 +1328,12 @@ def lloyd_shape_phase(torch):
             "window_0_plain_ms": report[("float32", 0.0)]["plain_ms"]}
 
 
-def delta_sweep_path(torch):
+def delta_sweep_path(Xs, y, torch):
     """BASELINE #5, ``examples/delta_tradeoff.py:48-85`` at
-    ``--n-samples 50000``: the CICIDS surrogate standardized on the card,
-    then QKMeans(n_clusters=6, n_init=10, delta=δ,
-    true_distance_estimate=False, random_state=0) at each δ, with the
+    ``--n-samples 50000``: the CICIDS surrogate standardized on the card
+    (``Xs``, labels ``y``, from :func:`cicids_standardized`), then
+    QKMeans(n_clusters=6, n_init=10, delta=δ, true_distance_estimate=False,
+    random_state=0) at each δ, with the
     Lloyd launches of each fit counted from 0. Then a δ=0 fit on the card
     against the same fit on the CPU. Returns the sweep's launches."""
     import warnings
@@ -1342,9 +1343,6 @@ def delta_sweep_path(torch):
     from sq_learn_tpu_torch.models import QKMeans
     from sq_learn_tpu_torch.ops.kernels import lloyd_step
 
-    Xs, y, scale_s = cicids_standardized(torch)
-    print(f"δ-sweep: load_cicids({SWEEP_N}) surrogate, StandardScaler on "
-          f"the card {scale_s:.4f} s", flush=True)
     total = 0
     for delta in SWEEP_DELTAS:
         est = QKMeans(n_clusters=SWEEP_K, n_init=10, delta=delta,
@@ -1478,7 +1476,8 @@ def grid_search_path(X, y, torch):
     over GRID with StratifiedKFold(5), one argkmin launch per fold's
     predict and none for the refit; then the refit pipeline's predict
     against its steps run one by one, and a small search on the card
-    against the CPU. Returns the search's argkmin launches."""
+    against the CPU. Returns the search's argkmin launches, in all and
+    by (width, k)."""
     import numpy as np
 
     from sq_learn_tpu_torch import config_context
@@ -1492,13 +1491,20 @@ def grid_search_path(X, y, torch):
                             cv=StratifiedKFold(GRID_FOLDS)).fit(Xs, ys)
 
     argkmin.launches = 0
+    argkmin.by_shape.clear()
     t0 = time.perf_counter()
     gs = search(X, y)
     wall = time.perf_counter() - t0
     launches = argkmin.launches
+    by_shape = dict(argkmin.by_shape)
     n_fits = len(ParameterGrid(GRID)) * GRID_FOLDS
     check(launches == n_fits, f"grid search launched argkmin {launches} "
                               f"times, not once per fold ({n_fits})")
+    expected = {(p["pca__n_components"], p["knn__n_neighbors"]): GRID_FOLDS
+                for p in ParameterGrid(GRID)}
+    check(by_shape == expected,
+          f"grid search launched argkmin {by_shape} times by (width, k), "
+          f"not {expected}")
     res = gs.cv_results_
     scores = res["split_test_scores"]
     check(scores.min() >= GRID_SCORE_FLOOR,
@@ -1509,7 +1515,8 @@ def grid_search_path(X, y, torch):
           f"grid search: best_score_ {gs.best_score_} is not its row's mean")
     print(f"GridSearchCV(scale → QPCA → k-NN, {GRID}, StratifiedKFold("
           f"{GRID_FOLDS})) {N}×{M}: {wall:.4f} s, argkmin launches "
-          f"{launches}, best_params_ {gs.best_params_}, best_score_ "
+          f"{launches} (by (width, k): {by_shape}), best_params_ "
+          f"{gs.best_params_}, best_score_ "
           f"{gs.best_score_}, split_test_scores {scores.tolist()}",
           flush=True)
     Xq = X[:10_000]
@@ -1535,17 +1542,16 @@ def grid_search_path(X, y, torch):
           f"small grid search: card and CPU cv_results_ differ by {diff}")
     print(f"small grid search 3000×{M}: card == CPU (split scores within "
           f"{diff})", flush=True)
-    return launches
+    return launches, by_shape
 
 
-def argkmin_fold_phase(X, torch):
+def argkmin_fold_phase(X, by_shape, torch):
     """The search kernel at the grid search's fold shape: 14 000 queries
     against 56 000 training rows of the standardized surrogate projected
-    by QPCA to width 40 and 61, k=7, held against its plain version and
-    the exact lists and timed. Returns the shapes' entries."""
+    by QPCA to each width of GRID, at each k of GRID, held against its
+    plain version and the exact lists and timed. ``by_shape`` holds the
+    grid search's launches by (width, k). Returns the shapes' entries."""
     from sq_learn_tpu_torch.models import QPCA
-    from sq_learn_tpu_torch.ops.kernels import (argkmin, argkmin_reference,
-                                                argkmin_work)
     from sq_learn_tpu_torch.preprocessing import StandardScaler
 
     n_train = N * (GRID_FOLDS - 1) // GRID_FOLDS
@@ -1557,35 +1563,48 @@ def argkmin_fold_phase(X, torch):
         T = pca.transform(Xs[:n_train]).contiguous()
         Q = pca.transform(Xs[n_train:]).contiguous()
         tsq = torch.sum(T * T, dim=1)
-        idx, d2 = argkmin(T, tsq, Q, KNN_K)
-        ref_i, ref_d = argkmin_reference(T, tsq, Q, KNN_K)
-        torch.cuda.synchronize()
-        err = float((d2 - ref_d).abs().max())
-        # projected rows lie close: d2 cancels ‖q‖² + ‖t‖² against 2·q·t,
-        # so its float32 error is held at D2_RTOL of those terms
-        tol = D2_RTOL * (torch.sum(Q * Q, dim=1)[:, None] + tsq.max())
-        check(bool(((d2 - ref_d).abs() <= tol).all()),
-              f"argkmin width {width}: d2 off the plain version's by {err}")
-        held = hold_lists(f"width {width}", idx, d2, ref_i, ref_d, Q, T,
-                          torch)
-        again = argkmin(T, tsq, Q, KNN_K)
-        check(bool(torch.equal(again[0], idx) and torch.equal(again[1], d2)),
-              f"argkmin width {width}: two launches differ")
-        ms = time_ms(lambda: argkmin(T, tsq, Q, KNN_K))
-        plain_ms = time_ms(lambda: argkmin_reference(T, tsq, Q, KNN_K))
-        nbytes, ops = argkmin_work(Q.shape[0], T.shape[0], width, KNN_K)
-        bytes_ms, ops_ms = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
-        entry = {"shape": f"{Q.shape[0]}x{T.shape[0]}x{width} k={KNN_K}",
-                 "launches": None, "max_abs_err": err, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                 "bound_by": "bytes" if bytes_ms >= ops_ms
-                 else "operations"}
-        entries.append(entry)
-        print(f"argkmin at the grid search's fold shape {entry['shape']}: "
-              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-              f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}); {held}",
-              flush=True)
+        for k in GRID["knn__n_neighbors"]:
+            entries.append(argkmin_fold_case(T, tsq, Q, k,
+                                             by_shape[(width, k)], torch))
     return entries
+
+
+def argkmin_fold_case(T, tsq, Q, k, launches, torch):
+    """One (width, k) of :func:`argkmin_fold_phase`: the kernel held
+    against its plain version and the exact lists, twice bit-equal, and
+    timed. Returns its entry, with the grid search's ``launches``."""
+    from sq_learn_tpu_torch.ops.kernels import (argkmin, argkmin_reference,
+                                                argkmin_work)
+
+    width = T.shape[1]
+    idx, d2 = argkmin(T, tsq, Q, k)
+    ref_i, ref_d = argkmin_reference(T, tsq, Q, k)
+    torch.cuda.synchronize()
+    err = float((d2 - ref_d).abs().max())
+    # projected rows lie close: d2 cancels ‖q‖² + ‖t‖² against 2·q·t, so
+    # its float32 error is held at D2_RTOL of those terms
+    tol = D2_RTOL * (torch.sum(Q * Q, dim=1)[:, None] + tsq.max())
+    check(bool(((d2 - ref_d).abs() <= tol).all()),
+          f"argkmin width {width} k={k}: d2 off the plain version's by "
+          f"{err}")
+    held = hold_lists(f"width {width} k={k}", idx, d2, ref_i, ref_d, Q, T,
+                      torch)
+    again = argkmin(T, tsq, Q, k)
+    check(bool(torch.equal(again[0], idx) and torch.equal(again[1], d2)),
+          f"argkmin width {width} k={k}: two launches differ")
+    ms = time_ms(lambda: argkmin(T, tsq, Q, k))
+    plain_ms = time_ms(lambda: argkmin_reference(T, tsq, Q, k))
+    nbytes, ops = argkmin_work(Q.shape[0], T.shape[0], width, k)
+    bytes_ms, ops_ms = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+    entry = {"shape": f"{Q.shape[0]}x{T.shape[0]}x{width} k={k}",
+             "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"argkmin at the grid search's fold shape {entry['shape']}: "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}), grid search "
+          f"launches {launches}; {held}", flush=True)
+    return entry
 
 
 def minibatch_path(X, y, full_inertia, torch):
@@ -1863,15 +1882,20 @@ def main():
           "path D launched a kernel")
     print(f"path D: {time.perf_counter() - t0:.3f} s", flush=True)
 
+    # BASELINE #5's data, standardized on the card once for the Lloyd
+    # kernel's phase at its shape and for the δ-sweep
+    Xsweep, ysweep, scale_s = cicids_standardized(torch)
+    print(f"load_cicids({SWEEP_N}) surrogate, StandardScaler on the card "
+          f"{scale_s:.4f} s", flush=True)
     # the Lloyd kernel at the δ-sweep's shape, against its plain version
     t0 = time.perf_counter()
-    sweep_entry = lloyd_shape_phase(torch)
+    sweep_entry = lloyd_shape_phase(Xsweep, torch)
     print(f"Lloyd kernel phase at {sweep_entry['shape']}: "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     # BASELINE #5, the δ-sweep: its Lloyd launches join the kernel's
     lloyd_step.launches = argkmin.launches = 0
     t0 = time.perf_counter()
-    sweep_entry["launches"] = delta_sweep_path(torch)
+    sweep_entry["launches"] = delta_sweep_path(Xsweep, ysweep, torch)
     check(argkmin.launches == 0, "the δ-sweep launched argkmin")
     entry["launches"] += sweep_entry["launches"]
     entry["shapes"] = [sweep_entry]
@@ -1890,17 +1914,14 @@ def main():
     # the error-budget grid search: its argkmin launches join the kernel's
     lloyd_step.launches = argkmin.launches = 0
     t0 = time.perf_counter()
-    grid_launches = grid_search_path(X, y, torch)
+    grid_launches, grid_by_shape = grid_search_path(X, y, torch)
     check(lloyd_step.launches == 0, "the grid search launched lloyd_step")
     knn_entry["launches"] += grid_launches
     print(f"grid search path: {time.perf_counter() - t0:.3f} s, argkmin "
           f"launches {grid_launches}, lloyd_step launches "
           f"{lloyd_step.launches}", flush=True)
     t0 = time.perf_counter()
-    knn_entry["shapes"] = argkmin_fold_phase(X, torch)
-    for shape in knn_entry["shapes"]:
-        # each width is half of the grid's settings
-        shape["launches"] = grid_launches // 2
+    knn_entry["shapes"] = argkmin_fold_phase(X, grid_by_shape, torch)
     print(f"argkmin fold-shape phase: {time.perf_counter() - t0:.3f} s",
           flush=True)
     # mini-batch q-means: plain torch steps, no kernel launch

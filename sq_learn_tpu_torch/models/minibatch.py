@@ -14,13 +14,13 @@ Streaming Lloyd after the reference's ``MiniBatchKMeans`` subclass of
   applies them);
 - ``partial_fit`` advances the same state by one batch.
 
-X is uploaded once per fit. Each epoch permutes the padded row block on
-the device and runs the steps in order; the host reads the epoch's batch
-inertias once, for the EWA stop rule. The JAX package runs the step in
-XLA (``minibatch.py:249-284``), not in its Pallas kernel, so the port
-runs it in plain torch ops. Its host engines (``_host_*``, the CPU route)
-and its tiny-fit routing are not ported: a fit runs on the device it is
-given.
+X is uploaded once per fit. Each epoch permutes the row positions, padded
+to whole batches, on the device and runs the steps in order; the host
+reads the epoch's batch inertias once, for the EWA stop rule. The JAX
+package runs the step in XLA (``minibatch.py:249-284``), not in its
+Pallas kernel, so the port runs it in plain torch ops. Its host engines
+(``_host_*``, the CPU route) and its tiny-fit routing are not ported: a
+fit runs on the device it is given.
 """
 
 import numbers
@@ -35,7 +35,7 @@ from ..base import (BaseEstimator, ClusterMixin, TransformerMixin,
 from ..ops.linalg import pairwise_sq_distances, row_norms
 from ..parallel.init import kmeans_plusplus_batched
 from ..utils.random import as_generator, gumbel
-from ..utils.validation import check_sample_weight, validation_scope
+from ..utils.validation import check_sample_weight
 from .qkmeans import _cluster_partials, e_step, tolerance
 from .qpca import _is_row_source
 
@@ -109,16 +109,18 @@ def minibatch_step(generator, Xb, wb, centers, counts, step_idx=0, *, delta,
     return new_centers, new_counts, inertia
 
 
-def minibatch_epoch(generator, Xp, wp, centers, counts, step0, *, batch,
+def minibatch_epoch(generator, X, wp, centers, counts, step0, *, batch,
                     delta, mode, ipe_q=5, reassignment_ratio=0.0):
-    """One epoch: a permutation of the padded row block on the device,
-    cut into batches of ``batch`` rows, then the steps in order. Weight-0
-    padding rows contribute nothing wherever they land. Returns (centers,
+    """One epoch: a permutation of the ``len(wp)`` row positions on the
+    device, cut into batches of ``batch`` rows, then the steps in order.
+    ``wp`` holds X's weights padded with zeros to whole batches; position
+    p gathers row ``p % n``, so a padding position repeats a real row at
+    weight 0 and contributes nothing wherever it lands. Returns (centers,
     counts, next step index, the batch inertias as one tensor)."""
-    perm = torch.randperm(Xp.shape[0], generator=generator,
-                          device=Xp.device)
-    n_batches = Xp.shape[0] // batch
-    batches = Xp[perm].reshape(n_batches, batch, Xp.shape[1])
+    perm = torch.randperm(wp.shape[0], generator=generator,
+                          device=X.device)
+    n_batches = wp.shape[0] // batch
+    batches = X[perm % X.shape[0]].reshape(n_batches, batch, X.shape[1])
     weights = wp[perm].reshape(n_batches, batch)
     inertias = []
     for i in range(n_batches):
@@ -194,10 +196,9 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
     # -- streaming state ---------------------------------------------------
 
     def _init_state(self, generator, Xd, w, n):
-        """Initial centers and zero counts from the (possibly padded) rows
-        ``Xd``; ``n`` is the real row count. Padded rows carry weight 0, so
-        the weighted k-means++ never picks them, and 'random' draws from
-        the first ``n`` rows."""
+        """Initial centers and zero counts from the ``n`` rows ``Xd`` with
+        weights ``w``: the weighted k-means++ never picks a row of weight
+        0, and 'random' draws uniformly from the rows."""
         k = self.n_clusters
         if isinstance(self.init, str) and self.init == "k-means++":
             centers = kmeans_plusplus_batched(
@@ -216,17 +217,17 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                     f"({k}, {Xd.shape[1]})")
         return centers, torch.zeros(k, dtype=Xd.dtype, device=Xd.device)
 
-    def _padded_rows(self, X, sample_weight):
-        """(Xp, wp, b): the rows and weights padded on the device to a
-        whole number of batches of b rows; padded rows carry weight 0."""
+    def _padded_weights(self, X, sample_weight):
+        """(wp, b): the weights padded with zeros on the device to a whole
+        number of batches of b rows. The rows are not copied: an epoch
+        gathers a padding position's row modulo n."""
         n = X.shape[0]
         b = min(self.batch_size, n)
         pad = -(-n // b) * b - n
         if not pad:
-            return X, sample_weight, b
-        return (torch.cat([X, X[:pad]]),
-                torch.cat([sample_weight, torch.zeros(
-                    pad, dtype=X.dtype, device=X.device)]), b)
+            return sample_weight, b
+        return torch.cat([sample_weight, torch.zeros(
+            pad, dtype=X.dtype, device=X.device)]), b
 
     def _resolve_init_size(self, b, n):
         """Upstream init_size resolution: 3·batch_size by default; a value
@@ -243,30 +244,32 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             init_size = 3 * self.n_clusters
         return int(min(max(init_size, self.n_clusters), n))
 
-    def _select_init(self, generator, Xp, wp, b, n, n_init, delta):
+    def _select_init(self, generator, X, w, b, n_init, delta):
         """Upstream init selection: each of ``n_init`` candidates is
         initialized on an ``init_size`` row sample and scored by one step
-        on a validation sample (rows drawn with replacement, padding never
-        drawn); the first of the lowest inertias wins, with zero counts.
-        One candidate is initialized on all rows and not scored."""
+        on a validation sample (rows drawn with replacement); the first of
+        the lowest inertias wins, with zero counts. One candidate is
+        initialized on all rows and not scored. ``w`` holds X's own
+        weights, unpadded."""
         if hasattr(self.init, "__array__") and n_init > 1:
             warnings.warn(
                 "Explicit initial center position passed: performing only "
                 "one init of the restart loop.", RuntimeWarning)
             n_init = 1
+        n = X.shape[0]
         if n_init == 1:
-            return self._init_state(generator, Xp, wp, n)
+            return self._init_state(generator, X, w, n)
         init_size = self._resolve_init_size(b, n)
-        dev = Xp.device
+        dev = X.device
         vidx = torch.randint(0, n, (init_size,), generator=generator,
                              device=dev)
-        Xv, wv = Xp[vidx], wp[vidx]
+        Xv, wv = X[vidx], w[vidx]
         candidates, inertias = [], []
         for _ in range(n_init):
             sidx = torch.randint(0, n, (init_size,), generator=generator,
                                  device=dev)
-            centers, counts = self._init_state(generator, Xp[sidx],
-                                               wp[sidx], init_size)
+            centers, counts = self._init_state(generator, X[sidx],
+                                               w[sidx], init_size)
             _, _, inertia = minibatch_step(
                 generator, Xv, wv, centers, counts, 0,
                 **self._step_kw(delta, reassignment=False))
@@ -279,21 +282,20 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         return (torch.stack([c for c, _ in candidates])[best],
                 torch.stack([c for _, c in candidates])[best])
 
-    def _fit_loop(self, generator, Xp, wp, b, n, centers, counts, delta,
-                  tol_):
+    def _fit_loop(self, generator, X, wp, b, centers, counts, delta, tol_):
         """Epochs of mini-batch steps with the EWA-inertia stop rule (the
         reference's ``_mini_batch_convergence``, on the host): one read of
         the epoch's batch inertias, and of the center shift when
         ``tol_`` > 0."""
         ewa = None
-        alpha = 2.0 * b / (n + 1)
+        alpha = 2.0 * b / (X.shape[0] + 1)
         no_improve = 0
         best_ewa = np.inf
         prev_centers = None
         it = step = 0
         for epoch in range(self.max_iter):
             centers, counts, step, inertias = minibatch_epoch(
-                generator, Xp, wp, centers, counts, step, batch=b,
+                generator, X, wp, centers, counts, step, batch=b,
                 **self._step_kw(delta))
             it = epoch + 1
             for bi in inertias.cpu().numpy():
@@ -337,11 +339,11 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         n_init = self._resolved_n_init()
         generator = as_generator(self.random_state, X.device)
         tol_ = tolerance(X, self.tol)
-        Xp, wp, b = self._padded_rows(X, sample_weight)
-        centers, counts = self._select_init(generator, Xp, wp, b, X.shape[0],
+        wp, b = self._padded_weights(X, sample_weight)
+        centers, counts = self._select_init(generator, X, sample_weight, b,
                                             n_init, delta)
         centers, counts, n_iter, n_steps = self._fit_loop(
-            generator, Xp, wp, b, X.shape[0], centers, counts, delta, tol_)
+            generator, X, wp, b, centers, counts, delta, tol_)
         self.cluster_centers_ = centers.cpu().numpy()
         self.counts_ = counts.cpu().numpy()
         # n_iter_ counts epochs, n_steps_ batches (sklearn's semantics); the
@@ -411,10 +413,6 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
 
         X = self._inference_input(X)
         return euclidean_distances(X, self._centers_tensor(X)).cpu().numpy()
-
-    def fit_transform(self, X, y=None, sample_weight=None):
-        with validation_scope(self):
-            return self.fit(X, sample_weight=sample_weight).transform(X)
 
     def score(self, X, y=None, sample_weight=None):
         """Negative inertia of X under the fitted centers."""

@@ -9,9 +9,11 @@ partials. :func:`argkmin` is the fused k-nearest search, the twin of
 kernel (``csrc/lloyd.cu``, ``csrc/argkmin.cu``, built at first use, see
 :mod:`._build`) or raises; on a CPU tensor it runs its plain torch version
 (:func:`lloyd_step_reference`, :func:`argkmin_reference`).
-``lloyd_step.launches`` and ``argkmin.launches`` count kernel launches.
+``lloyd_step.launches`` and ``argkmin.launches`` count kernel launches;
+``argkmin.by_shape`` counts the search's launches by (width m, k).
 """
 
+import collections
 import ctypes
 import math
 import numbers
@@ -408,8 +410,9 @@ def argkmin(X_train, x_sq_train, X_query, k):
     k : int with 1 ≤ k ≤ nt.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    of ``csrc/argkmin.cu`` (and counts it in ``argkmin.launches``) or
-    raises. Returns idx (nq, k) int32 and d2 (nq, k) float32.
+    of ``csrc/argkmin.cu`` (and counts it in ``argkmin.launches`` and in
+    ``argkmin.by_shape[(m, k)]``) or raises. Returns idx (nq, k) int32
+    and d2 (nq, k) float32.
     """
     nt, nq, m, k = _check_argkmin_args(X_train, x_sq_train, X_query, k)
     dev = X_train.device
@@ -442,10 +445,12 @@ def argkmin(X_train, x_sq_train, X_query, k):
     if err != 0:
         raise _argkmin_error(lib, "kernel launch failed", err)
     argkmin.launches += 1
+    argkmin.by_shape[(m, k)] += 1
     return idx, d2
 
 
 argkmin.launches = 0
+argkmin.by_shape = collections.Counter()
 
 
 def argkmin_work(nq, nt, m, k):

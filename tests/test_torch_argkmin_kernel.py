@@ -8,6 +8,7 @@ training rows. Tolerances are the JAX test's own: indices equal, d2 at
 rtol 1e-4 and atol 1e-4 (float32 products summed in another order).
 """
 
+import collections
 import math
 
 import jax.numpy as jnp
@@ -53,9 +54,11 @@ def test_matches_pallas(nt, nq, m, k, duplicates):
                             jnp.asarray(Xq), k, tile_q=64, tile_t=128,
                             interpret=True)
     before = argkmin.launches
+    before_shape = argkmin.by_shape[(m, k)]
     ti, td = argkmin(torch.from_numpy(Xt), torch.from_numpy(xsq),
                      torch.from_numpy(Xq), k)
     assert argkmin.launches == before  # the CPU runs the plain version
+    assert argkmin.by_shape[(m, k)] == before_shape
     assert ti.dtype == torch.int32 and td.dtype == torch.float32
     assert ti.shape == td.shape == (nq, k)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(pi))
@@ -232,6 +235,10 @@ def test_launch_counter_is_a_plain_int():
     assert isinstance(kernels.argkmin.launches, int)
 
 
+def test_launches_are_also_counted_by_width_and_k():
+    assert isinstance(kernels.argkmin.by_shape, collections.Counter)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -270,9 +277,11 @@ def test_cuda_kernel_matches_reference(cuda_device, nt, nq, m, k, route):
     T, Q = T.to(cuda_device), Q.to(cuda_device)
     xsq = torch.sum(T * T, dim=1)
     before = argkmin.launches
+    before_shape = argkmin.by_shape[(m, k)]
     idx, d2 = argkmin(T, xsq, Q, k)
     torch.cuda.synchronize()
     assert argkmin.launches == before + 1
+    assert argkmin.by_shape[(m, k)] == before_shape + 1
     ref_i, ref_d = argkmin_reference(T, xsq, Q, k)
     assert torch.equal(idx, ref_i)
     assert torch.equal(d2, ref_d)

@@ -134,6 +134,35 @@ def test_epoch_runs_every_batch_and_padding_weighs_nothing():
     assert float(n.sum()) == pytest.approx(float(wb.sum()), rel=1e-6)
 
 
+def test_epoch_gathers_padding_positions_modulo_n():
+    """Positions past the n rows gather row p % n: the epoch equals the
+    same epoch over the block with those rows copied in, bit for bit."""
+    Xb, wb, centers, counts = _batch(4, b=100)
+    X = torch.from_numpy(Xb)
+    wp = torch.cat([torch.from_numpy(wb), torch.zeros(28)])
+    out = [tmb.minibatch_epoch(
+        torch.Generator().manual_seed(2), rows, wp,
+        torch.from_numpy(centers), torch.from_numpy(counts), 0, batch=32,
+        delta=0.0, mode="classic", reassignment_ratio=0.01)
+        for rows in (X, torch.cat([X, X[:28]]))]
+    assert out[0][2] == out[1][2] == 4
+    for a, b in zip(out[0][:2] + out[0][3:], out[1][:2] + out[1][3:]):
+        assert torch.equal(a, b)
+    assert float(out[0][1].sum() - torch.from_numpy(counts).sum()) == \
+        pytest.approx(float(wb.sum()), rel=1e-6)
+
+
+def test_fit_transform_takes_sample_weight(blobs):
+    X, _ = blobs
+    w = np.random.default_rng(5).uniform(0.5, 2.0, X.shape[0])
+    kw = {"n_clusters": 4, "batch_size": 100, "random_state": 0}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        direct = MiniBatchKMeans(**kw).fit(X, sample_weight=w).transform(X)
+        both = MiniBatchKMeans(**kw).fit_transform(X, sample_weight=w)
+    np.testing.assert_array_equal(both, direct)
+
+
 @pytest.mark.parametrize("delta", [0.0, 0.5])
 def test_fit_on_blobs_agrees_with_the_jax_device_path(blobs, delta,
                                                       monkeypatch):
