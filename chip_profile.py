@@ -63,7 +63,11 @@ that call's wall clock, host time by operator):
   delta=0.5, true_distance_estimate=False, random_state=0)``), cold and
   warm, under the profiler, its host syncs, and its steps in device ms:
   the scaler, prestats with the sketch, init, the Gumbel draw, one Lloyd
-  step of the 10 restarts, relocation and update, the final E-step;
+  step of the 10 restarts, relocation and update, the final E-step; then
+  the same fit with obs on (``obs.enable(<file>)``): warm wall clock,
+  under the profiler, its host syncs beside the obs-off count, the
+  records it writes, and the audit's own pieces alone (the fit's
+  δ-window replay on 256 rows, the sketch's exact-μ audit);
 - one fold of the error-budget grid search (scale → QPCA(61) → 7-NN,
   56 000 training and 14 000 test rows): the host's index copies, the
   pipeline's fit and score, then under the profiler;
@@ -629,6 +633,76 @@ def delta_sweep_fit(torch):
     for name, fn in steps.items():
         print(f"δ-sweep step, {name}: {events_ms(fn, torch):.4f} device ms",
               flush=True)
+    delta_sweep_fit_with_obs(est, Xs, idx, syncs, torch)
+
+
+def wall_ms(fn, torch, reps=5):
+    """Median host milliseconds of ``fn`` up to the device's end, after one
+    warm-up (for steps that make the host wait inside)."""
+    import statistics
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def delta_sweep_fit_with_obs(est, Xs, idx, syncs_off, torch):
+    """The δ-sweep fit with obs on, beside the obs-off run: wall clock,
+    profile, host syncs, the records, and the audit's pieces alone."""
+    import tempfile
+
+    from sq_learn_tpu_torch import obs
+    from sq_learn_tpu_torch.base import clone
+    from sq_learn_tpu_torch.models import qkmeans as tqk
+    from sq_learn_tpu_torch.sketch import engine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit.jsonl")
+        obs.enable(path)
+        try:
+            for label in ("warm", "warm"):
+                t0 = time.perf_counter()
+                clone(est).fit(Xs)
+                print(f"{label} δ-sweep fit with obs on: "
+                      f"{time.perf_counter() - t0:.4f} s", flush=True)
+            profiled("δ-sweep fit with obs on", lambda: clone(est).fit(Xs),
+                     torch)
+            obs.enable(path)  # a fresh run: the one fit's records
+            fit, syncs = count_syncs(lambda: clone(est).fit(Xs), torch)
+            rec = obs.get_recorder()
+            sites = {}
+            for g in rec.guarantee_records:
+                sites[g["site"]] = sites.get(g["site"], 0) + 1
+            print(f"δ-sweep fit with obs on: {syncs} host syncs (CUDA sync "
+                  f"debug mode; {syncs_off} with obs off), "
+                  f"{len(rec.spans)} spans "
+                  f"({sorted({sp['name'] for sp in rec.spans})}), "
+                  f"{len(rec.ledger_entries)} ledger entries, guarantee "
+                  f"records by site {sites}", flush=True)
+            sstats = engine.finalize_components(
+                engine.fetch_components(engine.sketch_components(
+                    Xs, idx, tqk.MU_GRID)), n=Xs.shape[0], m=Xs.shape[1],
+                s=idx.shape[0], mu_grid=tqk.MU_GRID, delta_stat=0.05)
+            pieces = {
+                "the fit's δ-window replay (256 rows)": lambda:
+                    fit._audit_fit_entry(Xs, 0, torch.as_tensor(
+                        fit.cluster_centers_, device=Xs.device)),
+                "the sketch's exact-μ audit": lambda:
+                    engine.audit_sketch(sstats, Xs),
+                "the ledger entry": lambda: fit._ledger_fit_entry(Xs),
+            }
+            for name, fn in pieces.items():
+                _, n_syncs = count_syncs(fn, torch)
+                print(f"δ-sweep obs piece, {name}: {wall_ms(fn, torch):.4f} "
+                      f"host ms, {n_syncs} host syncs", flush=True)
+        finally:
+            obs.disable()
 
 
 def minibatch_fit(X, torch):

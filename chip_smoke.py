@@ -118,6 +118,22 @@ each of which fails the run:
      QKMeans fit's, five ``partial_fit`` calls;
    - ``FeatureHasher(1024)`` over 100 000 dict rows: the card's tensor
      equals the CPU's.
+   - the accuracy-vs-quantum-runtime study (``examples/runtime_tradeoff.py``
+     at the papers' sizes) under ``obs.enable(<artifact>)``: leg 1 refits
+     the δ-sweep with obs on (labels bit-equal to the obs-off fits, the
+     same Lloyd launches, both wall clocks printed; one ``tradeoff``
+     record per δ with ARI and ``quantum_runtime_model``) and fits q-means
+     once at its IPE route; leg 2 fits ``QPCA(61)`` on
+     ``load_mnist_surrogate_low_margin(70_000)``, and for ε+δ in
+     TRADEOFF_ERRS takes the Gaussian-tomography quantum transform,
+     scores a holdout 7-NN (60 000 train rows, 10 000 queries: argkmin at
+     10 000 × 60 000 × 61, k=7) against TRADEOFF_ACC_FLOOR and prices the
+     point with ``accumulate_q_runtime`` of a 10 000-row twin fit. The
+     artifact must validate with 0 schema errors, audit with no flagged
+     site and no violation at a ``fail_prob`` 0 site, hold exactly the
+     guarantee sites and ledger steps of TRADEOFF_SITES/TRADEOFF_STEPS,
+     and ``python -m sq_learn_tpu_torch.obs frontier`` must print the
+     table ``obs.frontier.render`` gave.
 5. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
@@ -240,6 +256,35 @@ SMALL_GRID_ATOL = 1e-6  # cv_results_ of the small search, card against CPU
 # (tests/test_minibatch.py:240's own tolerance)
 MB_BATCH, MB_ARI_FLOOR, MB_INERTIA_RTOL = 1024, 0.95, 0.10
 HASH_ROWS, HASH_FEATURES = 100_000, 1024
+# the accuracy-vs-quantum-runtime study, examples/runtime_tradeoff.py at the
+# papers' sizes. Leg 1 is the δ-sweep above with obs on, plus one fit at
+# q-means' IPE route; leg 2 is the qPCA ε+δ sweep of
+# examples/qpca_error_tradeoff.py:36 on the low-margin MNIST surrogate
+# (70 000 × 784), a holdout 7-NN on the first 60 000 rows and the QADRA
+# accountant of a twin fit of the first 10 000 rows at ε = δ = (ε+δ)/2
+TRADEOFF_IPE_DELTA = 0.5
+TRADEOFF_N, TRADEOFF_TRAIN, TRADEOFF_TWIN = 70_000, 60_000, 10_000
+TRADEOFF_COMPONENTS, TRADEOFF_KNN = 61, 7
+TRADEOFF_ERRS = (0.2, 0.8, 1.6, 3.2)
+# the holdout accuracy floors: the JAX package's lowest accuracy over
+# QPCA random_state 0-9 (the tomography noise) at the same sizes, less 1.5×
+# its spread (highest − lowest), measured on a CPU by `PYTHONPATH=.
+# JAX_PLATFORMS=cpu python tests/test_torch_obs_tradeoff.py`; its
+# accuracies were 0.9905–0.9906, 0.9904–0.9907, 0.9904–0.9907 and
+# 0.9904–0.9906 (the Gaussian noise of ε+δ spread over 70 000 × 61
+# entries barely moves the 7-NN vote)
+TRADEOFF_ACC_FLOOR = {0.2: 0.9903500000000001, 0.8: 0.9899499999999999,
+                      1.6: 0.9899499999999999, 3.2: 0.9900999999999998}
+# the guarantee sites and ledger (estimator, step) pairs both legs record:
+# what the JAX package's accelerator route records for the same legs at a
+# small size with the same routes (the sketch engaged in leg 1, exact in
+# the twin fit), pinned by tests/test_torch_obs_tradeoff.py
+TRADEOFF_SITES = frozenset({
+    "consistent_phase_estimation", "ipe", "phase_estimation",
+    "qkmeans.delta_window", "qpca.sv_estimate", "sketch.mu", "sketch.stats",
+    "tomography.gaussian"})
+TRADEOFF_STEPS = frozenset({("knn", "search"), ("qkmeans", "fit"),
+                            ("qpca", "topk_extract")})
 
 
 def check(cond, msg):
@@ -1335,7 +1380,8 @@ def delta_sweep_path(Xs, y, torch):
     QKMeans(n_clusters=6, n_init=10, delta=δ, true_distance_estimate=False,
     random_state=0) at each δ, with the
     Lloyd launches of each fit counted from 0. Then a δ=0 fit on the card
-    against the same fit on the CPU. Returns the sweep's launches."""
+    against the same fit on the CPU. Returns the sweep's launches and, per
+    δ, the fit's (labels, Lloyd launches, wall seconds)."""
     import warnings
 
     import numpy as np
@@ -1344,6 +1390,7 @@ def delta_sweep_path(Xs, y, torch):
     from sq_learn_tpu_torch.ops.kernels import lloyd_step
 
     total = 0
+    sweep = {}
     for delta in SWEEP_DELTAS:
         est = QKMeans(n_clusters=SWEEP_K, n_init=10, delta=delta,
                       true_distance_estimate=False, random_state=0)
@@ -1355,6 +1402,7 @@ def delta_sweep_path(Xs, y, torch):
         wall = time.perf_counter() - t0
         launches = lloyd_step.launches
         total += launches
+        sweep[delta] = (est.labels_, launches, wall)
         check(launches > 0, f"δ-sweep δ={delta}: no Lloyd launch")
         check(np.isfinite(est.cluster_centers_).all()
               and np.isfinite(est.inertia_), f"δ-sweep δ={delta}: not finite")
@@ -1388,7 +1436,211 @@ def delta_sweep_path(Xs, y, torch):
           f"{int((card.labels_ != cpu.labels_).sum())} labels")
     print(f"δ-sweep δ=0 from one init: card == CPU (labels, n_iter "
           f"{cpu.n_iter_})", flush=True)
-    return total
+    return total, sweep
+
+
+def tradeoff_legs(Xs, ys, Xm, ym, *, n_train, twin_rows, n_components,
+                  errs=TRADEOFF_ERRS, deltas=SWEEP_DELTAS, sketch="auto"):
+    """Both legs of the accuracy-vs-quantum-runtime study through the
+    port's entry points, recording one ``tradeoff`` per point into the
+    caller's obs run (``examples/runtime_tradeoff.py:37-123``).
+
+    Leg 1 on the standardized CICIDS rows ``Xs`` (labels ``ys``):
+    QKMeans(n_clusters=6, n_init=10, delta=δ, true_distance_estimate=False,
+    random_state=0, sketch=sketch) for each δ — ARI against ``ys``, and
+    ``quantum_runtime_model`` at the data's shape for δ > 0 — then one fit
+    at the IPE route (δ = TRADEOFF_IPE_DELTA). Leg 2 on ``Xm`` (labels
+    ``ym``): one QPCA(n_components) fit; θ, the median singular value of a
+    plain fit of the first ``twin_rows`` rows; then per ε+δ the Gaussian
+    tomography quantum transform, a k-NN (TRADEOFF_KNN) fitted on its
+    first ``n_train`` rows and scored on the rest, and the QADRA
+    accountant of the twin fit at ε = δ = (ε+δ)/2, priced at ``Xm``'s
+    shape. Tensors stay on their device. Returns, per δ, the fit's
+    labels, Lloyd launches, seconds, ARI, q_runtime and κ, the IPE fit's,
+    and per ε+δ the accuracy, q_runtime, top-k, the twin's μ(A), argkmin
+    launches and seconds."""
+    import warnings
+
+    import numpy as np
+
+    from sq_learn_tpu_torch import obs
+    from sq_learn_tpu_torch.models import QPCA, KNeighborsClassifier, QKMeans
+    from sq_learn_tpu_torch.ops.kernels import argkmin, lloyd_step
+
+    def qkmeans(delta, ipe):
+        est = QKMeans(n_clusters=SWEEP_K, n_init=10, delta=delta,
+                      true_distance_estimate=ipe, random_state=0,
+                      sketch=sketch)
+        lloyd_step.launches = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # δ=0's classic notice
+            est.fit(Xs)
+        return {"labels": est.labels_, "launches": lloyd_step.launches,
+                "wall": time.perf_counter() - t0, "ari": ari(ys, est.labels_),
+                "est": est}
+
+    out = {"sweep": {}, "qpca": {}}
+    for delta in deltas:
+        fit = out["sweep"][delta] = qkmeans(delta, False)
+        q_rt = c_rt = None
+        if delta > 0:
+            quantum, classical = fit["est"].quantum_runtime_model(*Xs.shape)
+            q_rt, c_rt = float(np.ravel(quantum)[0]), float(classical)
+            fit["kappa"] = fit["est"].condition_number_
+        fit["q_runtime"] = q_rt
+        obs.frontier.record_tradeoff(
+            "cicids_qkmeans_delta", delta, accuracy=fit["ari"],
+            accuracy_metric="ari", q_runtime=q_rt, c_runtime=c_rt,
+            wall_s=fit["wall"], budget={"delta": delta})
+    out["ipe"] = qkmeans(TRADEOFF_IPE_DELTA, True)
+
+    n, m = Xm.shape
+    pca = QPCA(n_components, svd_solver="full", random_state=0).fit(Xm)
+    twin = Xm[:twin_rows]
+    theta = float(np.median(QPCA(n_components, svd_solver="full",
+                                 random_state=0).fit(twin).singular_values_))
+    for err in errs:
+        argkmin.launches = 0
+        t0 = time.perf_counter()
+        Xq, _, f_norm = pca.transform(
+            Xm, classic_transform=False, epsilon_delta=err,
+            quantum_representation=True, norm="est_representation",
+            true_tomography=False)["quantum_representation_results"]
+        knn = KNeighborsClassifier(n_neighbors=TRADEOFF_KNN).fit(
+            Xq[:n_train], ym[:n_train])
+        acc = float(np.mean(knn.predict(Xq[n_train:]) == ym[n_train:]))
+        q = QPCA(n_components, svd_solver="full", random_state=0).fit(
+            twin, estimate_all=True, theta_major=theta, eps=err / 2,
+            delta=err / 2, true_tomography=False)
+        q_rt = float(np.sum([np.asarray(c, float)
+                             for c in q.accumulate_q_runtime(n, m)]))
+        wall = time.perf_counter() - t0
+        out["qpca"][err] = {"accuracy": acc, "q_runtime": q_rt, "wall": wall,
+                            "launches": argkmin.launches, "topk": q.topk,
+                            "muA": q.muA}
+        obs.frontier.record_tradeoff(
+            "mnist_qpca_eps_delta", err, accuracy=acc,
+            accuracy_metric="holdout_7nn_acc", q_runtime=q_rt,
+            c_runtime=float(n) * float(m) ** 2, wall_s=wall,
+            budget={"eps": err / 2, "delta": err / 2},
+            f_norm_err=float(f_norm))
+    return out
+
+
+def recorded_sites_and_steps(rec):
+    """(guarantee sites, ledger (estimator, step) pairs) of a recorder."""
+    return ({g["site"] for g in rec.guarantee_records},
+            {(e["estimator"], e["step"]) for e in rec.ledger_entries})
+
+
+def tradeoff_phase(Xs, ys, sweep, here, torch):
+    """The accuracy-vs-quantum-runtime study on the card, under
+    ``obs.enable(<artifact>)``: :func:`tradeoff_legs` at the papers'
+    sizes, leg 1 held against the obs-off δ-sweep ``sweep`` (labels bit
+    for bit, Lloyd launches), leg 2's accuracies against
+    TRADEOFF_ACC_FLOOR, then the artifact: schema, audit, sites and steps,
+    and the frontier CLI. Returns (Lloyd launches, argkmin launches)."""
+    import tempfile
+
+    import numpy as np
+
+    from sq_learn_tpu_torch import obs
+    from sq_learn_tpu_torch.datasets import load_mnist_surrogate_low_margin
+
+    t_phase = time.perf_counter()
+    Xm, ym = load_mnist_surrogate_low_margin(TRADEOFF_N)
+    Xm = torch.from_numpy(Xm).to(CARD)
+    data_s = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tradeoff.jsonl")
+        obs.enable(path)
+        try:
+            out = tradeoff_legs(Xs, ys, Xm, ym, n_train=TRADEOFF_TRAIN,
+                                twin_rows=TRADEOFF_TWIN,
+                                n_components=TRADEOFF_COMPONENTS)
+            audit = obs.guarantees.audit()
+            rec = obs.get_recorder()
+            rendered = obs.frontier.render(
+                obs.frontier.collect(rec.tradeoff_records))
+        finally:
+            rec = obs.disable()
+        lloyd = 0
+        for delta, (labels, launches, wall) in sweep.items():
+            fit = out["sweep"][delta]
+            lloyd += fit["launches"]
+            check(np.array_equal(fit["labels"], labels),
+                  f"trade-off δ={delta}: the obs-on fit's labels differ from "
+                  f"the obs-off fit's in "
+                  f"{int((fit['labels'] != labels).sum())} rows")
+            check(fit["launches"] == launches,
+                  f"trade-off δ={delta}: {fit['launches']} Lloyd launches "
+                  f"with obs on, {launches} with obs off")
+            print(f"trade-off δ={delta}: ARI {fit['ari']}, q_runtime "
+                  f"{fit['q_runtime']}, Lloyd launches {launches} (obs off "
+                  f"and on), fit {wall:.4f} s obs off, {fit['wall']:.4f} s "
+                  f"obs on", flush=True)
+        ipe = out["ipe"]
+        check(ipe["launches"] == 0, "the IPE fit launched lloyd_step")
+        print(f"trade-off IPE fit δ={TRADEOFF_IPE_DELTA}: ARI {ipe['ari']}, "
+              f"{ipe['wall']:.4f} s, n_iter {ipe['est'].n_iter_}",
+              flush=True)
+        knn = 0
+        for err, point in out["qpca"].items():
+            knn += point["launches"]
+            check(point["launches"] == 1,
+                  f"trade-off ε+δ={err}: {point['launches']} argkmin "
+                  f"launches, not 1")
+            check(np.isfinite(point["q_runtime"]) and point["q_runtime"] > 0,
+                  f"trade-off ε+δ={err}: q_runtime {point['q_runtime']}")
+            floor = TRADEOFF_ACC_FLOOR[err]
+            check(point["accuracy"] >= floor,
+                  f"trade-off ε+δ={err}: holdout accuracy "
+                  f"{point['accuracy']} < the JAX package's floor {floor}")
+            print(f"trade-off ε+δ={err}: holdout 7-NN accuracy "
+                  f"{point['accuracy']} (floor {floor}), q_runtime "
+                  f"{point['q_runtime']}, top-k {point['topk']}, "
+                  f"{point['wall']:.4f} s", flush=True)
+        report = obs.schema.validate_jsonl(path)
+        check(not report["errors"],
+              f"trade-off artifact: schema errors {report['errors']}")
+        flagged = sorted(s for s, a in audit.items() if a["flagged"])
+        check(not flagged, f"trade-off artifact: audit flagged {flagged}")
+        for site, a in audit.items():
+            check(a["fail_prob"] != 0.0 or a["violations"] == 0,
+                  f"trade-off artifact: {a['violations']} violations at "
+                  f"{site}, whose declared fail_prob is 0")
+        sites, steps = recorded_sites_and_steps(rec)
+        check(sites == TRADEOFF_SITES,
+              f"trade-off guarantee sites {sorted(sites)} ≠ the JAX "
+              f"package's {sorted(TRADEOFF_SITES)}")
+        check(steps == TRADEOFF_STEPS,
+              f"trade-off ledger steps {sorted(steps)} ≠ the JAX "
+              f"package's {sorted(TRADEOFF_STEPS)}")
+        env = dict(os.environ, PYTHONPATH=here)
+        t_cli = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "sq_learn_tpu_torch.obs", "frontier",
+             path], cwd=here, env=env, capture_output=True, text=True,
+            timeout=120)
+        cli_s = time.perf_counter() - t_cli
+        check(cli.returncode == 0,
+              f"the frontier CLI exited {cli.returncode}: {cli.stderr}")
+        check(cli.stdout.rstrip("\n").splitlines()[1:]
+              == rendered.splitlines(),
+              f"the frontier CLI printed\n{cli.stdout}\nnot\n{rendered}")
+        size = os.path.getsize(path)
+    print("trade-off guarantee audit:\n" + obs.guarantees.render(audit),
+          flush=True)
+    print("trade-off frontier (the CLI printed the same table):\n"
+          + rendered, flush=True)
+    print(f"trade-off artifact: {report['lines']} records "
+          f"({report['by_type']}), {size} bytes, 0 schema errors; sites "
+          f"{sorted(sites)}; steps {sorted(steps)}; phase "
+          f"{time.perf_counter() - t_phase:.3f} s (the 70 000 × 784 "
+          f"surrogate made and uploaded in {data_s:.3f} s, the frontier "
+          f"CLI's process {cli_s:.3f} s)", flush=True)
+    return lloyd, knn
 
 
 def truncated_svd_path(torch):
@@ -1895,13 +2147,24 @@ def main():
     # BASELINE #5, the δ-sweep: its Lloyd launches join the kernel's
     lloyd_step.launches = argkmin.launches = 0
     t0 = time.perf_counter()
-    sweep_entry["launches"] = delta_sweep_path(Xsweep, ysweep, torch)
+    sweep_entry["launches"], sweep = delta_sweep_path(Xsweep, ysweep, torch)
     check(argkmin.launches == 0, "the δ-sweep launched argkmin")
     entry["launches"] += sweep_entry["launches"]
     entry["shapes"] = [sweep_entry]
     print(f"δ-sweep path: {time.perf_counter() - t0:.3f} s, lloyd_step "
           f"launches {sweep_entry['launches']}, argkmin launches "
           f"{argkmin.launches}", flush=True)
+    # the accuracy-vs-quantum-runtime study, with obs on: its Lloyd
+    # launches (leg 1) and argkmin launches (leg 2) join the kernels'
+    lloyd_step.launches = argkmin.launches = 0
+    t0 = time.perf_counter()
+    tradeoff_lloyd, tradeoff_knn = tradeoff_phase(Xsweep, ysweep, sweep,
+                                                  here, torch)
+    entry["launches"] += tradeoff_lloyd
+    knn_entry["launches"] += tradeoff_knn
+    print(f"trade-off path: {time.perf_counter() - t0:.3f} s, lloyd_step "
+          f"launches {tradeoff_lloyd}, argkmin launches {tradeoff_knn}",
+          flush=True)
     # BASELINE #4, TruncatedSVD: no kernel launch
     lloyd_step.launches = argkmin.launches = 0
     t0 = time.perf_counter()

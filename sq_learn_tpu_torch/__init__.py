@@ -9,6 +9,7 @@ with the JAX package's TPU kernels rewritten by hand for NVIDIA Hopper
 The port imports neither JAX nor any module of ``sq_learn_tpu``.
 """
 
+from . import obs  # first: the estimators instrument through it
 from ._config import config_context, get_config, resolve_device, set_config
 from .base import (BaseEstimator, ClassifierMixin, ClusterMixin,
                    NotFittedError, TransformerMixin, check_is_fitted, clone)
@@ -27,4 +28,4 @@ __all__ = ["BaseEstimator", "ClassifierMixin", "ClusterMixin",
            "Pipeline", "QKMeans", "QLSSVC", "QPCA", "TransformerMixin",
            "TruncatedSVD", "check_is_fitted", "clone", "config_context",
            "feature_extraction", "get_config", "k_means", "make_pipeline",
-           "pipeline", "preprocessing", "resolve_device", "set_config"]
+           "obs", "pipeline", "preprocessing", "resolve_device", "set_config"]

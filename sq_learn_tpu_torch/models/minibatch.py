@@ -21,6 +21,11 @@ package runs the step in XLA (``minibatch.py:249-284``), not in its
 Pallas kernel, so the port runs it in plain torch ops. Its host engines
 (``_host_*``, the CPU route) and its tiny-fit routing are not ported: a
 fit runs on the device it is given.
+
+Under an obs run ``fit`` and ``partial_fit`` are spans
+(``minibatch.fit``, ``minibatch.partial_fit``); the steps record no
+guarantee draws, as the JAX package's ``jit``'d steps record none. The
+store-backed spans come with ``oocore/``.
 """
 
 import numbers
@@ -29,6 +34,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from .._config import resolve_device
 from ..base import (BaseEstimator, ClusterMixin, TransformerMixin,
                     check_is_fitted, check_n_features)
@@ -331,6 +337,15 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             raise ValueError(
                 f"n_samples={X.shape[0]} should be >= n_clusters="
                 f"{self.n_clusters}.")
+        with _obs.span("minibatch.fit", n_samples=X.shape[0],
+                       n_features=X.shape[1],
+                       n_clusters=self.n_clusters) as sp, \
+                _obs.guarantees.no_audit():
+            self._fit_impl(X, sample_weight)
+            sp.set(backend=X.device.type, n_steps=self.n_steps_)
+        return self
+
+    def _fit_impl(self, X, sample_weight):
         sample_weight = check_sample_weight(sample_weight, X)
         delta = self._delta()
         if delta == 0:
@@ -352,7 +367,6 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         self.n_steps_ = int(n_steps)
         if self.compute_labels:
             self.labels_, self.inertia_ = self._full_assign(X, sample_weight)
-        return self
 
     def partial_fit(self, X, y=None, sample_weight=None):
         """Update the state from one batch (reference ``_dmeans.py:2139``).
@@ -362,6 +376,13 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         ``random_state`` at the first call."""
         X = check_n_features(self, self._input(X))
         self.n_features_in_ = X.shape[1]
+        with _obs.span("minibatch.partial_fit", batch=X.shape[0]) as sp, \
+                _obs.guarantees.no_audit():
+            self._partial_fit_impl(X, sample_weight)
+            sp.set(backend=X.device.type)
+        return self
+
+    def _partial_fit_impl(self, X, sample_weight):
         sample_weight = check_sample_weight(sample_weight, X)
         delta = self._delta()
         gen = getattr(self, "_pf_generator", None)
@@ -385,7 +406,6 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         if self.compute_labels:
             # the batch's labels and inertia under the updated centers
             self.labels_, self.inertia_ = self._full_assign(X, sample_weight)
-        return self
 
     def _centers_tensor(self, X):
         return torch.as_tensor(np.asarray(self.cluster_centers_),

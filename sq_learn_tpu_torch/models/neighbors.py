@@ -8,18 +8,25 @@ a shortlist in reduced precision refined exactly, in plain torch ops, as
 the JAX package leaves it to XLA. Voting is on the host in numpy, after
 one copy of the (n, k) neighbor lists.
 
+Every search is one ``knn.search`` span and one classical (zero quantum
+queries) ledger entry under an obs run, each naming the engine that
+served it: the kernel (``argkmin_kernel``), its plain version
+(``argkmin_reference``) or the reduced-precision shortlist
+(``shortlist``).
+
 Not ported: ``use_pallas`` (the device of the data decides), the host fast
 path, the tiny-predict host routing and the memo of rejected kernels (the
-device a model was fitted on computes every search), streamed predict and
-the ``obs`` span and ledger entry (``ROADMAP.md`` §1 item 7). ``mesh`` and
-float64 data raise ``NotImplementedError`` naming their item.
+device a model was fitted on computes every search) and streamed predict.
+``mesh`` and float64 data raise ``NotImplementedError`` naming their item.
 """
 
 import numbers
+import time
 
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from .._config import resolve_device
 from ..base import (BaseEstimator, ClassifierMixin, check_is_fitted,
                     check_n_features)
@@ -129,11 +136,27 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
     def _search(self, X, k):
         """(idx, d2) on the device of the training rows: the fused search
         at exact precision, :func:`knn_indices` for a reduced
-        ``compute_dtype``."""
+        ``compute_dtype``. One span and one ledger entry per search."""
+        t0 = time.perf_counter()
+        with _obs.span("knn.search", n_queries=X.shape[0], k=k,
+                       n_train=self.n_samples_fit_) as sp:
+            out, engine = self._search_impl(X, k)
+            sp.set(engine=engine)
+        _obs.ledger.record("knn", "search",
+                           wall_s=time.perf_counter() - t0, queries={},
+                           budget={}, engine=engine,
+                           n_queries=X.shape[0], k=k)
+        return out
+
+    def _search_impl(self, X, k):
+        """((idx, d2), engine): the engine that served the search."""
+        exact = ("argkmin_kernel" if X.device.type == "cuda"
+                 else "argkmin_reference")
         if not is_reduced(self.compute_dtype, self.X_fit_.dtype):
-            return argkmin(self.X_fit_, self._x_sq_fit, X, k)
+            return argkmin(self.X_fit_, self._x_sq_fit, X, k), exact
+        engine = "shortlist" if 4 * k + 16 < self.n_samples_fit_ else exact
         return knn_indices(self.X_fit_, X, k,
-                           compute_dtype=self.compute_dtype)
+                           compute_dtype=self.compute_dtype), engine
 
     def _check_k(self, k):
         """Validate a neighbor count: 1 ≤ k ≤ n_samples_fit (sklearn's

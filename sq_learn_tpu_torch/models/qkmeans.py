@@ -28,6 +28,17 @@ with ``sketch`` engaged from a uniform row sample drawn by a numpy
 generator seeded apart from the fit's (:mod:`~sq_learn_tpu_torch.sketch`).
 They are computed on every fit and never read from the digest cache.
 
+Under an obs run (:mod:`sq_learn_tpu_torch.obs`) a fit records the JAX
+accelerator route's spans (``qkmeans.fit``, ``qkmeans.fused_init``,
+``qkmeans.fused_fit``; ``qkmeans.quantum_stats`` around the runtime
+statistics' fetch and fold, which the JAX package times on its host
+route), one ``qkmeans``/``fit`` ledger entry priced by
+:meth:`QKMeans.quantum_runtime_model`, and one audit replay of the fit's
+error model on ≤ 256 rows (:meth:`QKMeans._audit_fit_entry`), drawn from
+generators of its own. The fit loop itself records no guarantee draws,
+as the JAX package's traced loop records none, and a fit's results and
+kernel launches are the same with obs on or off.
+
 Modes and parameters this slice does not cover raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 """
@@ -39,6 +50,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from .._config import resolve_device
 from ..base import (BaseEstimator, ClusterMixin, TransformerMixin,
                     check_is_fitted, check_n_features)
@@ -46,13 +58,14 @@ from ..ops.kernels import lloyd_step
 from ..ops.linalg import (check_compute_dtype, inner_product, is_reduced,
                           pairwise_sq_distances, row_norms,
                           smallest_singular_value)
-from ..ops.quantum.estimation import ipe_matrix
+from ..ops.quantum.estimation import inner_product_estimates, ipe_matrix
 from ..ops.quantum.noise import gaussian_estimate
 from ..ops.quantum.norms import _mu_grid
 from ..ops.quantum.tomography import real_tomography
 from ..parallel.init import kmeans_plusplus_batched, resolve_init_subsample
-from ..sketch.engine import (SKETCH_SEED, exact_bundle, fetch_components,
-                             finalize_components, resolve_sketch_rows,
+from ..sketch.engine import (SKETCH_SEED, audit_sketch, exact_bundle,
+                             fetch_components, finalize_components,
+                             record_sketch_obs, resolve_sketch_rows,
                              sample_indices, sketch_components,
                              sketch_delta_stat)
 from ..utils.plotting import plot_runtime_surfaces
@@ -635,6 +648,19 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         X = self._validated_X(X, device)
         self.n_features_in_ = X.shape[1]
         self._check_params(X)
+        with _obs.span("qkmeans.fit", n_samples=X.shape[0],
+                       n_features=X.shape[1],
+                       n_clusters=self.n_clusters) as sp:
+            seed, centers = self._fit_impl(X, sample_weight, device)
+            sp.set(backend=device.type, ingest="monolithic",
+                   n_iter=self.n_iter_)
+        self._ledger_fit_entry(X)
+        self._audit_fit_entry(X, seed, centers)
+        return self
+
+    def _fit_impl(self, X, sample_weight, device):
+        """The fit body proper; returns the seed of the fit's generator and
+        the fitted centers as the device tensor they were fetched from."""
         delta = 0.0 if self.delta is None else float(self.delta)
         if delta == 0:
             warnings.warn("Attention! You are running the classic version of "
@@ -664,6 +690,7 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             sub = resolve_init_subsample(X.shape[0], self.n_clusters,
                                          self.init_subsample)
         generator = as_generator(self.random_state, device)
+        seed = generator.initial_seed()
         delta_stat = sketch_delta_stat()
         rows = (resolve_sketch_rows(*X.shape, self.sketch)
                 if quantum and delta_stat > 0 else 0)
@@ -671,43 +698,126 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         if rows:
             # the row sample's own generator, seeded apart from the fit's
             # (the JAX package folds the same constant into its key)
-            rng_sk = np.random.default_rng(
-                [generator.initial_seed(), SKETCH_SEED])
+            rng_sk = np.random.default_rng([seed, SKETCH_SEED])
             sk_idx = torch.as_tensor(
                 sample_indices(rng_sk, X.shape[0], rows), device=device)
-        stats, centers0 = fused_init(
-            generator, X, w, n_init=self._resolved_n_init(self.init),
-            init=init, n_clusters=self.n_clusters, quantum=quantum,
-            mu_grid=MU_GRID if quantum else (), init_subsample=sub,
-            sketch_idx=sk_idx)
-        out = fused_fit(
-            generator, stats, w, centers0, float(self.tol), delta=delta,
-            mode=mode, max_iter=self.max_iter,
-            patience=self._resolved_patience(mode),
-            intermediate_error=self.intermediate_error,
-            true_tomography=self.true_tomography, ipe_q=self.ipe_q,
-            compute_dtype=self._checked_compute_dtype())
-        # the fit's fetch, after every step was queued
-        sketch = out.pop("sketch", None)
-        host = {name: t.cpu().numpy() for name, t in out.items()}
+        n_init = self._resolved_n_init(self.init)
+        # the JAX package runs both steps under jit: nothing inside them
+        # records a guarantee draw
+        with _obs.guarantees.no_audit():
+            with _obs.span("qkmeans.fused_init", n_init=n_init,
+                           subsample=sub or None) as sp:
+                stats, centers0 = fused_init(
+                    generator, X, w, n_init=n_init, init=init,
+                    n_clusters=self.n_clusters, quantum=quantum,
+                    mu_grid=MU_GRID if quantum else (), init_subsample=sub,
+                    sketch_idx=sk_idx)
+                sp.sync(centers0)
+            with _obs.span("qkmeans.fused_fit", mode=mode):
+                out = fused_fit(
+                    generator, stats, w, centers0, float(self.tol),
+                    delta=delta, mode=mode, max_iter=self.max_iter,
+                    patience=self._resolved_patience(mode),
+                    intermediate_error=self.intermediate_error,
+                    true_tomography=self.true_tomography, ipe_q=self.ipe_q,
+                    compute_dtype=self._checked_compute_dtype())
+                # the fit's fetch, after every step was queued
+                sketch = out.pop("sketch", None)
+                host = {name: t.cpu().numpy() for name, t in out.items()}
         n_iter = int(host["n_iter"])
         self._set_fit_results(host["labels"].astype(np.int32),
                               host["centers"].astype(np.float32),
                               float(host["inertia"]), n_iter,
                               host["inertia_trace"], host["shift_trace"])
-        if sketch is not None:
-            self._apply_spectral_stats(finalize_components(
-                fetch_components(sketch), n=X.shape[0], m=X.shape[1],
-                s=rows, mu_grid=MU_GRID, delta_stat=delta_stat))
-        elif quantum:
-            self._apply_spectral_stats(exact_bundle(
-                MU_GRID, host["eta"], host["frob"], host["sigma_min"],
-                host["mu_vals"], shape=tuple(X.shape)))
+        if quantum:
+            with _obs.span("qkmeans.quantum_stats", sketched=bool(rows),
+                           rows=rows or None):
+                if sketch is not None:
+                    sstats = finalize_components(
+                        fetch_components(sketch), n=X.shape[0],
+                        m=X.shape[1], s=rows, mu_grid=MU_GRID,
+                        delta_stat=delta_stat)
+                    record_sketch_obs(sstats)
+                    audit_sketch(sstats, X)
+                else:
+                    sstats = exact_bundle(
+                        MU_GRID, host["eta"], host["frob"],
+                        host["sigma_min"], host["mu_vals"],
+                        shape=tuple(X.shape))
+                    if _obs.guarantees.enabled():
+                        # exact statistics: the zero-budget short-circuit
+                        _obs.guarantees.record_guarantee(
+                            "sketch.stats", 0.0, 0.0, fail_prob=0.0,
+                            short_circuit=True, estimator="qkmeans")
+                self._apply_spectral_stats(sstats)
         if self.verbose:
             for i, v in enumerate(self.inertia_history_):
                 print(f"Iteration {i}, inertia {v:.3f}.")
             print(f"init done, inertia {self.inertia_:.3f}")
-        return self
+        return seed, out["centers"]
+
+    def _ledger_fit_entry(self, X):
+        """Feed the quantum-runtime ledger after a fit: the theoretical
+        q-means cost model (reference ``_dmeans.py:1440-1449``) at this
+        fit's shape. δ=0 is the classical short-circuit — zero quantum
+        queries by contract."""
+        if not _obs.enabled():
+            return
+        delta = 0.0 if self.delta is None else float(self.delta)
+        if delta == 0.0:
+            _obs.ledger.record("qkmeans", "fit", queries={},
+                               budget={"delta": delta}, short_circuit=True)
+            return
+        quantum, classical = self.quantum_runtime_model(*X.shape)
+        _obs.ledger.record(
+            "qkmeans", "fit",
+            queries={"theoretical_quantum_cost": float(quantum.ravel()[0]),
+                     "classical_cost": float(classical)},
+            budget={"delta": delta},
+            mode=self._mode(delta), ipe_q=self.ipe_q, n_iter=self.n_iter_)
+
+    def _audit_fit_entry(self, X, seed, centers):
+        """Feed the guarantee auditor after a fit: replay the fit's error
+        model on ≤ 256 evenly strided rows against the fitted ``centers``
+        (the device tensor ``cluster_centers_`` was fetched from), with a
+        generator of its own seeded with ``seed`` (the fit's), so the
+        fit's own draws never move:
+
+        - ``delta`` mode: a fresh δ-window pick per row; realized error =
+          d²(x, chosen) − d²(x, nearest), within δ by construction
+          (``fail_prob`` 0 — a violation means the window rule broke).
+        - ``ipe`` mode: :func:`inner_product_estimates` at the fit's
+          ε = δ/2 and Q, which records its draws at the ``ipe`` site.
+        - δ = 0: the classical short-circuit, one zero-violation record.
+
+        Everything runs on the fit's device; only the sampled draws reach
+        the host."""
+        if not _obs.guarantees.enabled():
+            return
+        delta = 0.0 if self.delta is None else float(self.delta)
+        if delta == 0.0:
+            _obs.guarantees.record_guarantee(
+                "qkmeans.delta_window", 0.0, 0.0, fail_prob=0.0,
+                short_circuit=True, estimator="qkmeans")
+            return
+        stride = max(1, X.shape[0] // 256)
+        Xs = X[::stride][:256]
+        C = centers
+        gen = as_generator(seed, X.device)
+        if self._mode(delta) == "ipe":
+            inner_product_estimates(gen, Xs.to(torch.float32),
+                                    C.to(torch.float32), epsilon=delta / 2,
+                                    Q=self.ipe_q)
+            return
+        Xs, C = Xs.to(torch.float64), C.to(torch.float64)
+        d2 = (torch.sum(Xs**2, dim=1)[:, None] + torch.sum(C**2, dim=1)
+              - 2.0 * Xs @ C.T)
+        d2min = torch.min(d2, dim=1).values
+        picks = pick_labels(gen, d2, delta, d2min).to(torch.int64)
+        realized = torch.gather(d2, 1, picks[:, None])[:, 0] - d2min
+        _obs.guarantees.observe(
+            "qkmeans.delta_window", torch.clamp(realized, min=0.0), delta,
+            fail_prob=0.0, estimator="qkmeans", n_clusters=C.shape[0])
 
     def _set_fit_results(self, labels, centers, inertia, n_iter, inertia_tr,
                          shift_tr):
@@ -755,13 +865,16 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         (reference intent, JAX ``_predict_impl``)."""
         X = self._inference_input(X)
         delta = 0.0 if delta is None else float(delta)
-        labels, _, _ = e_step(
-            as_generator(self.random_state, X.device), X,
-            torch.ones(X.shape[0], dtype=X.dtype, device=X.device),
-            self._centers_tensor(X), row_norms(X, squared=True),
-            delta=delta, mode=self._mode(delta), ipe_q=self.ipe_q,
-            compute_dtype=self._checked_compute_dtype())
-        return labels.cpu().numpy()
+        # the JAX package's E-step runs under jit: no guarantee draws
+        with _obs.span("qkmeans.predict", n_queries=X.shape[0],
+                       delta=delta), _obs.guarantees.no_audit():
+            labels, _, _ = e_step(
+                as_generator(self.random_state, X.device), X,
+                torch.ones(X.shape[0], dtype=X.dtype, device=X.device),
+                self._centers_tensor(X), row_norms(X, squared=True),
+                delta=delta, mode=self._mode(delta), ipe_q=self.ipe_q,
+                compute_dtype=self._checked_compute_dtype())
+            return labels.cpu().numpy()
 
     def transform(self, X):
         """Distances to the cluster centers (purely classical, as the

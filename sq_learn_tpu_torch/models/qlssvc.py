@@ -20,10 +20,15 @@ reads once every :data:`READ_EVERY` iterations. Every call that draws
 noise seeds its own ``torch.Generator`` from ``random_state``, as the JAX
 package builds its key from it on every call.
 
+Under an obs run, ``fit`` and ``predict`` are spans (``qlssvc.fit``,
+``qlssvc.predict``) with a ledger entry each (the training complexity
+κ(F)·α_F; one amplitude-estimation call per predicted sample), and every
+noisy P is audited against its per-row bound at the ``qlssvc.noisy_p``
+site (declared failure probability 0: truncated noise cannot exceed it).
+
 Not ported: the tiny-fit host routing of ``predict`` (a call computes on
-the device it was given) and the ``obs`` spans, ledger steps and
-guarantee audits (ROADMAP.md §1 item 7's ``obs/``). The fit computes
-‖X‖_F² itself on every fit; it does not read the digest cache.
+the device it was given). The fit computes ‖X‖_F² itself on every fit;
+it does not read the digest cache.
 """
 
 import math
@@ -31,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from .._config import resolve_device
 from ..base import (BaseEstimator, ClassifierMixin, check_is_fitted,
                     check_n_features)
@@ -220,6 +226,17 @@ class QLSSVC(ClassifierMixin, BaseEstimator):
         """Fit the LS-SVM (reference ``fit``, ``_qSVM.py:133-176``) on the
         estimator's device, and the quantum complexity parameters: α_F =
         √N + γ⁻¹ + ‖X‖_F² and Nu = b² + Σᵢ αᵢ²‖xᵢ‖²."""
+        with _obs.span("qlssvc.fit", n_samples=len(X), kernel=self.kernel):
+            self._fit_impl(X, y)
+        # theoretical quantum training cost κ(F)·α_F (_qSVM.py:300-301)
+        _obs.ledger.record(
+            "qlssvc", "fit",
+            queries={"training_complexity": self.cond_ * self.alpha_F_},
+            budget={"train_error": self.train_error},
+            kernel=self.kernel, n_samples=self.X_.shape[0])
+        return self
+
+    def _fit_impl(self, X, y):
         device = resolve_device(self.device)
         X, y = check_X_y(X, y, device=device)
         self.X_ = X
@@ -251,7 +268,6 @@ class QLSSVC(ClassifierMixin, BaseEstimator):
         if self.kernel == "linear":
             # the primal hyperplane w = Σ αᵢ xᵢ in one product
             self.coef_ = (alpha @ X).cpu().numpy()
-        return self
 
     # -- decision pieces ------------------------------------------------------
 
@@ -314,7 +330,8 @@ class QLSSVC(ClassifierMixin, BaseEstimator):
     def _noisy_P(self, P, h, beta):
         """P with the inference error model applied, and the per-row
         bound ε of the noise: truncnorm(±ε), so |P̃ − P| ≤ ε holds by
-        construction. Tensors in and out."""
+        construction, which the ``qlssvc.noisy_p`` site audits with
+        declared failure probability 0. Tensors in and out."""
         gen = self._generator()
         if self.error_type == "absolute":
             eps = self.absolute_error / (2.0 * beta)
@@ -322,7 +339,14 @@ class QLSSVC(ClassifierMixin, BaseEstimator):
             _, _, eps_abs = relative_error_routine(
                 gen, beta, torch.abs(h), self.relative_error)
             eps = eps_abs / (2.0 * beta)
-        return introduce_error(gen, P, eps), eps
+        noisy = introduce_error(gen, P, eps)
+        if _obs.guarantees.enabled():
+            _obs.guarantees.observe(
+                "qlssvc.noisy_p",
+                torch.abs(noisy.to(torch.float64) - P.to(torch.float64)),
+                eps, fail_prob=0.0, estimator="qlssvc",
+                error_type=self.error_type)
+        return noisy, eps
 
     # -- predict --------------------------------------------------------------
 
@@ -330,9 +354,18 @@ class QLSSVC(ClassifierMixin, BaseEstimator):
         """Quantum-error-model classification (reference ``predict``,
         ``_qSVM.py:178-215``): the noisy P thresholded at ½ → ±1."""
         X = self._input(X)
-        h, beta = self._h(X), self._betas(X)
-        P, _ = self._noisy_P(0.5 * (1.0 - h / beta), h, beta)
-        return np.where(P.cpu().numpy() <= 0.5, 1.0, -1.0)
+        with _obs.span("qlssvc.predict", n_queries=X.shape[0]):
+            h, beta = self._h(X), self._betas(X)
+            P, _ = self._noisy_P(0.5 * (1.0 - h / beta), h, beta)
+            out = np.where(P.cpu().numpy() <= 0.5, 1.0, -1.0)
+        # one amplitude-estimation call per sample in the inference error
+        # model; the ledger carries the call count and the error budget
+        err = (self.absolute_error if self.error_type == "absolute"
+               else self.relative_error)
+        _obs.ledger.record(
+            "qlssvc", "predict", queries={"ae_calls": len(out)},
+            budget={self.error_type + "_error": err})
+        return out
 
     def classical_predict(self, X):
         """Noise-free classification sign(α·K+b) (reference

@@ -37,11 +37,17 @@ Reference latent bugs NOT replicated (as in the JAX package):
 - the whiten+quantum transform reads an attribute that is never set
   (``_base.py:125``); here it uses the top-k factor-score estimates.
 
+Under an obs run (:mod:`sq_learn_tpu_torch.obs`) a fit records the
+``qpca.fit`` span, a ledger step per quantum estimator (the query counts
+its ε/δ buy, against the step's wall clock) and the ``qpca.sv_estimate``
+guarantee draws of the top-k/least-k extraction; the quantum routines
+record their own draws where the JAX package's eager calls do, and the
+binary searches, which it runs under ``jit``, record none.
+
 Not ported: ``mesh`` (ROADMAP.md §1 item 6), streamed and store-backed
 ingest and a ``compute_dtype`` other than float32 (item 7) raise
 ``NotImplementedError``; the tiny-fit host routing is not ported at all
-(a fit computes on the device it was given), nor are the ``obs`` spans,
-ledger steps and guarantee audits (item 7's ``obs/``).
+(a fit computes on the device it was given).
 """
 
 import math
@@ -51,6 +57,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from .._config import resolve_device
 from ..base import (BaseEstimator, TransformerMixin, check_is_fitted,
                     check_n_features)
@@ -133,19 +140,25 @@ def bracket_search_fused(generator, S, frob, *, eps_scaled, ae_epsilon,
     PE, masses the factor scores on the τ side of the bracket and
     amplitude-estimates that mass; zero estimated mass moves the bracket
     toward the surviving side. The bracket stays on the device: the loop
-    fetches nothing, and the result is a 0-d tensor."""
+    fetches nothing, and the result is a 0-d tensor. The JAX package runs
+    the search under ``jit``, so its estimates record no guarantee
+    draws."""
     lo = torch.zeros((), dtype=S.dtype, device=S.device)
     hi = torch.ones((), dtype=S.dtype, device=S.device)
-    for _ in range(n_iterations):
-        tau = (lo + hi) / 2
-        eta_est = estimated_mass(
-            generator, S, frob, tau, frob**2, eps_scaled=eps_scaled,
-            ae_epsilon=ae_epsilon, n_features=n_features, below=find_min)
-        zero = eta_est == 0.0
-        if find_min:  # nothing below τ — σ_min is larger
-            lo, hi = torch.where(zero, tau, lo), torch.where(zero, hi, tau)
-        else:  # nothing above τ — σ_max is smaller
-            lo, hi = torch.where(zero, lo, tau), torch.where(zero, tau, hi)
+    with _obs.guarantees.no_audit():
+        for _ in range(n_iterations):
+            tau = (lo + hi) / 2
+            eta_est = estimated_mass(
+                generator, S, frob, tau, frob**2, eps_scaled=eps_scaled,
+                ae_epsilon=ae_epsilon, n_features=n_features,
+                below=find_min)
+            zero = eta_est == 0.0
+            if find_min:  # nothing below τ — σ_min is larger
+                lo, hi = (torch.where(zero, tau, lo),
+                          torch.where(zero, hi, tau))
+            else:  # nothing above τ — σ_max is smaller
+                lo, hi = (torch.where(zero, lo, tau),
+                          torch.where(zero, tau, hi))
     return (lo + hi) / 2 * frob
 
 
@@ -155,20 +168,22 @@ def theta_search_fused(generator, S, muA, p, *, eps_scaled, eta,
     ``_qPCA.py:1002-1022``): each step runs the factor-score-ratio-sum
     estimate (consistent-PE spectrum + AE of the mass ≥ τ·μ(A)) and stops
     once |p̂ − p| ≤ η/2 — one host fetch per iteration. Returns
-    ``(theta, found)``."""
+    ``(theta, found)``. As the bracket searches, it records no guarantee
+    draws (the JAX package's search is one ``jit``'d loop)."""
     total = torch.sum(S**2)
     lo, hi, tau = 0.0, 1.0, 0.5
-    for _ in range(n_iterations):
-        p_est = float(estimated_mass(
-            generator, S, muA, tau, total, eps_scaled=eps_scaled,
-            ae_epsilon=eta / 2, n_features=n_features))
-        if abs(p_est - p) <= eta / 2:
-            return tau * muA, True
-        if p_est < p:  # τ too high: too little mass retained
-            hi = tau
-        else:
-            lo = tau
-        tau = (lo + hi) / 2
+    with _obs.guarantees.no_audit():
+        for _ in range(n_iterations):
+            p_est = float(estimated_mass(
+                generator, S, muA, tau, total, eps_scaled=eps_scaled,
+                ae_epsilon=eta / 2, n_features=n_features))
+            if abs(p_est - p) <= eta / 2:
+                return tau * muA, True
+            if p_est < p:  # τ too high: too little mass retained
+                hi = tau
+            else:
+                lo = tau
+            tau = (lo + hi) / 2
     return tau * muA, False
 
 
@@ -355,7 +370,12 @@ class QPCA(TransformerMixin, BaseEstimator):
         device = resolve_device(self.device)
         X = self._validated_X(X, device)
         self.n_features_in_ = X.shape[1]
-        return self._fit_impl(X)
+        with _obs.span("qpca.fit", n_samples=X.shape[0],
+                       n_features=X.shape[1]) as sp:
+            self._fit_impl(X)
+            sp.set(backend=device.type, solver=self._fit_svd_solver,
+                   ingest=self.ingest_)
+        return self
 
     def _check_ported(self, X):
         """Raise NotImplementedError on what this slice does not cover."""
@@ -662,14 +682,24 @@ class QPCA(TransformerMixin, BaseEstimator):
         """Binary search for ‖A‖₂ (reference ``spectral_norm_estimation``,
         ``_qPCA.py:882-907``). ε = 0 short-circuits to the exact value."""
         if epsilon == 0:
+            _obs.ledger.record("qpca", "spectral_norm_estimation",
+                               queries={}, budget={"epsilon": 0.0},
+                               short_circuit=True)
             return self.spectral_norm
         frob = self.frob_norm
         n_iterations = max(1, int(np.ceil(np.log(frob / epsilon))))
-        return float(bracket_search_fused(
-            self._next_key(), self._spectrum(self.singular_values_), frob,
-            eps_scaled=float(epsilon / frob), ae_epsilon=float(delta),
-            n_iterations=n_iterations, n_features=self.n_features_,
-            find_min=False))
+        with _obs.ledger.timed_step(
+                "qpca", "spectral_norm_estimation",
+                queries={"pe_spectrum_queries":
+                         _obs.ledger.phase_estimation_queries(
+                             len(self.singular_values_), n_iterations),
+                         "ae_calls": n_iterations},
+                budget={"epsilon": epsilon, "delta": delta}):
+            return float(bracket_search_fused(
+                self._next_key(), self._spectrum(self.singular_values_),
+                frob, eps_scaled=float(epsilon / frob),
+                ae_epsilon=float(delta), n_iterations=n_iterations,
+                n_features=self.n_features_, find_min=False))
 
     def condition_number_estimation(self, epsilon, delta):
         """Binary search for σ_min over the FULL spectrum, then
@@ -677,16 +707,26 @@ class QPCA(TransformerMixin, BaseEstimator):
         ``_qPCA.py:909-961``). Returns (σ̂_min, κ̂); ε = 0 short-circuits
         to the exact values."""
         if epsilon == 0:
+            _obs.ledger.record("qpca", "condition_number_estimation",
+                               queries={}, budget={"epsilon": 0.0},
+                               short_circuit=True)
             sigma_min = float(self.all_singular_values_[-1])
             return sigma_min, (self.spectral_norm / sigma_min
                                if sigma_min > 0 else np.inf)
         frob = self.frob_norm
         n_iterations = max(1, int(np.ceil(np.log(frob / epsilon))))
-        sigma_min = float(bracket_search_fused(
-            self._next_key(), self._spectrum(self.all_singular_values_),
-            frob, eps_scaled=float(epsilon / frob), ae_epsilon=float(delta),
-            n_iterations=n_iterations, n_features=self.n_features_,
-            find_min=True))
+        with _obs.ledger.timed_step(
+                "qpca", "condition_number_estimation",
+                queries={"pe_spectrum_queries":
+                         _obs.ledger.phase_estimation_queries(
+                             len(self.all_singular_values_), n_iterations),
+                         "ae_calls": n_iterations},
+                budget={"epsilon": epsilon, "delta": delta}):
+            sigma_min = float(bracket_search_fused(
+                self._next_key(), self._spectrum(self.all_singular_values_),
+                frob, eps_scaled=float(epsilon / frob),
+                ae_epsilon=float(delta), n_iterations=n_iterations,
+                n_features=self.n_features_, find_min=True))
         cond = self.spectral_norm / sigma_min if sigma_min > 0 else np.inf
         return sigma_min, cond
 
@@ -705,10 +745,16 @@ class QPCA(TransformerMixin, BaseEstimator):
         if not theta:
             theta = self.est_theta / self.muA  # est_theta is stored unscaled
         S = self._spectrum(self.singular_values_)
-        return float(estimated_mass(
-            self._next_key(), S, float(self.muA), float(theta),
-            torch.sum(S**2), eps_scaled=float(eps), ae_epsilon=float(eta),
-            n_features=self.n_features_))
+        with _obs.ledger.timed_step(
+                "qpca", "factor_score_ratio_sum",
+                queries=({} if eps == 0 and eta == 0 else
+                         {"pe_spectrum_queries": len(self.singular_values_),
+                          "ae_calls": 1}),
+                budget={"eps": eps, "eta": eta}):
+            return float(estimated_mass(
+                self._next_key(), S, float(self.muA), float(theta),
+                torch.sum(S**2), eps_scaled=float(eps),
+                ae_epsilon=float(eta), n_features=self.n_features_))
 
     def estimate_theta(self, epsilon, eta, p):
         """Theorem 10 of QADRA (reference ``estimate_theta``,
@@ -723,6 +769,9 @@ class QPCA(TransformerMixin, BaseEstimator):
         if epsilon == 0:
             # zero error budget: θ = σ at the cumulative-mass step closest
             # to p, when within η/2
+            _obs.ledger.record("qpca", "estimate_theta", queries={},
+                               budget={"epsilon": 0.0, "eta": eta},
+                               short_circuit=True)
             S = np.asarray(self.singular_values_, np.float64)
             cum = np.cumsum(S**2) / np.sum(S**2)
             j = int(np.argmin(np.abs(cum - p)))
@@ -730,11 +779,20 @@ class QPCA(TransformerMixin, BaseEstimator):
                 raise ValueError("The binary search didn't find any value")
             return float(S[j])
         n_iterations = max(1, int(np.ceil(np.log(self.muA / epsilon))))
-        theta, found = theta_search_fused(
-            self._next_key(), self._spectrum(self.singular_values_),
-            float(self.muA), float(p), eps_scaled=float(epsilon / self.muA),
-            eta=float(eta), n_iterations=n_iterations,
-            n_features=self.n_features_)
+        # query counts are the n_iterations upper bound: the search stops
+        # early on convergence
+        with _obs.ledger.timed_step(
+                "qpca", "estimate_theta",
+                queries={"pe_spectrum_queries":
+                         _obs.ledger.phase_estimation_queries(
+                             len(self.singular_values_), n_iterations),
+                         "ae_calls": n_iterations},
+                budget={"epsilon": epsilon, "eta": eta}, upper_bound=True):
+            theta, found = theta_search_fused(
+                self._next_key(), self._spectrum(self.singular_values_),
+                float(self.muA), float(p),
+                eps_scaled=float(epsilon / self.muA), eta=float(eta),
+                n_iterations=n_iterations, n_features=self.n_features_)
         if not found:
             raise ValueError("The binary search didn't find any value")
         return float(theta)
@@ -743,8 +801,18 @@ class QPCA(TransformerMixin, BaseEstimator):
         """Shared Theorem-11 machinery for top-k / least-k extraction: one
         batched consistent-PE pass over the spectrum, host-side selection
         (the selected count is data-dependent), then one batched
-        tomography call per side (U and V)."""
+        tomography call per side (U and V).
+
+        Ledger: one PE spectrum pass (ε > 0) plus the tomography shots,
+        2·N(d)·k per side with d the vector dimension; δ = 0 records 0
+        shots. The spectrum estimate's |σ̂ − σ| is audited against ε at
+        the ``qpca.sv_estimate`` site, at the reference's failure
+        probability γ = 1 − 1/n_features."""
         self._require_mu()
+        step = _obs.ledger.timed_step(
+            "qpca", "topk_extract" if top else "leastk_extract",
+            budget={"eps": eps, "delta": delta})
+        step.__enter__()
         S = np.asarray(self.singular_values_)
         if not top:
             # least-k considers only the numerically nonzero σ
@@ -752,6 +820,16 @@ class QPCA(TransformerMixin, BaseEstimator):
         est = (self._sv_estimates(self._spectrum(S), float(self.muA),
                                   eps / self.muA).cpu().numpy()
                if len(S) else S)
+        if _obs.guarantees.enabled():
+            if eps == 0:
+                _obs.guarantees.record_guarantee(
+                    "qpca.sv_estimate", 0.0, 0.0, fail_prob=0.0,
+                    short_circuit=True, estimator="qpca")
+            elif len(S):
+                _obs.guarantees.observe(
+                    "qpca.sv_estimate", np.abs(est - S), float(eps),
+                    fail_prob=1.0 - 1.0 / self.n_features_,
+                    estimator="qpca")
         sel = (est >= theta) if top else (est < theta)
         true_selected = S[sel]
         sv_estimation = est[sel]
@@ -773,6 +851,15 @@ class QPCA(TransformerMixin, BaseEstimator):
                 true_tomography=true_tomography, norm=norm).cpu().numpy()
         else:
             right_est, left_est = right, left
+        step.set_queries(
+            pe_spectrum_queries=0 if eps == 0 else len(S),
+            tomography_shots=(
+                _obs.ledger.tomography_shot_count(k, right.shape[1], delta,
+                                                  norm)
+                + _obs.ledger.tomography_shot_count(k, left.shape[1], delta,
+                                                    norm)) if k else 0)
+        step.attrs["selected_k"] = k
+        step.__exit__(None, None, None)
         fs = sv_estimation**2 / (self.n_samples_ - 1)
         fs_ratio = sv_estimation**2 / self.frob_norm**2
         return (right_est, left_est, sv_estimation, fs, fs_ratio,

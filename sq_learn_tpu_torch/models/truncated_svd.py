@@ -6,11 +6,16 @@
 power iterations, drawn from the fit's :class:`torch.Generator`;
 ``'arpack'`` is the exact thin SVD (there is no ARPACK here either) with
 V-based signs. The explained variances are computed on the device, and
-``fit_transform``/``transform`` return tensors there.
+``fit_transform``/``transform`` return tensors there. Under an obs run a
+fit is one ``truncated_svd.fit_transform`` span and one classical ledger
+entry (its wall clock, zero quantum queries).
 """
+
+import time
 
 import torch
 
+from .. import obs as _obs
 from .._config import resolve_device
 from ..base import (BaseEstimator, TransformerMixin, check_is_fitted,
                     check_n_features)
@@ -66,6 +71,22 @@ class TruncatedSVD(TransformerMixin, BaseEstimator):
             raise ValueError(
                 f"n_components must be in [1, n_features={n_features}) and "
                 f"<= n_samples={n_samples}; got {k}")
+        self.ingest_ = "monolithic"
+        t0 = time.perf_counter()
+        with _obs.span("truncated_svd.fit_transform", n_samples=n_samples,
+                       n_features=n_features, k=k, algorithm=self.algorithm,
+                       ingest=self.ingest_):
+            Xt = self._fit_transform_impl(X, k)
+        # classical estimator: the wall-clock baseline the quantum
+        # estimators' query counts trade against
+        _obs.ledger.record(
+            "truncated_svd", "fit", wall_s=time.perf_counter() - t0,
+            queries={}, budget={}, algorithm=self.algorithm,
+            ingest=self.ingest_)
+        return Xt
+
+    def _fit_transform_impl(self, X, k):
+        n_features = X.shape[1]
         if self.algorithm == "randomized":
             U, S, Vt = randomized_svd(as_generator(self.random_state,
                                                    X.device),

@@ -1,0 +1,56 @@
+"""Run-scoped observability (counterpart of ``sq_learn_tpu/obs``, its
+research half): spans, counters and gauges, the quantum-runtime ledger,
+the (ε, δ) guarantee auditor and the accuracy-vs-runtime frontier, in the
+JAX package's JSONL record format.
+
+Quickstart::
+
+    from sq_learn_tpu_torch import obs
+
+    obs.enable("/tmp/run.jsonl")          # or export SQ_OBS=1
+    with obs.span("my.step", n=1000):
+        ...
+    print(obs.ledger.totals())
+    print(obs.guarantees.render(obs.guarantees.audit()))
+    obs.disable()                          # flush the sink
+
+Environment: ``SQ_OBS=1`` enables at import with a JSONL sink at
+``SQ_OBS_PATH`` (default ``sq_obs.jsonl``); ``SQ_OBS_AUDIT_STRICT=1``
+makes a flagged guarantee site raise. The files are read by
+``python -m sq_learn_tpu_torch.obs {audit,frontier}``, and by the JAX
+package's readers.
+
+Not ported: ``xla.py`` (XLA's per-compilation cost analysis) and
+``watchdog.py`` (jit retrace counts) have no object in an eager torch
+port; the rest of the JAX package's ``obs`` (budget, control, fleet,
+storage, trace, report, regress, probe) comes with the planes whose
+records it reads (``ROADMAP.md`` §1).
+"""
+
+from . import frontier, guarantees, ledger, schema
+from .recorder import (NULL_SPAN, Recorder, counter_add, disable, enable,
+                       enabled, flush, gauge, get_recorder, record_span,
+                       snapshot, span)
+
+#: convenience alias: obs.ledger_record(...) == obs.ledger.record(...)
+ledger_record = ledger.record
+
+__all__ = [
+    "NULL_SPAN",
+    "Recorder",
+    "counter_add",
+    "disable",
+    "enable",
+    "enabled",
+    "flush",
+    "frontier",
+    "gauge",
+    "get_recorder",
+    "guarantees",
+    "ledger",
+    "ledger_record",
+    "record_span",
+    "schema",
+    "snapshot",
+    "span",
+]

@@ -1,0 +1,355 @@
+"""Run-scoped observability recorder: spans, counters, gauges, JSONL sink
+(counterpart of ``sq_learn_tpu/obs/recorder.py``).
+
+Every instrumented surface of the port (estimator fits, the quantum
+routines' guarantee draws, the runtime ledger, trade-off sweeps) writes
+through one in-memory :class:`Recorder`, with an optional append-only
+JSONL sink in the JAX package's record envelope, so the JAX package's
+readers (``python -m sq_learn_tpu.obs audit|frontier``, its schema
+validator) read the port's artifacts.
+
+1. **Nothing happens while it is off.** Every instrumentation point is one
+   module-global read: :func:`span` returns the shared :data:`NULL_SPAN`,
+   :func:`counter_add`/:func:`gauge` return at once. Nothing allocates,
+   formats or touches a tensor, so no instrumentation point makes the
+   host wait for the device.
+2. **Run-scoped.** :func:`enable` starts a fresh run; :func:`disable`
+   closes the sink. ``SQ_OBS=1`` enables at import with the sink at
+   ``SQ_OBS_PATH`` (default ``sq_obs.jsonl`` in the working directory).
+3. **Honest timing.** A span records host wall clock between enter and
+   exit. CUDA launches are asynchronous, so a span around them measures
+   the launches, not the work; ``sync=`` (or ``.sync(x)``) makes the exit
+   wait for the stream of the device a tensor lives on, and the record
+   carries ``synced: true`` only then.
+
+Record envelope: ``{"v": 11, "schema_version": 11, "ts": <unix seconds>,
+"type": <record type>}`` plus the fields of each type
+(:mod:`.schema`). Left out, with their planes (``ROADMAP.md`` §1): sink
+rotation, the fleet envelope, the trace rendered on close, and the
+watchdog, breaker and storage fields of :func:`snapshot`.
+"""
+
+import json
+import os
+import threading
+import time
+
+from . import _env
+
+#: the record envelope version of the JAX package this port's artifacts
+#: follow (``sq_learn_tpu/obs/recorder.py:93``)
+SCHEMA_VERSION = 11
+
+#: default sink path when SQ_OBS=1 and SQ_OBS_PATH is unset
+DEFAULT_PATH = "sq_obs.jsonl"
+
+_lock = threading.RLock()
+_tls = threading.local()
+
+#: the active recorder, or None when observability is off. Module-global so
+#: the disabled fast path is a single attribute read.
+_active = None
+
+
+class _NullSpan:
+    """The disabled-mode span: a shared, stateless, no-op context manager.
+    ``set`` drops its attributes untouched (a tensor attribute is never
+    read) and ``sync`` returns its value without waiting."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        return self
+
+    def sync(self, value):
+        return value
+
+
+NULL_SPAN = _NullSpan()
+
+
+def _synchronize(value):
+    """Wait for the current stream of the CUDA device each tensor in
+    ``value`` (a tensor, or a list or tuple of them) lives on."""
+    import torch
+
+    tensors = value if isinstance(value, (list, tuple)) else (value,)
+    for device in {t.device for t in tensors
+                   if isinstance(t, torch.Tensor) and t.is_cuda}:
+        torch.cuda.current_stream(device).synchronize()
+
+
+class Span:
+    """One timed scope. Created by :func:`span`; closes into a 'span'
+    record with nesting metadata (depth, parent seq) from a per-thread
+    stack."""
+
+    __slots__ = ("_rec", "name", "attrs", "_sync", "_t0", "_seq", "_parent",
+                 "_depth", "_synced")
+
+    def __init__(self, rec, name, sync, attrs):
+        self._rec = rec
+        self.name = name
+        self.attrs = attrs
+        self._sync = sync
+        self._synced = False
+
+    def set(self, **attrs):
+        """Attach attributes discovered mid-scope (resolved solver, engine,
+        iteration counts); they land in the closed record."""
+        self.attrs.update(attrs)
+        return self
+
+    def sync(self, value):
+        """Wait for ``value``'s device at exit and return it — chains into
+        expressions: ``out = sp.sync(step(...))``."""
+        self._sync = value
+        return value
+
+    def __enter__(self):
+        stack = getattr(_tls, "span_stack", None)
+        if stack is None:
+            stack = _tls.span_stack = []
+        self._parent = stack[-1]._seq if stack else None
+        self._depth = len(stack)
+        self._seq = self._rec._next_seq()
+        stack.append(self)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._sync is not None:
+            _synchronize(self._sync)
+            self._synced = True
+        dur = time.perf_counter() - self._t0
+        stack = getattr(_tls, "span_stack", ())
+        if stack and stack[-1] is self:
+            stack.pop()
+        rec = {"type": "span", "name": self.name, "seq": self._seq,
+               "dur_s": round(dur, 6), "depth": self._depth,
+               "parent": self._parent, "synced": self._synced}
+        if exc_type is not None:
+            rec["error"] = exc_type.__name__
+        if self.attrs:
+            rec["attrs"] = _jsonable(self.attrs)
+        self._rec.record(rec, kind="spans")
+        return False
+
+
+def _jsonable(obj):
+    """Best-effort conversion of attr values to JSON-serializable types;
+    observability must never crash the instrumented computation."""
+    if isinstance(obj, dict):
+        return {str(k): _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, (str, int, float, bool)) or obj is None:
+        return obj
+    try:
+        return float(obj)  # numpy scalars, 0-d tensors
+    except (TypeError, ValueError, RuntimeError):
+        return repr(obj)
+
+
+class Recorder:
+    """In-memory store of one run's records, with an optional JSONL sink.
+
+    Public views: ``spans``, ``counters``, ``gauges``, ``gauge_events``,
+    ``ledger_entries``, ``guarantee_records`` and ``tradeoff_records`` —
+    plain Python containers, safe to read at any point in the run.
+    """
+
+    def __init__(self, path=None):
+        self.spans = []
+        self.counters = {}
+        self.gauges = {}
+        self.gauge_events = []
+        self.ledger_entries = []
+        self.guarantee_records = []
+        self.tradeoff_records = []
+        self.path = path
+        self._seq = 0
+        self._sink = None
+        if path:
+            self._sink = open(path, "a", buffering=1)
+            self.record({"type": "meta", "pid": os.getpid(),
+                         "schema": SCHEMA_VERSION}, kind=None)
+
+    def _next_seq(self):
+        with _lock:
+            self._seq += 1
+            return self._seq
+
+    def record(self, rec, kind=None):
+        """Store ``rec`` in-memory (under ``kind``) and append it to the
+        sink as one JSON line."""
+        rec.setdefault("v", SCHEMA_VERSION)
+        rec.setdefault("schema_version", SCHEMA_VERSION)
+        rec.setdefault("ts", round(time.time(), 3))
+        with _lock:
+            if kind is not None:
+                getattr(self, kind).append(rec)
+            if self._sink is not None:
+                try:
+                    self._sink.write(json.dumps(rec) + "\n")
+                except OSError:
+                    pass  # a full disk must not kill the fit
+
+    def flush(self, fsync=True):
+        """Flush the JSONL sink to the OS and, with ``fsync`` (the
+        default), to disk. Returns True when a sink was flushed."""
+        with _lock:
+            sink = self._sink
+            if sink is None:
+                return False
+            try:
+                sink.flush()
+                if fsync:
+                    os.fsync(sink.fileno())
+            except OSError:
+                return False
+            return True
+
+    def close(self):
+        with _lock:
+            if self._sink is not None:
+                try:
+                    self._sink.close()
+                finally:
+                    self._sink = None
+
+
+# ---------------------------------------------------------------------------
+# Module-level API (the instrumentation surface)
+# ---------------------------------------------------------------------------
+
+
+def enabled():
+    """True when a recorder is active (``SQ_OBS=1`` or :func:`enable`)."""
+    return _active is not None
+
+
+def get_recorder():
+    """The active :class:`Recorder`, or None when observability is off."""
+    return _active
+
+
+def enable(path=None):
+    """Start a fresh observability run. ``path`` opens a JSONL sink
+    (appending); None records in memory only."""
+    global _active
+    with _lock:
+        disable()
+        _active = Recorder(path)
+    return _active
+
+
+def disable():
+    """Close the current run (flushes the sink) and return its recorder.
+    Safe to call when off."""
+    global _active
+    with _lock:
+        rec = _active
+        _active = None
+        if rec is not None:
+            rec.close()
+    return rec
+
+
+def flush(fsync=True):
+    """Durably flush the active run's JSONL sink (see
+    :meth:`Recorder.flush`). False when disabled or in-memory."""
+    rec = _active
+    if rec is None:
+        return False
+    return rec.flush(fsync=fsync)
+
+
+def span(name, sync=None, **attrs):
+    """Open a named timed scope. Disabled mode returns the shared no-op
+    :data:`NULL_SPAN` (one global read, zero allocation)."""
+    rec = _active
+    if rec is None:
+        return NULL_SPAN
+    return Span(rec, name, sync, attrs)
+
+
+def record_span(name, dur_s, **attrs):
+    """Record an externally timed span (a scope that owns its device
+    synchronization)."""
+    rec = _active
+    if rec is None:
+        return
+    rec.record({"type": "span", "name": name, "seq": rec._next_seq(),
+                "dur_s": round(float(dur_s), 6), "depth": 0, "parent": None,
+                "synced": True, "attrs": _jsonable(attrs) if attrs else {}},
+               kind="spans")
+
+
+def counter_add(name, delta):
+    """Add ``delta`` to a cumulative counter."""
+    rec = _active
+    if rec is None:
+        return
+    with _lock:
+        val = rec.counters.get(name, 0) + delta
+        rec.counters[name] = val
+    rec.record({"type": "counter", "name": name, "value": val,
+                "delta": delta})
+
+
+def gauge(name, value, **attrs):
+    """Set a point-in-time gauge."""
+    rec = _active
+    if rec is None:
+        return
+    with _lock:
+        rec.gauges[name] = value
+    out = {"type": "gauge", "name": name, "value": _jsonable(value)}
+    if attrs:
+        out["attrs"] = _jsonable(attrs)
+    rec.record(out, kind="gauge_events")
+
+
+def snapshot():
+    """One-dict summary of the run: spans, ledger entries, the guarantee
+    audit's draws, violations and flagged sites, trade-off points and the
+    sketch's counters. None when disabled."""
+    rec = _active
+    if rec is None:
+        return None
+    from .guarantees import audit
+
+    audit_flagged = sorted(
+        site for site, a in audit(rec.guarantee_records).items()
+        if a["flagged"])
+    return {
+        "spans": len(rec.spans),
+        "ledger_entries": len(rec.ledger_entries),
+        "guarantee_records": len(rec.guarantee_records),
+        "guarantee_violations": sum(
+            1 for g in rec.guarantee_records if g.get("violated")),
+        "audit_flagged": audit_flagged,
+        "tradeoff_records": len(rec.tradeoff_records),
+        "sketch_estimates": int(rec.counters.get("sketch.estimates", 0)),
+    }
+
+
+def _default_path():
+    """Sink path of the run that ``SQ_OBS=1`` enables."""
+    return _env.raw("SQ_OBS_PATH") or DEFAULT_PATH
+
+
+# SQ_OBS=1 enables at first import, sink at SQ_OBS_PATH; the atexit
+# disable flushes the sink of a run that never calls disable() itself
+if _env.flag("SQ_OBS"):
+    enable(_default_path())
+    import atexit
+
+    atexit.register(disable)

@@ -1,0 +1,200 @@
+"""JSONL schema of the port's obs records, and a dependency-free validator
+(counterpart of ``sq_learn_tpu/obs/schema.py``, cut to the record types
+the port writes).
+
+Every line carries the JAX package's envelope ``{"v": 11,
+"schema_version": 11, "ts": <unix seconds>, "type": <t>}`` plus the
+fields of its type; earlier versions (1–10) still validate, any other
+version is rejected.
+
+=========  ==============================================================
+type       required fields (beyond the envelope)
+=========  ==============================================================
+meta       pid (int), schema (int)
+span       name (str), seq (int), dur_s (number ≥ 0), depth (int ≥ 0),
+           parent (int | null), synced (bool); optional attrs (object),
+           error (str)
+counter    name (str), value (number), delta (number)
+gauge      name (str), value (any JSON scalar); optional attrs (object)
+ledger     estimator (str), step (str), queries (object: str → number),
+           budget (object: str → number); optional wall_s (number ≥ 0),
+           attrs (object)
+guarantee  site (str), realized (number ≥ 0), tol (number ≥ 0),
+           violated (bool), fail_prob (number in [0, 1] | null);
+           optional short_circuit (bool), n_total (int), attrs (object)
+tradeoff   sweep (str), point (number), accuracy (number),
+           q_runtime (number | null), c_runtime (number | null); optional
+           wall_s (number ≥ 0), accuracy_metric (str), budget (object:
+           str → number), attrs (object)
+=========  ==============================================================
+
+The JAX package's other types (watchdog, probe, fault, breaker, xla_cost,
+regression, slo, budget, alert, control, elastic, clock, io) come with
+the planes that write them (``ROADMAP.md`` §1); until then a record of
+any of them is rejected, with an error that names its type.
+"""
+
+import json
+
+from .recorder import SCHEMA_VERSION
+
+_NUM = (int, float)
+
+#: versions this validator reads (the JAX package's, up to its v11)
+KNOWN_VERSIONS = set(range(1, SCHEMA_VERSION + 1))
+
+#: every record type the port writes, machine-readable
+RECORD_TYPES = ("meta", "span", "counter", "gauge", "ledger", "guarantee",
+                "tradeoff")
+
+
+def _check(cond, errors, msg):
+    if not cond:
+        errors.append(msg)
+
+
+def _number(v):
+    return isinstance(v, _NUM) and not isinstance(v, bool)
+
+
+def _str_to_number(obj):
+    return isinstance(obj, dict) and all(
+        isinstance(k, str) and isinstance(v, _NUM) for k, v in obj.items())
+
+
+def validate_record(rec):
+    """Validate one decoded record; returns a list of error strings
+    (empty = valid)."""
+    errors = []
+    if not isinstance(rec, dict):
+        return ["record is not an object"]
+    v = rec.get("v")
+    _check(v in KNOWN_VERSIONS, errors,
+           f"unknown schema version {v!r} (known: {sorted(KNOWN_VERSIONS)})")
+    if "schema_version" in rec:
+        _check(rec["schema_version"] == v, errors,
+               f"schema_version {rec['schema_version']!r} disagrees with "
+               f"v {v!r}")
+    elif isinstance(v, int) and v >= 2:
+        errors.append(f"v{v} records must carry schema_version")
+    _check(isinstance(rec.get("ts"), _NUM), errors, "ts must be numeric")
+    t = rec.get("type")
+    if t == "meta":
+        _check(isinstance(rec.get("pid"), int), errors, "meta.pid int")
+        _check(isinstance(rec.get("schema"), int), errors, "meta.schema int")
+    elif t == "span":
+        _check(isinstance(rec.get("name"), str), errors, "span.name str")
+        _check(isinstance(rec.get("seq"), int), errors, "span.seq int")
+        _check(isinstance(rec.get("dur_s"), _NUM) and rec["dur_s"] >= 0,
+               errors, "span.dur_s non-negative number")
+        _check(isinstance(rec.get("depth"), int) and rec["depth"] >= 0,
+               errors, "span.depth non-negative int")
+        _check(rec.get("parent") is None or isinstance(rec["parent"], int),
+               errors, "span.parent int or null")
+        _check(isinstance(rec.get("synced"), bool), errors,
+               "span.synced bool")
+        _check(isinstance(rec.get("attrs", {}), dict), errors,
+               "span.attrs object")
+    elif t == "counter":
+        _check(isinstance(rec.get("name"), str), errors, "counter.name str")
+        _check(isinstance(rec.get("value"), _NUM), errors,
+               "counter.value number")
+        _check(isinstance(rec.get("delta"), _NUM), errors,
+               "counter.delta number")
+    elif t == "gauge":
+        _check(isinstance(rec.get("name"), str), errors, "gauge.name str")
+        _check("value" in rec, errors, "gauge.value required")
+    elif t == "ledger":
+        _check(isinstance(rec.get("estimator"), str), errors,
+               "ledger.estimator str")
+        _check(isinstance(rec.get("step"), str), errors, "ledger.step str")
+        for field in ("queries", "budget"):
+            _check(_str_to_number(rec.get(field)), errors,
+                   f"ledger.{field} object of str → number")
+        if "wall_s" in rec:
+            _check(isinstance(rec["wall_s"], _NUM) and rec["wall_s"] >= 0,
+                   errors, "ledger.wall_s non-negative number")
+    elif t == "guarantee":
+        _check(isinstance(rec.get("site"), str), errors,
+               "guarantee.site str")
+        for field in ("realized", "tol"):
+            _check(_number(rec.get(field)) and rec[field] >= 0, errors,
+                   f"guarantee.{field} non-negative number")
+        _check(isinstance(rec.get("violated"), bool), errors,
+               "guarantee.violated bool")
+        fp = rec.get("fail_prob", None)
+        _check("fail_prob" in rec
+               and (fp is None or (_number(fp) and 0.0 <= fp <= 1.0)),
+               errors, "guarantee.fail_prob number in [0, 1] or null")
+        if "short_circuit" in rec:
+            _check(isinstance(rec["short_circuit"], bool), errors,
+                   "guarantee.short_circuit bool")
+        if "n_total" in rec:
+            _check(isinstance(rec["n_total"], int)
+                   and not isinstance(rec["n_total"], bool), errors,
+                   "guarantee.n_total int")
+    elif t == "tradeoff":
+        _check(isinstance(rec.get("sweep"), str), errors,
+               "tradeoff.sweep str")
+        for field in ("point", "accuracy"):
+            _check(_number(rec.get(field)), errors,
+                   f"tradeoff.{field} number")
+        for field in ("q_runtime", "c_runtime"):
+            _check(field in rec and (rec[field] is None
+                                     or _number(rec[field])),
+                   errors, f"tradeoff.{field} number or null")
+        if rec.get("wall_s") is not None:
+            _check(isinstance(rec["wall_s"], _NUM) and rec["wall_s"] >= 0,
+                   errors, "tradeoff.wall_s non-negative number")
+        if "budget" in rec:
+            _check(_str_to_number(rec["budget"]), errors,
+                   "tradeoff.budget object of str → number")
+    else:
+        errors.append(
+            f"unknown record type {t!r} (the port writes "
+            f"{', '.join(RECORD_TYPES)})")
+    if "attrs" in rec and t != "span":
+        _check(isinstance(rec["attrs"], dict), errors,
+               f"{t}.attrs object")
+    return errors
+
+
+def validate_jsonl(path, max_errors=20):
+    """Validate every line of an obs JSONL file.
+
+    Returns ``{lines, by_type, errors}`` where ``errors`` is a list of
+    "line N: message" strings (truncated at ``max_errors``). An empty or
+    missing file is an error — a run that recorded nothing is a broken
+    run. ``.jsonl.gz`` archives open transparently.
+    """
+    lines = 0
+    by_type = {}
+    errors = []
+    try:
+        if str(path).endswith(".gz"):
+            import gzip
+
+            fh = gzip.open(path, "rt")
+        else:
+            fh = open(path)
+    except OSError as exc:
+        return {"lines": 0, "by_type": {}, "errors": [str(exc)]}
+    with fh:
+        for i, raw in enumerate(fh, 1):
+            raw = raw.strip()
+            if not raw:
+                continue
+            lines += 1
+            try:
+                rec = json.loads(raw)
+            except ValueError as exc:
+                errors.append(f"line {i}: not JSON ({exc})")
+                continue
+            for msg in validate_record(rec):
+                if len(errors) < max_errors:
+                    errors.append(f"line {i}: {msg}")
+            t = rec.get("type") if isinstance(rec, dict) else None
+            by_type[t] = by_type.get(t, 0) + 1
+    if lines == 0:
+        errors.append("file has no records")
+    return {"lines": lines, "by_type": by_type, "errors": errors}

@@ -11,13 +11,22 @@ grid size per element.
 Every random draw takes an explicit ``torch.Generator``; the tensors an
 estimate is made from live on its device, and scalar inputs are put
 there.
+
+With an obs run active, each call outside a
+:func:`~sq_learn_tpu_torch.obs.guarantees.no_audit` region records its
+draws against their declared contract (:func:`_observe_estimate`), at
+the sites the JAX package's eager calls record; inside such a region
+(the fit loops and fused searches the JAX package runs under ``jit``)
+nothing is recorded.
 """
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 
+from ...obs import guarantees as _guarantees
 from .sampling import _as_tensor, _filled, fejer_grid_sample
 
 _MEDIAN_CONST = 2 * (8 / math.pi**2 - 0.5) ** 2
@@ -34,6 +43,28 @@ def _median(t):
     ``jnp.median`` returns."""
     return torch.sort(t, dim=0).values[(t.shape[0] - 1) // 2] \
         if t.shape[0] % 2 else torch.quantile(t, 0.5, dim=0)
+
+
+def _observe_estimate(site, truth, est, tol, fail_prob, circular=False,
+                      **attrs):
+    """Emit ``guarantee`` records for one estimation call: the simulator
+    knows the true value it perturbs, so each element of the batch is one
+    audited draw of "|estimate − truth| ≤ tol w.p. ≥ 1 − fail_prob"
+    (:mod:`sq_learn_tpu_torch.obs.guarantees`). ``circular`` measures
+    distance on the unit phase circle (PE's ω ∈ [0, 1) wraps); ``tol`` is
+    a number or a tensor of one tolerance per element. The errors are
+    computed in float64 on the estimate's device. No-op when
+    observability is disabled or inside a ``no_audit`` region."""
+    if not _guarantees.enabled():
+        return
+    e = est.to(torch.float64)
+    t = torch.as_tensor(truth, device=e.device).to(torch.float64)
+    err = torch.abs(torch.broadcast_to(t, e.shape) - e)
+    if circular:
+        err = torch.minimum(err, 1.0 - err)
+    if isinstance(tol, torch.Tensor):
+        tol = torch.broadcast_to(tol.to(torch.float64), e.shape)
+    _guarantees.observe(site, err, tol, fail_prob=fail_prob, **attrs)
 
 
 def median_q(gamma):
@@ -78,7 +109,17 @@ def amplitude_estimation(generator, a, epsilon=0.01, gamma=None, M=None,
     j = fejer_grid_sample(generator, w1 * M, float(M), window,
                           sample_shape=(Q,))
     a_tilde = torch.sin(math.pi * j / M) ** 2
-    return _median(a_tilde) if Q > 1 else a_tilde[0]
+    out = _median(a_tilde) if Q > 1 else a_tilde[0]
+    if _guarantees.enabled():
+        # AE contract: |ã − a| ≤ ε with prob ≥ 1−γ (median-boosted), or
+        # ≥ 8/π² for a single draw (Brassard et al. Thm 12); ε stays the
+        # declared tolerance even under an explicit M
+        _observe_estimate(
+            "amplitude_estimation", torch.clamp(a, 0.0, 1.0), out,
+            float(epsilon),
+            float(gamma) if gamma is not None else 1.0 - 8 / math.pi**2,
+            M=int(M))
+    return out
 
 
 def amplitude_estimation_per_eps(generator, a, epsilon, Q=1, window=64):
@@ -109,6 +150,7 @@ def phase_estimation(generator, omega, m=None, epsilon=None, gamma=0.1,
     ``phase_estimation``, ``Utility.py:591-694``), batched over ``omega``:
     ω̃ = k/M, M = 2^m, drawn from the exact PE output distribution;
     ω ≈ 1 maps to (M−1)/M as in the reference (``:640``)."""
+    declared_eps = epsilon
     if m is None:
         if epsilon is None:
             raise ValueError("specify either m or epsilon")
@@ -118,8 +160,16 @@ def phase_estimation(generator, omega, m=None, epsilon=None, gamma=0.1,
     j = fejer_grid_sample(generator, omega * M, float(M), window)
     omega_tilde = j / M
     one = torch.isclose(omega, torch.ones_like(omega))
-    return torch.where(one, torch.full_like(omega_tilde, (M - 1) / M),
-                       omega_tilde)
+    out = torch.where(one, torch.full_like(omega_tilde, (M - 1) / M),
+                      omega_tilde)
+    if declared_eps is not None:
+        # PE contract (Nielsen & Chuang eq. 5.35 at the implemented m):
+        # circular |ω̃ − ω| ≤ ε with prob ≥ 1−γ; a bare qubit count
+        # declares no contract
+        _observe_estimate("phase_estimation", omega, out,
+                          float(declared_eps), float(gamma), circular=True,
+                          m=int(m))
+    return out
 
 
 def consistent_phase_intervals(epsilon, gamma, n=None, shift=None):
@@ -165,7 +215,12 @@ def consistent_phase_estimation(generator, omega, epsilon, gamma, n=None,
                                          right=True),
                       1, intervals.shape[0] - 1)
     estimate = (intervals[idx - 1] + intervals[idx]) / 2
-    return torch.clamp(estimate, min=0.0)
+    out = torch.clamp(estimate, min=0.0)
+    # consistent-PE contract: the snapped output lands within ε of ω with
+    # prob ≥ 1−γ (the inner PE ran at δ' = ε·γ/2n)
+    _observe_estimate("consistent_phase_estimation", omega, out,
+                      float(epsilon), float(gamma))
+    return out
 
 
 def sv_to_theta(sv, eps):
@@ -203,7 +258,15 @@ def ipe(generator, x_sq_norm, y_sq_norm, inner, epsilon, Q=None, gamma=0.1,
         Q = median_q(gamma)
     a_tilde = amplitude_estimation_per_eps(generator, a, eps_a, Q=Q,
                                            window=window)
-    return ssum * (1 - 2 * a_tilde) / 2
+    out = ssum * (1 - 2 * a_tilde) / 2
+    if _guarantees.enabled():
+        # robust-IPE contract: |⟨x,y⟩_est − ⟨x,y⟩| ≤ ε·max(1, |⟨x,y⟩|)
+        # with prob ≥ 1−γ
+        _observe_estimate(
+            "ipe", ip, out,
+            float(epsilon) * torch.clamp(torch.abs(ip), min=1.0),
+            float(gamma))
+    return out
 
 
 def ipe_matrix(generator, inner, x_sq, c_sq, epsilon, Q=None, gamma=0.1,
@@ -212,7 +275,9 @@ def ipe_matrix(generator, inner, x_sq, c_sq, epsilon, Q=None, gamma=0.1,
     batch of them (one per restart, with ``c_sq`` (R, k) and the rows'
     ``x_sq`` (n,) shared). The sampler's (R, rows, k, Q, 2·window+1)
     transient is capped at ``_IPE_BLOCK_ELEMS`` by taking the rows in
-    blocks; no block fetches anything."""
+    blocks; no block fetches anything. A call of more than one block is
+    what the JAX package runs as a ``lax.map``, so only a single-block
+    call records guarantee draws."""
     n, k = inner.shape[-2:]
     batch = inner.numel() // max(n * k, 1)
     q_eff = Q if Q is not None else median_q(gamma)
@@ -220,11 +285,13 @@ def ipe_matrix(generator, inner, x_sq, c_sq, epsilon, Q=None, gamma=0.1,
     block = max(1, _IPE_BLOCK_ELEMS // max(per_row, 1))
     c_sq = c_sq[..., None, :]
     out = torch.empty_like(inner)
-    for r0 in range(0, n, block):
-        r1 = min(n, r0 + block)
-        out[..., r0:r1, :] = ipe(generator, x_sq[r0:r1, None], c_sq,
-                                 inner[..., r0:r1, :], epsilon=epsilon, Q=Q,
-                                 gamma=gamma, window=window)
+    with (_guarantees.no_audit() if block < n
+          else contextlib.nullcontext()):
+        for r0 in range(0, n, block):
+            r1 = min(n, r0 + block)
+            out[..., r0:r1, :] = ipe(generator, x_sq[r0:r1, None], c_sq,
+                                     inner[..., r0:r1, :], epsilon=epsilon,
+                                     Q=Q, gamma=gamma, window=window)
     return out
 
 

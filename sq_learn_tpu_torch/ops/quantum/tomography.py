@@ -14,6 +14,11 @@ part 2  measure an interference state of 2d registers with amplitudes
 Counts come from :func:`~.sampling.multinomial_counts`; a matrix is one
 batched call over its rows (the JAX package ``vmap``s), each row with its
 own N, and every row's count vector goes through the split tree at once.
+
+With an obs run active, :func:`tomography` records its draws against the
+declared δ (:func:`_observe_guarantee`), as the JAX package's eager calls
+do; :func:`real_tomography` alone, which the fit loops call, records
+nothing.
 """
 
 import math
@@ -21,8 +26,49 @@ import math
 import numpy as np
 import torch
 
+from ...obs import guarantees as _guarantees
 from .noise import gaussian_estimate
 from .sampling import _as_tensor, _filled, multinomial_counts
+
+
+def _observe_guarantee(A, est, noise, norm, preserve_norm, variant):
+    """Emit ``guarantee`` records for one tomography call
+    (:mod:`sq_learn_tpu_torch.obs.guarantees`): the simulation knows its
+    own ground truth, so each estimate is one audited draw of "realized
+    error ≤ δ w.p. ≥ 1 − fail_prob".
+
+    - ``true``: Algorithm 4.1's contract is on the NORMALIZED vector —
+      per-row error of est/‖v‖ against v/‖v‖ in the declared norm,
+      failure probability 1/d^0.83 (QIPM Theorem 4.3's tail at the
+      implemented N = 36·d·ln d/δ²).
+    - ``gaussian``: the fast path adds truncnorm(±δ/√d) per component of
+      the FLATTENED input, so its realized ‖A−Â‖_F ≤ δ by construction —
+      declared fail_prob 0.
+
+    The errors are computed in float64 on the device; only the sampled
+    draws reach the host. No-op when observability is disabled.
+    """
+    if not _guarantees.enabled():
+        return
+    A = A.to(torch.float64)
+    E = est.to(torch.float64)
+    if variant == "gaussian":
+        _guarantees.observe(
+            "tomography.gaussian", torch.linalg.norm(A - E).reshape(1),
+            float(noise), fail_prob=0.0, norm="L2", d=int(A.numel()))
+        return
+    if A.ndim == 1:
+        A, E = A[None], E[None]
+    scale = torch.linalg.norm(A, dim=1)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    unit = A / safe[:, None]
+    Eu = (E / safe[:, None]) if preserve_norm else E
+    ord_ = 2 if norm == "L2" else math.inf
+    realized = torch.linalg.vector_norm(unit - Eu, ord=ord_, dim=1)
+    d = A.shape[1]
+    _guarantees.observe(
+        "tomography.true", realized, float(noise),
+        fail_prob=min(1.0, d ** -0.83), norm=norm, d=int(d))
 
 
 def tomography_n_measurements(d, delta, norm="L2"):
@@ -83,16 +129,25 @@ def tomography(generator, A, noise, true_tomography=True, norm="L2", N=None,
     noise == 0 returns A unchanged. ``true_tomography=False`` takes the
     truncated-Gaussian fast path over the flattened input (so
     ‖Â − A‖_F ≤ noise); otherwise Algorithm 4.1 runs on every row of a
-    matrix at once.
+    matrix at once. Under an obs run each call records its realized
+    errors against ``noise``; noise 0 records the short-circuit.
     """
     A = _as_tensor(A, generator)
+    variant = "true" if true_tomography else "gaussian"
     if float(noise) == 0.0:
+        if _guarantees.enabled():
+            _guarantees.record_guarantee(
+                f"tomography.{variant}", 0.0, 0.0, fail_prob=0.0,
+                short_circuit=True)
         return A
     if not true_tomography:
-        return gaussian_estimate(generator, A.reshape(-1),
-                                 noise).reshape(A.shape)
-    return real_tomography(generator, A, delta=noise, N=N, norm=norm,
-                           preserve_norm=preserve_norm)
+        out = gaussian_estimate(generator, A.reshape(-1),
+                                noise).reshape(A.shape)
+    else:
+        out = real_tomography(generator, A, delta=noise, N=N, norm=norm,
+                              preserve_norm=preserve_norm)
+    _observe_guarantee(A, out, noise, norm, preserve_norm, variant)
+    return out
 
 
 def magnitude_tomography_signed(generator, v, delta=None, N=None,

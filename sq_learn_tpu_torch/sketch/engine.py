@@ -25,6 +25,11 @@ A numpy input is validated to a tensor on the configured device first, so
 every call takes the device route; the JAX package's host engine
 (``dispatch_host``) is not ported. ``SQ_SKETCH_ROWS`` and
 ``SQ_SKETCH_DELTA`` are read as the JAX package reads them.
+
+Under an obs run the exact path records the zero-budget ``sketch.stats``
+short-circuit, and a sketched estimate its FLOP counters and, below
+``SQ_SKETCH_AUDIT_ELEMS`` matrix elements, its own guarantee draws
+against the exact statistics (:func:`audit_sketch`).
 """
 
 import dataclasses
@@ -34,15 +39,18 @@ import os
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..ops.linalg import smallest_eigenvalue
 from ..ops.quantum.norms import _grid_exponents, _power_sweep, select_mu
 
 __all__ = [
     "SpectralStats",
+    "audit_sketch",
     "exact_spectral_stats",
     "fetch_components",
     "frobenius_squared",
     "mu_stats",
+    "record_sketch_obs",
     "resolve_sketch_rows",
     "sketch_components",
     "sketch_delta_stat",
@@ -55,6 +63,11 @@ SKETCH_SEED = 0x5CE7
 
 #: default sketch failure budget δ_stat (env ``SQ_SKETCH_DELTA``)
 DEFAULT_DELTA_STAT = 0.05
+
+#: matrix elements above which a sketch is not audited against the exact
+#: statistics (env ``SQ_SKETCH_AUDIT_ELEMS``): the audit would rival the
+#: sweep the sketch replaces
+DEFAULT_AUDIT_ELEMS = 8_000_000
 
 
 def sketch_delta_stat():
@@ -333,7 +346,8 @@ def exact_bundle(mu_grid, eta, frob, sigma_min, mu_vals, shape=None):
 def exact_spectral_stats(X, mu_grid, with_sigma=True):
     """The exact kernels, packaged: the SAME ``smallest_singular_value`` /
     ``_mu_grid`` code the fits use, with bounds equal to the values (so
-    ``conservative_mu`` is bit-equal to :func:`best_mu`'s winner)."""
+    ``conservative_mu`` is bit-equal to :func:`best_mu`'s winner). Records
+    the zero-budget ``sketch.stats`` short-circuit under an obs run."""
     from ..ops.linalg import row_norms, smallest_singular_value
     from ..ops.quantum.norms import _mu_grid
 
@@ -343,6 +357,10 @@ def exact_spectral_stats(X, mu_grid, with_sigma=True):
     sigma = float(smallest_singular_value(X)) if with_sigma else 0.0
     mu_vals = _mu_grid(X, tuple(mu_grid)).cpu().numpy().astype(np.float64)
     qs, qpos, _ = _grid_exponents(mu_grid)
+    if _obs.guarantees.enabled():
+        _obs.guarantees.record_guarantee(
+            "sketch.stats", 0.0, 0.0, fail_prob=0.0, short_circuit=True,
+            estimator="sketch")
     return SpectralStats(
         eta=eta, frob=frob, sigma_min=sigma, sigma_min_lower=sigma,
         mu_grid=tuple(mu_grid), mu_vals=mu_vals, mu_upper=mu_vals.copy(),
@@ -387,11 +405,60 @@ def spectral_stats(X, mu_grid, *, delta_stat=None, sketch="auto",
         return exact_spectral_stats(X, mu_grid, with_sigma=with_sigma)
     if rng is None:
         rng = np.random.default_rng(0)
-    idx = torch.as_tensor(sample_indices(rng, n, rows), device=X.device)
-    comp = fetch_components(sketch_components(X, idx, mu_grid,
-                                              with_sigma=with_sigma))
-    return finalize_components(comp, n=n, m=m, s=rows,
-                               mu_grid=tuple(mu_grid), delta_stat=delta_stat)
+    with _obs.span("sketch.stats", n=n, m=m, rows=rows,
+                   with_sigma=with_sigma):
+        idx = torch.as_tensor(sample_indices(rng, n, rows), device=X.device)
+        comp = fetch_components(sketch_components(X, idx, mu_grid,
+                                                  with_sigma=with_sigma))
+        stats = finalize_components(comp, n=n, m=m, s=rows,
+                                    mu_grid=tuple(mu_grid),
+                                    delta_stat=delta_stat)
+        record_sketch_obs(stats)
+        audit_sketch(stats, X)
+    return stats
+
+
+def record_sketch_obs(stats):
+    """Obs counters of a sketched estimate: the estimated FLOPs of the
+    sketched computation and of the exact sweep it replaced."""
+    if not _obs.enabled() or not stats.sketched:
+        return
+    _obs.counter_add("sketch.flops", stats.cost["sketch_flops"])
+    _obs.counter_add("sketch.exact_equiv_flops", stats.cost["exact_flops"])
+    _obs.counter_add("sketch.estimates", 1)
+
+
+def audit_sketch(stats, X):
+    """Guarantee draws for the sketch's own contract: with an obs run
+    active and the matrix under the audit ceiling, compute the EXACT
+    σ_min and μ grid and record how far the certified bounds miss them
+    (zero, unless the bound math is wrong) against δ_stat/2 at the
+    ``sketch.sigma_min`` / ``sketch.mu`` sites. Above the ceiling
+    (``SQ_SKETCH_AUDIT_ELEMS``, default :data:`DEFAULT_AUDIT_ELEMS`) the
+    audit is skipped."""
+    if not _obs.guarantees.enabled() or not stats.sketched:
+        return
+    n, m = stats.shape
+    cap = int(os.environ.get("SQ_SKETCH_AUDIT_ELEMS") or DEFAULT_AUDIT_ELEMS)
+    if n * m > cap:
+        return
+    from ..ops.linalg import smallest_singular_value
+    from ..ops.quantum.norms import _mu_grid
+
+    tol = 1e-5 * max(1.0, stats.frob)  # float-noise allowance
+    if stats.sigma_min_lower > 0:
+        sigma_exact = float(smallest_singular_value(X))
+        _obs.guarantees.observe(
+            "sketch.sigma_min",
+            [max(0.0, stats.sigma_min_lower - sigma_exact)], tol,
+            fail_prob=stats.delta_stat / 2.0, estimator="sketch",
+            sample_rows=stats.sample_rows)
+    mu_exact = _mu_grid(X, stats.mu_grid).cpu().numpy().astype(np.float64)
+    _obs.guarantees.observe(
+        "sketch.mu",
+        np.maximum(0.0, mu_exact - np.asarray(stats.mu_upper)), tol,
+        fail_prob=stats.delta_stat / 2.0, estimator="sketch",
+        sample_rows=stats.sample_rows)
 
 
 def mu_stats(X, mu_grid, *, sketch="auto", rng=None, tag="mu"):

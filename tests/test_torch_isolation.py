@@ -2,8 +2,10 @@
 
 In a fresh interpreter where ``import jax`` and ``import sklearn`` fail,
 every module of ``sq_learn_tpu_torch``, ``chip_smoke.py``,
-``chip_profile.py`` and ``chip_variants.py`` import, and no
-``sq_learn_tpu`` module gets loaded. ``chip_smoke.py``
+``chip_profile.py`` and ``chip_variants.py`` import, the ``obs``
+package writes an artifact that its ``audit`` and ``frontier``
+subcommands read, and no ``sq_learn_tpu`` module gets loaded.
+``chip_smoke.py``
 itself fails, and prints no result, without a card or without the
 repository beside it.
 """
@@ -27,6 +29,22 @@ for name in names:
 for script in ("chip_smoke", "chip_profile", "chip_variants"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+import os, tempfile
+from sq_learn_tpu_torch import obs
+from sq_learn_tpu_torch.obs.__main__ import main as obs_main
+path = os.path.join(tempfile.mkdtemp(), "run.jsonl")
+obs.enable(path)
+with obs.span("probe"):
+    obs.guarantees.record_guarantee("probe", 0.0, 0.1, fail_prob=0.0)
+    obs.ledger.record("probe", "step", queries={"q": 1})
+    obs.frontier.record_tradeoff("probe", 0.1, accuracy=1.0, q_runtime=2.0)
+obs.disable()
+assert obs.schema.validate_jsonl(path)["errors"] == []
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()) as cli:
+    assert obs_main(["audit", path]) == 0
+    assert obs_main(["frontier", path]) == 0
+assert "probe" in cli.getvalue() and "flagged: none" in cli.getvalue()
 bad = sorted(m for m in sys.modules
              if m == "sq_learn_tpu" or m.startswith("sq_learn_tpu."))
 assert not bad, bad
@@ -58,6 +76,13 @@ def test_port_imports_without_jax_or_the_jax_package():
             "sq_learn_tpu_torch.utils.plotting",
             "sq_learn_tpu_torch.sketch.engine",
             "sq_learn_tpu_torch.ops.quantum.estimation"} <= names
+    # obs's research half and its subcommand entry point
+    assert {"sq_learn_tpu_torch.obs", "sq_learn_tpu_torch.obs.recorder",
+            "sq_learn_tpu_torch.obs.ledger",
+            "sq_learn_tpu_torch.obs.guarantees",
+            "sq_learn_tpu_torch.obs.frontier",
+            "sq_learn_tpu_torch.obs.schema",
+            "sq_learn_tpu_torch.obs.__main__"} <= names
     # the experiment scaffolding and the remaining classical estimators
     assert {"sq_learn_tpu_torch.preprocessing", "sq_learn_tpu_torch.pipeline",
             "sq_learn_tpu_torch.feature_extraction",
