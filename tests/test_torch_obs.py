@@ -246,6 +246,23 @@ def test_both_packages_clis_read_the_ports_artifact(tmp_path):
     assert jax_guarantees.main([str(path)]) == 0
 
 
+def test_cli_reads_an_artifact_without_torch(tmp_path):
+    """The CLI is a file tool: with torch blocked, importing the package
+    and running ``frontier`` and ``audit`` still work."""
+    path = tmp_path / "run.jsonl"
+    _write_artifact(path)
+    code = ("import sys\n"
+            "sys.modules['torch'] = None\n"
+            "from sq_learn_tpu_torch.obs.__main__ import main\n"
+            "assert main(['frontier', sys.argv[1]]) == 0\n"
+            "assert main(['audit', sys.argv[1]]) == 0\n")
+    out = subprocess.run([sys.executable, "-c", code, str(path)], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "frontier:" in out.stdout and "flagged: none" in out.stdout
+
+
 def test_cli_usage_and_later_subcommands(tmp_path, capsys):
     from sq_learn_tpu_torch.obs.__main__ import main
 

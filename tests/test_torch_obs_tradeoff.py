@@ -65,9 +65,9 @@ def _load_smoke():
 
 smoke = _load_smoke()
 
-#: the small run: leg 1 on 2 000 CICIDS rows with a 256-row sketch, leg 2
+#: the small run: leg 1 on 1 100 CICIDS rows with a 256-row sketch, leg 2
 #: on 1 500 low-margin MNIST rows, a 500-row twin and 8 components
-SMALL_SWEEP, SMALL_SKETCH = 2000, 256
+SMALL_SWEEP, SMALL_SKETCH = 1100, 256
 SMALL_MNIST, SMALL_TRAIN, SMALL_TWIN, SMALL_COMPONENTS = 1500, 1200, 500, 8
 
 
