@@ -275,6 +275,16 @@ TRADEOFF_ERRS = (0.2, 0.8, 1.6, 3.2)
 # entries barely moves the 7-NN vote)
 TRADEOFF_ACC_FLOOR = {0.2: 0.9903500000000001, 0.8: 0.9899499999999999,
                       1.6: 0.9899499999999999, 3.2: 0.9900999999999998}
+# the band of the transform's realized ‖Xq − X·Vᵀ‖_F over its bound
+# √k·(ε+δ): the JAX package's lowest and highest ratio over the same runs
+# (0.57700–0.57758, near 1/√3: the noise is near-uniform on ±bound/√d
+# per entry), widened by 1.5× their spread on each side (same script). A
+# transform that adds no noise, or noise of another scale, falls outside
+# it, where the accuracy does not see the noise
+TRADEOFF_FNORM_BAND = {0.2: (0.5763908474730872, 0.5782434929282396),
+                       0.8: (0.5763223730071687, 0.5781183920441417),
+                       1.6: (0.5766555111095377, 0.5781409243217259),
+                       3.2: (0.5768526923871267, 0.5778809731937964)}
 # the guarantee sites and ledger (estimator, step) pairs both legs record:
 # what the JAX package's accelerator route records for the same legs at a
 # small size with the same routes (the sketch engaged in leg 1, exact in
@@ -1458,7 +1468,9 @@ def tradeoff_legs(Xs, ys, Xm, ym, *, n_train, twin_rows, n_components,
     shape. Tensors stay on their device. Returns, per δ, the fit's
     labels, Lloyd launches, seconds, ARI, q_runtime and κ, the IPE fit's,
     and per ε+δ the accuracy, q_runtime, top-k, the twin's μ(A), argkmin
-    launches and seconds."""
+    launches, seconds, and the transform's realized ‖Xq − X·Vᵀ‖_F
+    (``f_norm``) beside its bound √k·(ε+δ) (``bound``); under ``Xq`` the
+    last point's representation."""
     import warnings
 
     import numpy as np
@@ -1503,7 +1515,7 @@ def tradeoff_legs(Xs, ys, Xm, ym, *, n_train, twin_rows, n_components,
     for err in errs:
         argkmin.launches = 0
         t0 = time.perf_counter()
-        Xq, _, f_norm = pca.transform(
+        Xq, bound, f_norm = pca.transform(
             Xm, classic_transform=False, epsilon_delta=err,
             quantum_representation=True, norm="est_representation",
             true_tomography=False)["quantum_representation_results"]
@@ -1518,13 +1530,15 @@ def tradeoff_legs(Xs, ys, Xm, ym, *, n_train, twin_rows, n_components,
         wall = time.perf_counter() - t0
         out["qpca"][err] = {"accuracy": acc, "q_runtime": q_rt, "wall": wall,
                             "launches": argkmin.launches, "topk": q.topk,
-                            "muA": q.muA}
+                            "muA": q.muA, "f_norm": float(f_norm),
+                            "bound": float(bound)}
         obs.frontier.record_tradeoff(
             "mnist_qpca_eps_delta", err, accuracy=acc,
             accuracy_metric="holdout_7nn_acc", q_runtime=q_rt,
             c_runtime=float(n) * float(m) ** 2, wall_s=wall,
             budget={"eps": err / 2, "delta": err / 2},
             f_norm_err=float(f_norm))
+    out["Xq"] = Xq
     return out
 
 
@@ -1539,8 +1553,11 @@ def tradeoff_phase(Xs, ys, sweep, here, torch):
     ``obs.enable(<artifact>)``: :func:`tradeoff_legs` at the papers'
     sizes, leg 1 held against the obs-off δ-sweep ``sweep`` (labels bit
     for bit, Lloyd launches), leg 2's accuracies against
-    TRADEOFF_ACC_FLOOR, then the artifact: schema, audit, sites and steps,
-    and the frontier CLI. Returns (Lloyd launches, argkmin launches)."""
+    TRADEOFF_ACC_FLOOR and the transform's realized error against
+    TRADEOFF_FNORM_BAND, then the artifact: schema, audit, sites and
+    steps, and the frontier CLI; last the search kernel at leg 2's shape
+    (:func:`argkmin_fold_case`). Returns (Lloyd launches, argkmin
+    launches, that shape's entry)."""
     import tempfile
 
     import numpy as np
@@ -1597,8 +1614,16 @@ def tradeoff_phase(Xs, ys, sweep, here, torch):
             check(point["accuracy"] >= floor,
                   f"trade-off ε+δ={err}: holdout accuracy "
                   f"{point['accuracy']} < the JAX package's floor {floor}")
+            ratio = point["f_norm"] / point["bound"]
+            lo, hi = TRADEOFF_FNORM_BAND[err]
+            check(lo <= ratio <= hi,
+                  f"trade-off ε+δ={err}: ‖Xq − X·Vᵀ‖_F {point['f_norm']} is "
+                  f"{ratio} of its bound {point['bound']}, outside the JAX "
+                  f"package's band [{lo}, {hi}]")
             print(f"trade-off ε+δ={err}: holdout 7-NN accuracy "
-                  f"{point['accuracy']} (floor {floor}), q_runtime "
+                  f"{point['accuracy']} (floor {floor}), ‖Xq − X·Vᵀ‖_F "
+                  f"{point['f_norm']} = {ratio} of its bound "
+                  f"{point['bound']} (band [{lo}, {hi}]), q_runtime "
                   f"{point['q_runtime']}, top-k {point['topk']}, "
                   f"{point['wall']:.4f} s", flush=True)
         report = obs.schema.validate_jsonl(path)
@@ -1640,7 +1665,12 @@ def tradeoff_phase(Xs, ys, sweep, here, torch):
           f"{time.perf_counter() - t_phase:.3f} s (the 70 000 × 784 "
           f"surrogate made and uploaded in {data_s:.3f} s, the frontier "
           f"CLI's process {cli_s:.3f} s)", flush=True)
-    return lloyd, knn
+    Xq = out["Xq"]
+    T = Xq[:TRADEOFF_TRAIN].contiguous()
+    shape = argkmin_fold_case(T, torch.sum(T * T, dim=1),
+                              Xq[TRADEOFF_TRAIN:].contiguous(), TRADEOFF_KNN,
+                              knn, torch, path="the trade-off holdout")
+    return lloyd, knn, shape
 
 
 def truncated_svd_path(torch):
@@ -1821,10 +1851,11 @@ def argkmin_fold_phase(X, by_shape, torch):
     return entries
 
 
-def argkmin_fold_case(T, tsq, Q, k, launches, torch):
-    """One (width, k) of :func:`argkmin_fold_phase`: the kernel held
-    against its plain version and the exact lists, twice bit-equal, and
-    timed. Returns its entry, with the grid search's ``launches``."""
+def argkmin_fold_case(T, tsq, Q, k, launches, torch, path="the grid search"):
+    """One search shape of a path (by default one (width, k) of
+    :func:`argkmin_fold_phase`): the kernel held against its plain version
+    and the exact lists, twice bit-equal, and timed. Returns its entry,
+    with the ``launches`` of ``path``."""
     from sq_learn_tpu_torch.ops.kernels import (argkmin, argkmin_reference,
                                                 argkmin_work)
 
@@ -1852,10 +1883,10 @@ def argkmin_fold_case(T, tsq, Q, k, launches, torch):
              "launches": launches, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    print(f"argkmin at the grid search's fold shape {entry['shape']}: "
-          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-          f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}), grid search "
-          f"launches {launches}; {held}", flush=True)
+    print(f"argkmin at {path}'s shape {entry['shape']}: {ms:.4f} ms "
+          f"(plain {plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms by "
+          f"{entry['bound_by']}), launches in {path} {launches}; {held}",
+          flush=True)
     return entry
 
 
@@ -2158,8 +2189,8 @@ def main():
     # launches (leg 1) and argkmin launches (leg 2) join the kernels'
     lloyd_step.launches = argkmin.launches = 0
     t0 = time.perf_counter()
-    tradeoff_lloyd, tradeoff_knn = tradeoff_phase(Xsweep, ysweep, sweep,
-                                                  here, torch)
+    tradeoff_lloyd, tradeoff_knn, tradeoff_shape = tradeoff_phase(
+        Xsweep, ysweep, sweep, here, torch)
     entry["launches"] += tradeoff_lloyd
     knn_entry["launches"] += tradeoff_knn
     print(f"trade-off path: {time.perf_counter() - t0:.3f} s, lloyd_step "
@@ -2184,7 +2215,8 @@ def main():
           f"launches {grid_launches}, lloyd_step launches "
           f"{lloyd_step.launches}", flush=True)
     t0 = time.perf_counter()
-    knn_entry["shapes"] = argkmin_fold_phase(X, grid_by_shape, torch)
+    knn_entry["shapes"] = (argkmin_fold_phase(X, grid_by_shape, torch)
+                           + [tradeoff_shape])
     print(f"argkmin fold-shape phase: {time.perf_counter() - t0:.3f} s",
           flush=True)
     # mini-batch q-means: plain torch steps, no kernel launch

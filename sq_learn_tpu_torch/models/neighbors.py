@@ -51,6 +51,20 @@ def _smallest(d, k):
     return vals[:, :k], order[:, :k]
 
 
+def _shortlists(X_train, k, compute_dtype):
+    """Whether :func:`knn_indices` searches approximate-then-exact: a
+    reduced ``compute_dtype`` whose 4k+16 shortlist is smaller than the
+    training set. Otherwise the exact search serves it."""
+    return (is_reduced(compute_dtype, X_train.dtype)
+            and _shortlist_len(k) < X_train.shape[0])
+
+
+def _shortlist_len(k):
+    """Candidates the reduced-precision pass of :func:`knn_indices`
+    keeps per query."""
+    return 4 * k + 16
+
+
 def knn_indices(X_train, X_query, k, block=4096, compute_dtype=None):
     """Indices (int32) and squared distances of the k nearest training rows
     per query, ascending, ties to the lowest index.
@@ -69,13 +83,11 @@ def knn_indices(X_train, X_query, k, block=4096, compute_dtype=None):
     distance matrix would pass ``_BLOCK_ELEMENTS``). When the shortlist
     would hold the whole training set the reduced dtype is dropped.
     """
-    nt = X_train.shape[0]
-    kc = 4 * k + 16
-    if not (is_reduced(compute_dtype, X_train.dtype) and kc < nt):
+    if not _shortlists(X_train, k, compute_dtype):
         X_train = X_train.contiguous()
         return argkmin(X_train, row_norms(X_train, squared=True),
                        X_query.contiguous(), k)
-    nq = X_query.shape[0]
+    nq, nt, kc = X_query.shape[0], X_train.shape[0], _shortlist_len(k)
     block = max(1, min(block, _BLOCK_ELEMENTS // nt))
     idx = torch.empty((nq, k), dtype=torch.int32, device=X_query.device)
     d2 = torch.empty((nq, k), dtype=X_query.dtype, device=X_query.device)
@@ -150,13 +162,12 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
 
     def _search_impl(self, X, k):
         """((idx, d2), engine): the engine that served the search."""
-        exact = ("argkmin_kernel" if X.device.type == "cuda"
-                 else "argkmin_reference")
-        if not is_reduced(self.compute_dtype, self.X_fit_.dtype):
-            return argkmin(self.X_fit_, self._x_sq_fit, X, k), exact
-        engine = "shortlist" if 4 * k + 16 < self.n_samples_fit_ else exact
-        return knn_indices(self.X_fit_, X, k,
-                           compute_dtype=self.compute_dtype), engine
+        if _shortlists(self.X_fit_, k, self.compute_dtype):
+            return knn_indices(self.X_fit_, X, k,
+                               compute_dtype=self.compute_dtype), "shortlist"
+        return argkmin(self.X_fit_, self._x_sq_fit, X, k), (
+            "argkmin_kernel" if X.device.type == "cuda"
+            else "argkmin_reference")
 
     def _check_k(self, k):
         """Validate a neighbor count: 1 ≤ k ≤ n_samples_fit (sklearn's

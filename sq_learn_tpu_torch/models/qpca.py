@@ -809,57 +809,54 @@ class QPCA(TransformerMixin, BaseEstimator):
         the ``qpca.sv_estimate`` site, at the reference's failure
         probability γ = 1 − 1/n_features."""
         self._require_mu()
-        step = _obs.ledger.timed_step(
-            "qpca", "topk_extract" if top else "leastk_extract",
-            budget={"eps": eps, "delta": delta})
-        step.__enter__()
-        S = np.asarray(self.singular_values_)
-        if not top:
-            # least-k considers only the numerically nonzero σ
-            S = S[~np.isclose(S, 0.0)]
-        est = (self._sv_estimates(self._spectrum(S), float(self.muA),
-                                  eps / self.muA).cpu().numpy()
-               if len(S) else S)
-        if _obs.guarantees.enabled():
-            if eps == 0:
-                _obs.guarantees.record_guarantee(
-                    "qpca.sv_estimate", 0.0, 0.0, fail_prob=0.0,
-                    short_circuit=True, estimator="qpca")
-            elif len(S):
-                _obs.guarantees.observe(
-                    "qpca.sv_estimate", np.abs(est - S), float(eps),
-                    fail_prob=1.0 - 1.0 / self.n_features_,
-                    estimator="qpca")
-        sel = (est >= theta) if top else (est < theta)
-        true_selected = S[sel]
-        sv_estimation = est[sel]
-        k = int(sel.sum())
-        total_sq = float(np.sum(np.asarray(self.singular_values_) ** 2))
-        p_mass = float(np.sum(true_selected**2) / total_sq) if total_sq else 0.0
+        with _obs.ledger.timed_step(
+                "qpca", "topk_extract" if top else "leastk_extract",
+                budget={"eps": eps, "delta": delta}) as step:
+            S = np.asarray(self.singular_values_)
+            if not top:
+                # least-k considers only the numerically nonzero σ
+                S = S[~np.isclose(S, 0.0)]
+            est = (self._sv_estimates(self._spectrum(S), float(self.muA),
+                                      eps / self.muA).cpu().numpy()
+                   if len(S) else S)
+            if _obs.guarantees.enabled():
+                if eps == 0:
+                    _obs.guarantees.record_guarantee(
+                        "qpca.sv_estimate", 0.0, 0.0, fail_prob=0.0,
+                        short_circuit=True, estimator="qpca")
+                elif len(S):
+                    _obs.guarantees.observe(
+                        "qpca.sv_estimate", np.abs(est - S), float(eps),
+                        fail_prob=1.0 - 1.0 / self.n_features_,
+                        estimator="qpca")
+            sel = (est >= theta) if top else (est < theta)
+            true_selected = S[sel]
+            sv_estimation = est[sel]
+            k = int(sel.sum())
+            total_sq = float(np.sum(np.asarray(self.singular_values_) ** 2))
+            p_mass = (float(np.sum(true_selected**2) / total_sq)
+                      if total_sq else 0.0)
 
-        right = np.asarray(self.components_)[: len(S)][sel]
-        left = np.asarray(self.left_sv)[: len(S)][sel]
-        if k:
-            device = self._device()
-            rows = torch.as_tensor(np.flatnonzero(sel), device=device)
-            right_dev, left_dev = self._extraction_rows(device)
-            right_est = tomography(
-                self._next_key(), right_dev[rows], delta,
-                true_tomography=true_tomography, norm=norm).cpu().numpy()
-            left_est = tomography(
-                self._next_key(), left_dev[rows], delta,
-                true_tomography=true_tomography, norm=norm).cpu().numpy()
-        else:
-            right_est, left_est = right, left
-        step.set_queries(
-            pe_spectrum_queries=0 if eps == 0 else len(S),
-            tomography_shots=(
-                _obs.ledger.tomography_shot_count(k, right.shape[1], delta,
-                                                  norm)
-                + _obs.ledger.tomography_shot_count(k, left.shape[1], delta,
-                                                    norm)) if k else 0)
-        step.attrs["selected_k"] = k
-        step.__exit__(None, None, None)
+            right = np.asarray(self.components_)[: len(S)][sel]
+            left = np.asarray(self.left_sv)[: len(S)][sel]
+            if k:
+                device = self._device()
+                rows = torch.as_tensor(np.flatnonzero(sel), device=device)
+                right_dev, left_dev = self._extraction_rows(device)
+                right_est, left_est = (
+                    tomography(self._next_key(), side[rows], delta,
+                               true_tomography=true_tomography,
+                               norm=norm).cpu().numpy()
+                    for side in (right_dev, left_dev))
+            else:
+                right_est, left_est = right, left
+            step.set_queries(
+                pe_spectrum_queries=0 if eps == 0 else len(S),
+                tomography_shots=sum(
+                    _obs.ledger.tomography_shot_count(k, side.shape[1],
+                                                      delta, norm)
+                    for side in (right, left)) if k else 0)
+            step.attrs["selected_k"] = k
         fs = sv_estimation**2 / (self.n_samples_ - 1)
         fs_ratio = sv_estimation**2 / self.frob_norm**2
         return (right_est, left_est, sv_estimation, fs, fs_ratio,

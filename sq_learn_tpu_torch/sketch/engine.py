@@ -28,8 +28,8 @@ every call takes the device route; the JAX package's host engine
 
 Under an obs run the exact path records the zero-budget ``sketch.stats``
 short-circuit, and a sketched estimate its FLOP counters and, below
-``SQ_SKETCH_AUDIT_ELEMS`` matrix elements, its own guarantee draws
-against the exact statistics (:func:`audit_sketch`).
+:data:`AUDIT_ELEMS` matrix elements, its own guarantee draws against the
+exact statistics (:func:`audit_sketch`).
 """
 
 import dataclasses
@@ -65,9 +65,8 @@ SKETCH_SEED = 0x5CE7
 DEFAULT_DELTA_STAT = 0.05
 
 #: matrix elements above which a sketch is not audited against the exact
-#: statistics (env ``SQ_SKETCH_AUDIT_ELEMS``): the audit would rival the
-#: sweep the sketch replaces
-DEFAULT_AUDIT_ELEMS = 8_000_000
+#: statistics: the audit would rival the sweep the sketch replaces
+AUDIT_ELEMS = 8_000_000
 
 
 def sketch_delta_stat():
@@ -433,14 +432,12 @@ def audit_sketch(stats, X):
     active and the matrix under the audit ceiling, compute the EXACT
     σ_min and μ grid and record how far the certified bounds miss them
     (zero, unless the bound math is wrong) against δ_stat/2 at the
-    ``sketch.sigma_min`` / ``sketch.mu`` sites. Above the ceiling
-    (``SQ_SKETCH_AUDIT_ELEMS``, default :data:`DEFAULT_AUDIT_ELEMS`) the
-    audit is skipped."""
+    ``sketch.sigma_min`` / ``sketch.mu`` sites. Above
+    :data:`AUDIT_ELEMS` elements the audit is skipped."""
     if not _obs.guarantees.enabled() or not stats.sketched:
         return
     n, m = stats.shape
-    cap = int(os.environ.get("SQ_SKETCH_AUDIT_ELEMS") or DEFAULT_AUDIT_ELEMS)
-    if n * m > cap:
+    if n * m > AUDIT_ELEMS:
         return
     from ..ops.linalg import smallest_singular_value
     from ..ops.quantum.norms import _mu_grid

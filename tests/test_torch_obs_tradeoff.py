@@ -19,9 +19,10 @@ left inert, on the CPU.
 
 Run as a script from the repository root (``PYTHONPATH=. JAX_PLATFORMS=cpu
 python tests/test_torch_obs_tradeoff.py``, a few minutes, ~4 GB) it
-measures leg 2's holdout 7-NN accuracy with the JAX package at the
-smoke's sizes over QPCA random_state 0–9 and prints the floors
-``chip_smoke.TRADEOFF_ACC_FLOOR`` holds the card to.
+measures leg 2's holdout 7-NN accuracy, and its transform's realized
+error over its bound, with the JAX package at the smoke's sizes over QPCA
+random_state 0–9 and prints the floors ``chip_smoke.TRADEOFF_ACC_FLOOR``
+and the bands ``chip_smoke.TRADEOFF_FNORM_BAND`` hold the card to.
 """
 
 import importlib.util
@@ -93,7 +94,7 @@ def jax_tradeoff_legs(Xs, ys, Xm, ym, *, n_train, twin_rows, n_components,
     (numpy in and out, the same steps in the same order; ``random_state``
     seeds the main QPCA's tomography noise, ``ipe`` False skips the IPE
     fit). Returns per δ the q_runtime, and per ε+δ the accuracy,
-    q_runtime and top-k."""
+    q_runtime, top-k, and the transform's f_norm beside its bound."""
     out = {"sweep": {}, "qpca": {}}
 
     def qkmeans(delta, ipe):
@@ -127,7 +128,7 @@ def jax_tradeoff_legs(Xs, ys, Xm, ym, *, n_train, twin_rows, n_components,
                                     random_state=0).fit(
         twin).singular_values_))
     for err in errs:
-        Xq, _, f_norm = pca.transform(
+        Xq, bound, f_norm = pca.transform(
             Xm, classic_transform=False, epsilon_delta=err,
             quantum_representation=True, norm="est_representation",
             true_tomography=False)["quantum_representation_results"]
@@ -140,7 +141,8 @@ def jax_tradeoff_legs(Xs, ys, Xm, ym, *, n_train, twin_rows, n_components,
         q_rt = float(np.sum([np.asarray(c, float)
                              for c in q.accumulate_q_runtime(n, m)]))
         out["qpca"][err] = {"accuracy": acc, "q_runtime": q_rt,
-                            "topk": q.topk, "muA": q.muA}
+                            "topk": q.topk, "muA": q.muA,
+                            "f_norm": float(f_norm), "bound": float(bound)}
         jax_obs.frontier.record_tradeoff(
             "mnist_qpca_eps_delta", err, accuracy=acc,
             accuracy_metric="holdout_7nn_acc", q_runtime=q_rt,
@@ -225,6 +227,24 @@ def test_small_legs_price_every_point_alike(small_runs):
             smoke.SWEEP_DELTAS)
         assert [p["point"] for p in sweeps["mnist_qpca_eps_delta"]] == list(
             smoke.TRADEOFF_ERRS)
+
+
+def test_small_legs_transform_noise_alike(small_runs):
+    """Leg 2's quantum transform: the bound √k·(ε+δ) is the same, and the
+    realized ‖Xq − X·Vᵀ‖_F lies under it at the same share in both
+    packages. The noise is truncnorm(±bound/√d) per entry, near-uniform,
+    so the share sits near 1/√3; atol 0.02 is ~6σ of the two packages'
+    difference at 1 500 × 8 entries."""
+    jax_out, _, port_out, _ = small_runs
+    for err, point in jax_out["qpca"].items():
+        port = port_out["qpca"][err]
+        np.testing.assert_allclose(port["bound"], point["bound"], rtol=1e-12)
+        assert 0 < port["f_norm"] <= port["bound"]
+        np.testing.assert_allclose(port["f_norm"] / port["bound"],
+                                   point["f_norm"] / point["bound"],
+                                   atol=0.02)
+        np.testing.assert_allclose(point["f_norm"] / point["bound"],
+                                   3 ** -0.5, atol=0.02)
 
 
 def test_small_legs_audit_clean(small_runs):
@@ -410,10 +430,12 @@ def test_no_audit_region_silences_the_routines_but_not_the_run():
 
 def measure_floors(seeds=range(10)):
     """Leg 2 at the smoke's sizes with the JAX package over QPCA
-    random_state in ``seeds``: per ε+δ the accuracies, and the floor
-    min − 1.5·(max − min)."""
+    random_state in ``seeds``: per ε+δ the accuracies and the floor
+    min − 1.5·(max − min), and the ratios f_norm / bound and their band
+    (min − 1.5·(max − min), max + 1.5·(max − min))."""
     Xm, ym = load_mnist_surrogate_low_margin(smoke.TRADEOFF_N)
     acc = {err: [] for err in smoke.TRADEOFF_ERRS}
+    ratio = {err: [] for err in smoke.TRADEOFF_ERRS}
     for seed in seeds:
         out = jax_tradeoff_legs(
             None, None, Xm, ym, n_train=smoke.TRADEOFF_TRAIN,
@@ -422,15 +444,21 @@ def measure_floors(seeds=range(10)):
             random_state=seed, ipe=False)
         for err, point in out["qpca"].items():
             acc[err].append(point["accuracy"])
+            ratio[err].append(point["f_norm"] / point["bound"])
         print(f"random_state {seed}:",
-              {e: p["accuracy"] for e, p in out["qpca"].items()},
-              flush=True)
+              {e: (p["accuracy"], p["f_norm"] / p["bound"])
+               for e, p in out["qpca"].items()}, flush=True)
     floors = {err: min(a) - 1.5 * (max(a) - min(a)) for err, a in acc.items()}
-    return acc, floors
+    bands = {err: (min(r) - 1.5 * (max(r) - min(r)),
+                   max(r) + 1.5 * (max(r) - min(r)))
+             for err, r in ratio.items()}
+    return acc, floors, ratio, bands
 
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
-    accuracies, floors = measure_floors()
+    accuracies, floors, ratios, bands = measure_floors()
     print("accuracies:", accuracies)
     print("TRADEOFF_ACC_FLOOR =", floors)
+    print("f_norm / bound:", ratios)
+    print("TRADEOFF_FNORM_BAND =", bands)
