@@ -75,7 +75,21 @@ that call's wall clock, host time by operator):
   batch_size=1024, delta=0.5, random_state=0)`` at 70 000 × 784), cold
   and warm with its steps per second, under the profiler, its host syncs,
   and in device ms: the upload, one step, one epoch, the init selection
-  and the final assignment of all rows.
+  and the final assignment of all rows;
+- the streamed ingest: ``streamed_resident_put`` of the surrogate (2
+  tiles at the default cap, 14 at 16 MiB) beside the pageable upload,
+  BASELINE #3's q-means fit (which streams its 219.5 MB under 'auto')
+  beside the same fit with the cap lifted (one pageable upload), and
+  ``QPCA(61, svd_solver='full')`` streamed beside monolithic, each in
+  turns, warm wall clocks; then each under the profiler, read from its
+  trace: the host→device copies' device time and streams, the kernels',
+  the share of copy time a kernel overlaps, and the device's busy share;
+  last BASELINE #4's ``TruncatedSVD(10, n_iter=5, random_state=0)`` on
+  the covertype surrogate with ``ingest='streamed'`` at 16 MiB tiles
+  (its first fit timed alone) beside the monolithic fit, in turns, the
+  streamed one under the profiler, and the host's float64 total variance
+  that the streamed fit takes.
+  ``python3 chip_profile.py --streaming`` runs this part alone.
 
 It needs one NVIDIA GPU and exits non-zero without one.
 """
@@ -790,6 +804,182 @@ def grid_fold(X, y, torch):
     profiled("grid-search fold", fold, torch)
 
 
+def _intervals(trace, cats, name=""):
+    """Merged [start, end) intervals (µs) of the chrome-trace events whose
+    category is in ``cats`` and whose name holds ``name``."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace
+                   if e.get("cat") in cats and "dur" in e
+                   and name in e.get("name", ""))
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _length(intervals):
+    return sum(b - a for a, b in intervals)
+
+
+def _overlap(xs, ys):
+    total, j = 0.0, 0
+    for a, b in xs:
+        while j < len(ys) and ys[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(ys) and ys[k][0] < b:
+            total += min(b, ys[k][1]) - max(a, ys[k][0])
+            k += 1
+    return total
+
+
+def copy_compute_overlap(label, fn, torch):
+    """Run ``fn`` once under the profiler and read its trace: the
+    host→device copies' device time, the kernels' device time, the share
+    of copy time during which a kernel runs too, and the device's busy
+    share of the wall clock."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)["traceEvents"]
+    copies = _intervals(trace, {"gpu_memcpy"}, "HtoD")
+    kernels = _intervals(trace, {"kernel"})
+    busy = _intervals(trace, {"gpu_memcpy", "kernel", "gpu_memset"})
+    streams = sorted({e["args"].get("stream") for e in trace
+                      if e.get("cat") == "gpu_memcpy" and "args" in e
+                      and "HtoD" in e.get("name", "")})
+    both = _overlap(copies, kernels)
+    print(f"{label}: wall {wall * 1e3:.3f} ms; host→device copies "
+          f"{_length(copies) / 1e3:.3f} ms of device time on stream(s) "
+          f"{streams}, kernels {_length(kernels) / 1e3:.3f} ms; copies "
+          f"overlapped by a kernel {both / 1e3:.3f} ms = "
+          f"{100 * both / max(_length(copies), 1e-9):.2f} % of copy time; "
+          f"device busy {_length(busy) / 1e3:.3f} ms = "
+          f"{_length(busy) / 1e4 / wall:.2f} % of the wall clock",
+          flush=True)
+
+
+def streaming(X, torch):
+    """The streamed ingest (``sq_learn_tpu_torch.streaming``): the resident
+    put and the pageable upload it replaces, BASELINE #3's fit streamed
+    against the same fit with the cap lifted (a monolithic pageable
+    upload), the streamed qPCA fit against the monolithic one, in turns;
+    then the copy/compute overlap of each streamed path under the
+    profiler; last the streamed TruncatedSVD fit of BASELINE #4 against
+    the monolithic one."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.base import clone
+    from sq_learn_tpu_torch.datasets import load_covtype
+    from sq_learn_tpu_torch.decomposition import TruncatedSVD
+    from sq_learn_tpu_torch.models import QPCA, QKMeans
+    from sq_learn_tpu_torch.streaming import streamed_resident_put
+
+    def walls(label, fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        print(f"{label}: {', '.join(f'{w * 1e3:.3f}' for w in out)} ms",
+              flush=True)
+
+    def capped(cap, fn):
+        """``fn()`` under the tile cap ``cap`` (1 << 40: no streaming)."""
+        os.environ["SQ_STREAM_TILE_BYTES"] = str(cap)
+        try:
+            return fn()
+        finally:
+            del os.environ["SQ_STREAM_TILE_BYTES"]
+
+    def lifted(fn):
+        return capped(1 << 40, fn)
+
+    def at_16(fn):
+        return capped(16 << 20, fn)
+
+    put = lambda: streamed_resident_put(X, device="cuda:0")  # noqa: E731
+    put16 = lambda: streamed_resident_put(  # noqa: E731
+        X, device="cuda:0", max_bytes=16 << 20)
+    page = lambda: torch.from_numpy(X).to("cuda:0")  # noqa: E731
+    for label, fn in (("pageable upload", page), ("resident put, 2 tiles",
+                                                  put),
+                      ("resident put, 14 tiles", put16),
+                      ("pageable upload", page)):
+        walls(f"{label} of 70000×784 float32", fn)
+    km = QKMeans(n_clusters=10, n_init=10, max_iter=300, delta=0.5,
+                 true_distance_estimate=False, sketch=0, random_state=0)
+    for label, fn in (
+            ("BASELINE #3 fit, monolithic pageable upload",
+             lambda: lifted(lambda: clone(km).fit(X))),
+            ("BASELINE #3 fit, streamed", lambda: clone(km).fit(X)),
+            ("BASELINE #3 fit, streamed", lambda: clone(km).fit(X)),
+            ("BASELINE #3 fit, monolithic pageable upload",
+             lambda: lifted(lambda: clone(km).fit(X)))):
+        walls(label, fn)
+    pca = QPCA(n_components=61, svd_solver="full", random_state=0)
+    for label, fn in (
+            ("QPCA(61) fit, monolithic", lambda: lifted(
+                lambda: clone(pca).fit(X))),
+            ("QPCA(61) fit, streamed, 2 tiles", lambda: clone(pca).fit(X)),
+            ("QPCA(61) fit, streamed, 14 tiles",
+             lambda: at_16(lambda: clone(pca).fit(X))),
+            ("QPCA(61) fit, monolithic", lambda: lifted(
+                lambda: clone(pca).fit(X)))):
+        walls(label, fn)
+    copy_compute_overlap("resident put, 2 tiles", put, torch)
+    copy_compute_overlap("resident put, 14 tiles", put16, torch)
+    copy_compute_overlap("BASELINE #3 fit, streamed",
+                         lambda: clone(km).fit(X), torch)
+    copy_compute_overlap("BASELINE #3 fit, monolithic pageable upload",
+                         lambda: lifted(lambda: clone(km).fit(X)), torch)
+    copy_compute_overlap("QPCA(61) fit, streamed, 14 tiles",
+                         lambda: at_16(lambda: clone(pca).fit(X)), torch)
+    copy_compute_overlap("QPCA(61) fit, monolithic",
+                         lambda: lifted(lambda: clone(pca).fit(X)), torch)
+    Xc = load_covtype()[0]
+    svd = TruncatedSVD(n_components=10, n_iter=5, random_state=0)
+    streamed = lambda: at_16(  # noqa: E731
+        lambda: clone(svd).set_params(ingest="streamed").fit(Xc))
+    t0 = time.perf_counter()
+    streamed()
+    torch.cuda.synchronize()
+    print(f"TruncatedSVD(10) fit 581012×54, streamed at 16 MiB tiles, its "
+          f"first fit: {(time.perf_counter() - t0) * 1e3:.3f} ms",
+          flush=True)
+    for label, fn in (
+            ("TruncatedSVD(10) fit 581012×54, monolithic",
+             lambda: clone(svd).fit(Xc)),
+            ("TruncatedSVD(10) fit 581012×54, streamed at 16 MiB tiles",
+             streamed),
+            ("TruncatedSVD(10) fit 581012×54, monolithic",
+             lambda: clone(svd).fit(Xc))):
+        walls(label, fn)
+    copy_compute_overlap("TruncatedSVD(10) fit, streamed at 16 MiB tiles",
+                         streamed, torch)
+    # the streamed fit's total variance is taken on the host, in float64,
+    # as the JAX package takes it
+    walls("TruncatedSVD streamed fit's host total variance alone",
+          lambda: float(np.var(Xc, axis=0, dtype=np.float64).sum()))
+
+
 def main():
     import torch
 
@@ -814,6 +1004,9 @@ def main():
           f"{torch.version.cuda}", flush=True)
     sqt.set_config(device="cuda:0")
     X, y = synthetic_surrogate(70_000, 784, 10, seed=784)
+    if sys.argv[1:] == ["--streaming"]:
+        streaming(X, torch)
+        return 0
     est = QKMeans(n_clusters=10, n_init=10, max_iter=300, delta=0.5,
                   true_distance_estimate=False, sketch=0, random_state=0)
     for label in ("cold", "warm", "warm", "warm"):
@@ -843,6 +1036,7 @@ def main():
     delta_sweep_fit(torch)
     grid_fold(X, y, torch)
     minibatch_fit(X, torch)
+    streaming(X, torch)
     return 0
 
 

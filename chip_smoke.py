@@ -103,8 +103,12 @@ each of which fails the run:
      random_state=0)`` on the covertype surrogate (581 012 × 54),
      'randomized' and 'arpack': singular values within 3× the JAX
      package's float32 error of a float64 spectrum computed on the card,
-     orthonormal components, explained variance ratios in [0, 1]; a small
-     arpack fit card == CPU;
+     orthonormal components, explained variance ratios in [0, 1]; the
+     randomized fit again with ``ingest='streamed'`` at STREAM_TILE_BYTES
+     (8 tiles a pass; the surrogate's 125.5 MB stays under the default
+     cap): ``ingest_ == 'streamed'``, the same spectrum check, the
+     components' subspace against the monolithic fit's (principal-angle
+     cosines ≥ SUBSPACE_COS_FLOOR); a small arpack fit card == CPU;
    - the error-budget grid search: ``GridSearchCV(Pipeline(StandardScaler,
      QPCA(svd_solver='full'), KNeighborsClassifier), GRID,
      cv=StratifiedKFold(5))`` on the MNIST-shaped surrogate: every split ≥
@@ -134,7 +138,40 @@ each of which fails the run:
      guarantee sites and ledger steps of TRADEOFF_SITES/TRADEOFF_STEPS,
      and ``python -m sq_learn_tpu_torch.obs frontier`` must print the
      table ``obs.frontier.render`` gave.
-5. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
+5. The streaming phase (``sq_learn_tpu_torch.streaming``, ``resilience``,
+   ``utils.checkpoint``), each path with the counts set to 0 before it.
+   BASELINE #3's fits above already stream under 'auto' (219.5 MB of host
+   rows over the 128 MiB cap: ``ingest_ == 'streamed'``), and the δ=0
+   fit's streamed predict of the host rows must equal its predict of the
+   card tensor bit for bit. Then, at STREAM_TILE_BYTES (16 MiB) tiles:
+   - ``streamed_resident_put`` of the surrogate at the default cap and at
+     16 MiB, each bit-equal to ``torch.from_numpy(X).to(card)``, GB/s
+     beside the pageable upload;
+   - ``QPCA(61, svd_solver='full', ingest='streamed')``: the spectrum
+     within SPECTRUM_RTOL of float64, the components' subspace against
+     the monolithic fit's (principal-angle cosines ≥ SUBSPACE_COS_FLOOR);
+     a Gram pass interrupted at tile 7 resumes from its checkpoint at tile
+     4, bit-equal; an interrupted fit under ``SQ_STREAM_CKPT_DIR`` resumes
+     to the plain fit's bits; ``put_fail:tiles=3/7,times=1`` costs 2
+     retries and leaves the fit bit-equal;
+   - three consecutive put failures open the breaker: the fit raises
+     ``BreakerOpenError`` with no fitted state, the next fit's preflight
+     raises, then it is reset;
+   - the streamed 7-NN search (10 000 queries, 60 000 × 784, 4 MiB tiles:
+     8 tiles, a padded tail) bit-equal to the monolithic search, 8
+     ``argkmin_short`` launches at (784, 7), the kernel held and timed at
+     the tile's shape (the last entry of the argkmin ``shapes``);
+   - checkpoints: the fitted QKMeans, the trial's QPCA and a 7-NN saved
+     and loaded on the card, outputs equal; ``examples/streaming_fit.py``'s
+     flow on the CICIDS surrogate (``partial_fit`` on 1024-row batches,
+     saved after 10, loaded, continued): ``n_steps_`` and
+     STREAM_FIT_ARI_FLOOR;
+   - item 7: q-means with ``compute_dtype='float16'`` (no Lloyd launch,
+     ARI_FLOOR), ``algorithm='elkan'`` at δ=0 (warns, the lloyd fit's
+     labels), float64 7-NN under ``default_dtype='float64'`` (no argkmin
+     launch, KNN_ACCURACY_FLOOR) and ``QPCA(61, compute_dtype='bfloat16')``
+     on the partial-U route (within BF16_SPECTRUM_RTOL of float64).
+6. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
 import json
@@ -255,6 +292,26 @@ SMALL_GRID_ATOL = 1e-6  # cv_results_ of the small search, card against CPU
 # within 10 % of the δ=0 QKMeans fit's on the same X
 # (tests/test_minibatch.py:240's own tolerance)
 MB_BATCH, MB_ARI_FLOOR, MB_INERTIA_RTOL = 1024, 0.95, 0.10
+# the streaming phase: a 16 MiB tile cap makes each 70 000 × 784 pass run
+# 14 tiles (5 349 rows each, a tail bucketed to 4 096 rows); the streamed
+# 7-NN search runs its 10 000 queries at a 4 MiB cap (8 tiles of 1 337,
+# a tail of 641 padded to 1 024)
+STREAM_TILE_BYTES = 16 << 20
+KNN_TILE_BYTES = 4 << 20
+# the streamed fit's components against the monolithic fit's: the cosines
+# of the principal angles between the two 61-dimensional subspaces
+SUBSPACE_COS_FLOOR = 1 - 1e-4
+# the bfloat16 partial-U route's explained_variance_ against float64: 3×
+# the JAX package's own error on that route at 70 000 × 784 with 61
+# components (``JAX_PLATFORMS=cpu python tests/test_torch_qpca.py``)
+BF16_SPECTRUM_RTOL = 3 * 0.00015576145127386732
+# examples/streaming_fit.py's flow on the CICIDS surrogate: partial_fit on
+# 1024-row batches, a save after 10, a load, the rest. One pass of
+# MiniBatchQKMeans(6, delta=0.3) over the standardized rows: the JAX
+# package's lowest ARI over random_state 0–9 is 0.7733481366199509 (``python
+# tests/test_torch_checkpoint.py``), less a margin of 0.05
+STREAM_FIT_CLUSTERS, STREAM_FIT_SAVE_AFTER = SWEEP_K, 10
+STREAM_FIT_ARI_FLOOR = 0.7733481366199509 - 0.05
 HASH_ROWS, HASH_FEATURES = 100_000, 1024
 # the accuracy-vs-quantum-runtime study, examples/runtime_tradeoff.py at the
 # papers' sizes. Leg 1 is the δ-sweep above with obs on, plus one fit at
@@ -1172,7 +1229,8 @@ def qkmeans_tomography_path(X, y, torch):
     from sq_learn_tpu_torch.ops.kernels import lloyd_step
     from sq_learn_tpu_torch.ops.quantum.sampling import multinomial_counts
     from sq_learn_tpu_torch.parallel.init import resolve_init_subsample
-    from sq_learn_tpu_torch.utils import as_generator, check_array
+    from sq_learn_tpu_torch.streaming import streamed_prestats
+    from sq_learn_tpu_torch.utils import as_generator
 
     kw = dict(n_clusters=K, n_init=10, delta=WINDOW,
               true_distance_estimate=False, intermediate_error=True,
@@ -1193,14 +1251,16 @@ def qkmeans_tomography_path(X, y, torch):
           f"tomography fit ARI {fit_ari} < {TOMOGRAPHY_ARI_FLOOR}")
     # every restart: the fit's steps again from the same seed, through the
     # functional core, which returns all restarts (not counted above)
+    # (the fit streamed X: its statistics come from the same tile sums)
+    check(est.ingest_ == "streamed", f"path B ingest_ {est.ingest_}")
     dev = torch.device(CARD)
-    Xt = check_array(X, device=dev)
     w = torch.ones(N, device=dev)
     gen = as_generator(0, dev)
     sub = resolve_init_subsample(N, K, "auto")
-    stats, c0 = tqk.fused_init(gen, Xt, w, n_init=10, init="k-means++",
+    stats, c0 = tqk.fused_init(gen, None, w, n_init=10, init="k-means++",
                                n_clusters=K, quantum=False,
-                               init_subsample=sub)
+                               init_subsample=sub,
+                               stats=streamed_prestats(X, device=dev))
     tol = 1e-4 * stats["var_mean"]
     _, inertia, centers, n_iter, _ = tqk.lloyd_single(
         gen, stats["Xc"], w, c0, stats["xsq"], delta=WINDOW, mode="delta",
@@ -1677,12 +1737,15 @@ def truncated_svd_path(torch):
     """BASELINE #4: TruncatedSVD(n_components=10, algorithm=a, n_iter=5,
     random_state=0).fit_transform on the covertype surrogate for a in
     ('randomized', 'arpack'); the spectrum against a float64 one of the
-    same data, computed on the card; then a small arpack fit, card
+    same data, computed on the card; the randomized fit again with
+    ingest='streamed' at STREAM_TILE_BYTES, against the same spectrum and
+    the monolithic fit's components; then a small arpack fit, card
     against CPU."""
     import numpy as np
 
     from sq_learn_tpu_torch.datasets import load_covtype
     from sq_learn_tpu_torch.decomposition import TruncatedSVD
+    from sq_learn_tpu_torch.streaming import plan_row_tiles
 
     t0 = time.perf_counter()
     X, _, real = load_covtype()
@@ -1695,36 +1758,67 @@ def truncated_svd_path(torch):
     s64 = torch.sqrt(torch.linalg.eigvalsh(X64.T @ X64).flip(0)[:SVD_K])
     s64 = s64.cpu().numpy()
     del X64
-    for algorithm in ("randomized", "arpack"):
+    fitted = {}
+    for name, algorithm, ingest in (("randomized", "randomized", "auto"),
+                                    ("arpack", "arpack", "auto"),
+                                    ("streamed", "randomized", "streamed")):
         est = TruncatedSVD(n_components=SVD_K, algorithm=algorithm,
-                           n_iter=5, random_state=0)
-        t0 = time.perf_counter()
-        Xt = est.fit_transform(X)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+                           n_iter=5, random_state=0, ingest=ingest)
+        # the covertype surrogate (125.5 MB) stays under the default cap:
+        # the streamed fit runs at STREAM_TILE_BYTES
+        env = _env(SQ_STREAM_TILE_BYTES=STREAM_TILE_BYTES
+                   if ingest == "streamed" else None)
+        try:
+            t0 = time.perf_counter()
+            Xt = est.fit_transform(X)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            _env(**env)
+        fitted[name] = est
+        check(est.ingest_ == ("streamed" if ingest == "streamed"
+                              else "monolithic"),
+              f"TruncatedSVD {name}: ingest_ is {est.ingest_!r}")
         err = float(np.max(np.abs(est.singular_values_ - s64) / s64))
         check(err <= 3 * JAX_SVD_ERR[algorithm],
-              f"TruncatedSVD {algorithm}: singular values {err} off float64,"
+              f"TruncatedSVD {name}: singular values {err} off float64,"
               f" more than 3 × {JAX_SVD_ERR[algorithm]}")
         comps = est.components_.astype(np.float64)
         orth = float(np.abs(comps @ comps.T - np.eye(SVD_K)).max())
         check(orth <= ORTHONORMAL_ATOL,
-              f"TruncatedSVD {algorithm}: components_ off orthonormal by "
-              f"{orth}")
+              f"TruncatedSVD {name}: components_ off orthonormal by {orth}")
         evr = est.explained_variance_ratio_
         check(bool((evr >= 0).all() and (evr <= 1).all())
               and float(evr.sum()) <= 1.0,
-              f"TruncatedSVD {algorithm}: explained_variance_ratio_ {evr}")
+              f"TruncatedSVD {name}: explained_variance_ratio_ {evr}")
         check(Xt.is_cuda and Xt.shape == (COVTYPE_N, SVD_K)
               and bool(torch.isfinite(Xt).all()),
-              f"TruncatedSVD {algorithm}: fit_transform output")
+              f"TruncatedSVD {name}: fit_transform output")
         print(f"TruncatedSVD(n_components={SVD_K}, algorithm={algorithm!r}, "
-              f"n_iter=5, random_state=0) {COVTYPE_N}×{COVTYPE_M}: "
+              f"n_iter=5, random_state=0, ingest={ingest!r}) "
+              f"{COVTYPE_N}×{COVTYPE_M}: ingest_ {est.ingest_!r}, "
               f"fit_transform {wall:.4f} s; singular values "
               f"{est.singular_values_.tolist()}, largest relative error "
               f"against float64 {err} (limit {3 * JAX_SVD_ERR[algorithm]}); "
               f"components_ orthonormal within {orth}; explained variance "
               f"ratio sum {float(evr.sum())}", flush=True)
+    # the streamed fit against the monolithic randomized one: the cosines
+    # of the principal angles between their 10-dimensional subspaces
+    cos = np.linalg.svd(
+        fitted["streamed"].components_.astype(np.float64)
+        @ fitted["randomized"].components_.astype(np.float64).T,
+        compute_uv=False)
+    sv = float(np.max(np.abs(fitted["streamed"].singular_values_
+                             / fitted["randomized"].singular_values_ - 1)))
+    check(cos.min() >= SUBSPACE_COS_FLOOR,
+          f"streamed TruncatedSVD: principal-angle cosine {cos.min()} "
+          f"against the monolithic fit < {SUBSPACE_COS_FLOOR}")
+    tiles = plan_row_tiles(COVTYPE_N, COVTYPE_M * 4, STREAM_TILE_BYTES)[1]
+    print(f"TruncatedSVD ingest='streamed' at {STREAM_TILE_BYTES >> 20} MiB "
+          f"tiles ({tiles} tiles a pass) against the monolithic randomized "
+          f"fit: singular values within {sv} "
+          f"(relative), smallest principal-angle cosine {cos.min()} (floor "
+          f"{SUBSPACE_COS_FLOOR})", flush=True)
     small = X[:20_000]
     fits = {device: TruncatedSVD(n_components=SVD_K, algorithm="arpack",
                                  device=device).fit(small)
@@ -1982,6 +2076,377 @@ def hasher_path(torch):
           flush=True)
 
 
+def _env(**values):
+    """Set (a value) or unset (None) environment knobs; returns the old
+    values for :func:`_env` to restore."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    return old
+
+
+def resident_put_case(X, torch):
+    """``streamed_resident_put`` of the 70 000 × 784 surrogate at the
+    default cap and at STREAM_TILE_BYTES: each bit-equal to
+    ``torch.from_numpy(X).to(card)``; GB/s beside the pageable upload."""
+    from sq_learn_tpu_torch.streaming import plan_row_tiles, \
+        streamed_resident_put
+
+    def best_s(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return out, statistics.median(walls)
+
+    ref, page_s = best_s(lambda: torch.from_numpy(X).to(CARD))
+    rates = {"pageable": X.nbytes / page_s / 1e9}
+    for cap in (None, STREAM_TILE_BYTES):
+        out, wall = best_s(lambda: streamed_resident_put(X, device=CARD,
+                                                         max_bytes=cap))
+        check(out.is_cuda and torch.equal(out, ref),
+              f"streamed_resident_put at cap {cap} is not bit-equal")
+        tiles = plan_row_tiles(N, M * 4, cap)[1]
+        rates[f"streamed, {tiles} tiles"] = X.nbytes / wall / 1e9
+        del out
+    print("resident put of 70000×784 float32 (219.5 MB), bit-equal at both "
+          "caps; GB/s (median of 3, host clock to a sync): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in rates.items()), flush=True)
+    return rates
+
+
+def streamed_qpca_case(X, Xd, torch):
+    """QPCA(61, svd_solver='full', ingest='streamed') at STREAM_TILE_BYTES:
+    the spectrum against float64, the components against the monolithic
+    fit's; then a resumed Gram pass and a fit with two injected put
+    failures, each bit-equal to the uninterrupted one. Returns the Gram
+    pass's spectrum error."""
+    import tempfile
+
+    import numpy as np
+
+    from sq_learn_tpu_torch import obs
+    from sq_learn_tpu_torch.models import QPCA
+    from sq_learn_tpu_torch.resilience import InjectedInterrupt, faults
+    from sq_learn_tpu_torch.streaming import (StreamCheckpoint,
+                                              streamed_centered_gram)
+
+    kw = dict(n_components=QPCA_COMPONENTS, svd_solver="full",
+              random_state=0)
+    t0 = time.perf_counter()
+    streamed = QPCA(ingest="streamed", **kw).fit(X)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(streamed.ingest_ == "streamed", "qPCA ingest_ is not 'streamed'")
+    t0 = time.perf_counter()
+    mono = QPCA(**kw).fit(Xd)
+    torch.cuda.synchronize()
+    mono_s = time.perf_counter() - t0
+    check(mono.ingest_ == "monolithic", "the qPCA fit of a card tensor")
+    X64 = Xd.double() - Xd.double().mean(0)
+    ev64 = torch.linalg.eigvalsh(X64.T @ X64).flip(0)[:QPCA_COMPONENTS]
+    ev64 = (ev64 / (N - 1)).cpu().numpy()
+    del X64
+    err = float(np.max(np.abs(streamed.explained_variance_ - ev64) / ev64))
+    check(err <= SPECTRUM_RTOL,
+          f"streamed qPCA: explained_variance_ {err} off float64 > "
+          f"{SPECTRUM_RTOL}")
+    cos = np.linalg.svd(streamed.components_.astype(np.float64)
+                        @ mono.components_.astype(np.float64).T,
+                        compute_uv=False)
+    check(cos.min() >= SUBSPACE_COS_FLOOR,
+          f"streamed qPCA: principal-angle cosine {cos.min()} against the "
+          f"monolithic fit < {SUBSPACE_COS_FLOOR}")
+    print(f"QPCA(n_components={QPCA_COMPONENTS}, svd_solver='full', "
+          f"ingest='streamed') {N}×{M} at {STREAM_TILE_BYTES >> 20} MiB "
+          f"tiles: {fit_s:.4f} s (monolithic on the card tensor "
+          f"{mono_s:.4f} s); explained_variance_ {err} off float64 (limit "
+          f"{SPECTRUM_RTOL}); components against the monolithic fit's: "
+          f"smallest principal-angle cosine {cos.min()} (floor "
+          f"{SUBSPACE_COS_FLOOR})", flush=True)
+    # resume: an interrupt mid-pass under SQ_STREAM_CKPT_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = StreamCheckpoint(os.path.join(tmp, "gram.npz"), every=4)
+        _, G_ref, _ = streamed_centered_gram(X, max_bytes=STREAM_TILE_BYTES,
+                                             device=CARD)
+        faults.arm("abort:tile=7,times=1")
+        try:
+            streamed_centered_gram(X, max_bytes=STREAM_TILE_BYTES,
+                                   device=CARD, checkpoint=ckpt)
+            check(False, "the injected interrupt did not fire")
+        except InjectedInterrupt:
+            pass
+        finally:
+            faults.disarm()
+        rec = obs.enable()
+        try:
+            _, G_res, _ = streamed_centered_gram(
+                X, max_bytes=STREAM_TILE_BYTES, device=CARD,
+                checkpoint=ckpt)
+        finally:
+            obs.disable()
+        cursor = rec.gauges.get("resilience.resume_cursor")
+        check(cursor == 4 and rec.counters["streaming.tiles"] == 10,
+              f"the resumed pass started at tile {cursor} and staged "
+              f"{rec.counters.get('streaming.tiles')} tiles")
+        check(torch.equal(G_res, G_ref),
+              "the resumed Gram differs from the uninterrupted one")
+        env = _env(SQ_STREAM_TILE_BYTES=STREAM_TILE_BYTES,
+                   SQ_STREAM_CKPT_DIR=tmp)
+        try:
+            plain = QPCA(ingest="streamed", **kw).fit(X)
+            faults.arm("abort:tile=9,times=1")
+            try:
+                QPCA(ingest="streamed", **kw).fit(X)
+                check(False, "the injected interrupt did not fire")
+            except InjectedInterrupt:
+                pass
+            finally:
+                faults.disarm()
+            resumed = QPCA(ingest="streamed", **kw).fit(X)
+        finally:
+            _env(**env)
+    same = all(np.array_equal(getattr(resumed, a), getattr(plain, a))
+               for a in ("mean_", "all_singular_values_", "components_",
+                         "left_sv"))
+    check(same, "the resumed qPCA fit differs from the uninterrupted one")
+    # two transient put failures: retried, the result bit-equal
+    faults.arm("put_fail:tiles=3/7,times=1")
+    rec = obs.enable()
+    env = _env(SQ_STREAM_TILE_BYTES=STREAM_TILE_BYTES)
+    try:
+        retried = QPCA(ingest="streamed", **kw).fit(X)
+    finally:
+        _env(**env)
+        obs.disable()
+        plan = faults.disarm()
+    retries = rec.counters.get("resilience.retries")
+    check(retries == 2 and len(plan.events) == 2,
+          f"put_fail:tiles=3/7: {retries} retries, {len(plan.events)} "
+          f"faults")
+    check(all(np.array_equal(getattr(retried, a), getattr(plain, a))
+              for a in ("mean_", "all_singular_values_", "components_")),
+          "the fit with retried tiles differs from the plain one")
+    print(f"resume: interrupted at tile 7 of 14, resumed at tile {cursor}, "
+          f"Gram bit-equal; an interrupted qPCA fit resumed to the plain "
+          f"fit's bits; put_fail:tiles=3/7,times=1: {retries} retries, the "
+          f"fit bit-equal", flush=True)
+    return err
+
+
+def breaker_case(X, torch):
+    """SQ_BREAKER_K consecutive put failures trip the breaker: the fit
+    raises BreakerOpenError, sets no fitted attribute, and so does the
+    next streamed fit's preflight; reset afterwards."""
+    from sq_learn_tpu_torch.models import QPCA
+    from sq_learn_tpu_torch.resilience import (BreakerOpenError, breaker,
+                                               faults)
+
+    est = QPCA(n_components=QPCA_COMPONENTS, svd_solver="full",
+               ingest="streamed", random_state=0)
+    env = _env(SQ_STREAM_TILE_BYTES=STREAM_TILE_BYTES, SQ_BREAKER_K=3,
+               SQ_RETRY_BACKOFF_S=0.001)
+    raised = []
+    try:
+        faults.arm("put_fail:tiles=2,times=10")
+        for attempt in range(2):
+            try:
+                est.fit(X)
+            except BreakerOpenError as exc:
+                raised.append(str(exc))
+            faults.disarm()
+    finally:
+        faults.disarm()
+        state = breaker.state()
+        breaker.reset("chip_smoke")
+        _env(**env)
+    check(len(raised) == 2 and state == "open"
+          and not hasattr(est, "components_"),
+          f"breaker: {len(raised)} raises, state {state}")
+    check("qpca.fit" in raised[1], "the second fit's preflight did not "
+                                   "raise")
+    print(f"breaker: 3 consecutive put failures opened it; the fit raised "
+          f"BreakerOpenError ({raised[0][:90]}…), the next fit's preflight "
+          f"raised too, no fitted state; reset to {breaker.state()}",
+          flush=True)
+
+
+def streamed_knn_case(X, y, Xd, torch):
+    """The streamed 7-NN search: 10 000 queries against 60 000 × 784 at a
+    KNN_TILE_BYTES cap, bit-equal to the monolithic search; the kernel
+    held and timed at the full tile's shape. Returns (launches in the
+    streamed search, the tile shape's entry)."""
+    from sq_learn_tpu_torch import obs
+    from sq_learn_tpu_torch.models import KNeighborsClassifier
+    from sq_learn_tpu_torch.ops.kernels import argkmin
+    from sq_learn_tpu_torch.streaming import plan_row_tiles
+
+    knn = KNeighborsClassifier(n_neighbors=KNN_K).fit(Xd[:N_TRAIN],
+                                                      y[:N_TRAIN])
+    Xq = X[N_TRAIN:]
+    d_ref, i_ref = knn.kneighbors(Xd[N_TRAIN:])
+    env = _env(SQ_STREAM_TILE_BYTES=KNN_TILE_BYTES)
+    argkmin.launches = 0
+    before = argkmin.by_shape[(M, KNN_K)]
+    rec = obs.enable()
+    try:
+        t0 = time.perf_counter()
+        d_s, i_s = knn.kneighbors(Xq)
+        wall = time.perf_counter() - t0
+    finally:
+        obs.disable()
+        _env(**env)
+    launches = argkmin.by_shape[(M, KNN_K)] - before
+    rows, tiles = plan_row_tiles(len(Xq), M * 4, KNN_TILE_BYTES)
+    check(launches == tiles == argkmin.launches == 8
+          and rec.counters["streaming.tiles"] == tiles,
+          f"streamed 7-NN: {launches} launches at (784, 7) for {tiles} "
+          f"tiles")
+    import numpy as np
+
+    check(np.array_equal(i_s, i_ref) and np.array_equal(d_s, d_ref),
+          "the streamed 7-NN search differs from the monolithic one")
+    span = [s for s in rec.spans if s["name"] == "knn.search"][0]
+    check(span["attrs"]["engine"] == "streamed-device",
+          f"streamed 7-NN engine {span['attrs']['engine']}")
+    print(f"streamed 7-NN: 10000 queries × 60000×784 at "
+          f"{KNN_TILE_BYTES >> 20} MiB, {tiles} tiles of {rows} rows: "
+          f"{wall:.4f} s, argkmin launches {launches}, indices and "
+          f"distances bit-equal to the monolithic search", flush=True)
+    T = knn.X_fit_
+    Q = torch.from_numpy(Xq[:rows]).to(CARD)
+    return launches, argkmin_fold_case(T, knn._x_sq_fit, Q, KNN_K, launches,
+                                       torch, path="the streamed 7-NN "
+                                                   "search")
+
+
+def checkpoint_case(est, pca, X, y, Xd, Xsweep, ysweep, torch):
+    """Save and load the fitted QKMeans and QPCA and a fitted
+    KNeighborsClassifier on the card (outputs equal), then
+    examples/streaming_fit.py's flow on the CICIDS surrogate."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import (KNeighborsClassifier,
+                                           MiniBatchQKMeans)
+    from sq_learn_tpu_torch.utils import load_estimator, save_estimator
+
+    knn = KNeighborsClassifier(n_neighbors=KNN_K).fit(Xd[:N_TRAIN],
+                                                      y[:N_TRAIN])
+    Xq = Xd[N_TRAIN:]
+    with tempfile.TemporaryDirectory() as tmp:
+        outputs = {
+            "qkmeans": (est, lambda e: (e.predict(Xq), e.transform(Xq))),
+            "qpca": (pca, lambda e: (e.transform(Xq).cpu().numpy(),)),
+            "knn": (knn, lambda e: (e.predict(Xq), *e.kneighbors(Xq)))}
+        for name, (fitted, run) in outputs.items():
+            path = save_estimator(fitted, os.path.join(tmp, name))
+            back = load_estimator(path)
+            check(all(np.array_equal(a, b)
+                      for a, b in zip(run(back), run(fitted))),
+                  f"checkpoint: the loaded {name} predicts otherwise")
+        Xb = Xsweep.cpu().numpy()
+        batches = [Xb[i:i + MB_BATCH] for i in range(0, len(Xb), MB_BATCH)]
+        mb = MiniBatchQKMeans(n_clusters=STREAM_FIT_CLUSTERS, delta=0.3,
+                              true_distance_estimate=False, random_state=0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for batch in batches[:STREAM_FIT_SAVE_AFTER]:
+                mb.partial_fit(batch)
+            save_estimator(mb, os.path.join(tmp, "mb"))
+            resumed = load_estimator(os.path.join(tmp, "mb"))
+            for batch in batches[STREAM_FIT_SAVE_AFTER:]:
+                resumed.partial_fit(batch)
+    fit_ari = ari(ysweep, resumed.predict(Xb))
+    check(resumed.n_steps_ == len(batches),
+          f"streaming_fit flow: n_steps_ {resumed.n_steps_}, "
+          f"{len(batches)} batches")
+    check(fit_ari >= STREAM_FIT_ARI_FLOOR,
+          f"streaming_fit flow: ARI {fit_ari} < {STREAM_FIT_ARI_FLOOR}")
+    print(f"checkpoints: QKMeans, QPCA(61) and 7-NN saved and loaded on the "
+          f"card, outputs equal; examples/streaming_fit.py's flow on the "
+          f"CICIDS surrogate: {len(batches)} partial_fit batches of "
+          f"{MB_BATCH}, saved after {STREAM_FIT_SAVE_AFTER}, loaded, "
+          f"n_steps_ {resumed.n_steps_}, ARI {fit_ari} (floor "
+          f"{STREAM_FIT_ARI_FLOOR})", flush=True)
+
+
+def item7_case(X, y, Xd, classic, torch):
+    """The estimators' last parameters at 70 000 × 784: q-means in float16
+    (the JAX package's XLA route: no Lloyd launch), algorithm='elkan' at
+    δ=0 (warns, the lloyd fit's labels), float64 k-NN (no argkmin launch)
+    and qPCA's bfloat16 partial-U route. Returns the Lloyd launches."""
+    import warnings
+
+    import numpy as np
+
+    from sq_learn_tpu_torch import config_context
+    from sq_learn_tpu_torch.models import (QPCA, KNeighborsClassifier,
+                                           QKMeans)
+    from sq_learn_tpu_torch.ops.kernels import argkmin, lloyd_step
+
+    kw = dict(n_clusters=K, n_init=10, max_iter=300, delta=0.0,
+              random_state=0)
+    lloyd_step.launches = argkmin.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t0 = time.perf_counter()
+        f16 = QKMeans(compute_dtype="float16", **kw).fit(X)
+        f16_s = time.perf_counter() - t0
+    f16_ari = ari(y, f16.labels_)
+    check(lloyd_step.launches == 0 and f16_ari >= ARI_FLOOR,
+          f"float16 q-means: {lloyd_step.launches} Lloyd launches, ARI "
+          f"{f16_ari}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        elkan = QKMeans(algorithm="elkan", **kw).fit(X)
+        elkan_s = time.perf_counter() - t0
+    elkan_launches = lloyd_step.launches
+    check(any("elkan" in str(w.message) for w in caught)
+          and elkan_launches > 0
+          and np.array_equal(elkan.labels_, classic.labels_),
+          "algorithm='elkan': no warning, no Lloyd launch or other labels "
+          "than the lloyd fit's")
+    with config_context(default_dtype="float64"):
+        t0 = time.perf_counter()
+        knn = KNeighborsClassifier(n_neighbors=KNN_K).fit(X[:N_TRAIN],
+                                                          y[:N_TRAIN])
+        acc = knn.score(X[N_TRAIN:], y[N_TRAIN:])
+        knn_s = time.perf_counter() - t0
+    check(knn.X_fit_.dtype == torch.float64 and argkmin.launches == 0
+          and acc >= KNN_ACCURACY_FLOOR,
+          f"float64 7-NN: {argkmin.launches} argkmin launches, accuracy "
+          f"{acc}")
+    bf = QPCA(n_components=QPCA_COMPONENTS, svd_solver="full",
+              ingest="monolithic", compute_dtype="bfloat16").fit(X)
+    X64 = Xd.double() - Xd.double().mean(0)
+    ev64 = torch.linalg.eigvalsh(X64.T @ X64).flip(0)[:QPCA_COMPONENTS]
+    ev64 = (ev64 / (N - 1)).cpu().numpy()
+    del X64
+    bf_err = float(np.max(np.abs(bf.explained_variance_ - ev64) / ev64))
+    check(bf.effective_compute_dtype_ == "bfloat16"
+          and bf_err <= BF16_SPECTRUM_RTOL,
+          f"bfloat16 qPCA: effective {bf.effective_compute_dtype_}, "
+          f"explained_variance_ {bf_err} off float64 > {BF16_SPECTRUM_RTOL}")
+    print(f"item 7: float16 q-means {f16_s:.4f} s, n_iter {f16.n_iter_}, "
+          f"ARI {f16_ari}, Lloyd launches 0; elkan {elkan_s:.4f} s warned, "
+          f"{elkan_launches} Lloyd launches, labels equal to the lloyd "
+          f"fit's; float64 7-NN fit + score {knn_s:.4f} s, accuracy {acc}, "
+          f"argkmin launches 0; bfloat16 qPCA(61) explained_variance_ "
+          f"{bf_err} off float64 (limit {BF16_SPECTRUM_RTOL})", flush=True)
+    return elkan_launches
+
+
 def main():
     import numpy as np
     import torch
@@ -2042,6 +2507,9 @@ def main():
     fit_s = time.perf_counter() - t0
     entry["launches"] = lloyd_step.launches
     check(entry["launches"] > 0, "the δ-means fit never launched the kernel")
+    check(est.ingest_ == "streamed",
+          f"BASELINE #3's fit of {X.nbytes} host bytes under 'auto' did not "
+          f"stream (ingest_ {est.ingest_})")
     check(np.isfinite(est.cluster_centers_).all()
           and np.isfinite(est.inertia_), "δ-means fit is not finite")
     check(est.cluster_centers_.shape == (K, M), "centers of the wrong shape")
@@ -2083,8 +2551,18 @@ def main():
     check(classic_launches > 0, "the δ=0 fit never launched the kernel")
     check(np.isfinite(classic.inertia_) and classic.n_iter_ >= 1,
           "δ=0 fit output")
-    check(np.array_equal(classic.predict(X), classic.labels_),
+    t0 = time.perf_counter()
+    streamed_pred = classic.predict(X)  # host rows above the cap: streamed
+    stream_pred_s = time.perf_counter() - t0
+    check(np.array_equal(streamed_pred, classic.labels_),
           "δ=0 predict ≠ fit labels")
+    t0 = time.perf_counter()
+    check(np.array_equal(classic.predict(Xd), streamed_pred),
+          "δ=0 streamed predict ≠ the monolithic predict of the card tensor")
+    print(f"δ=0 predict of the host rows (streamed, {stream_pred_s:.4f} s) "
+          f"bit-equal to the predict of the card tensor "
+          f"({time.perf_counter() - t0:.4f} s) and to the fit's labels",
+          flush=True)
     print(f"QKMeans δ=0 fit: {classic_s:.3f} s, n_iter {classic.n_iter_}, "
           f"inertia {classic.inertia_}, ARI {ari(y, classic.labels_)}, "
           f"kernel launches {classic_launches}", flush=True)
@@ -2236,6 +2714,27 @@ def main():
     print(f"FeatureHasher path: {time.perf_counter() - t0:.3f} s, "
           f"lloyd_step launches {lloyd_step.launches}, argkmin launches "
           f"{argkmin.launches}", flush=True)
+
+    # the streaming phase: streamed ingest, faults, checkpoints and item
+    # 7's routes, each path with the counts set to 0 before it
+    t_phase = time.perf_counter()
+    rates = resident_put_case(X, torch)
+    lloyd_step.launches = argkmin.launches = 0
+    streamed_qpca_case(X, Xd, torch)
+    breaker_case(X, torch)
+    check(lloyd_step.launches == argkmin.launches == 0,
+          "the streamed qPCA cases launched a kernel")
+    stream_knn, tile_entry = streamed_knn_case(X, y, Xd, torch)
+    knn_entry["launches"] += stream_knn
+    knn_entry["shapes"].append(tile_entry)
+    lloyd_step.launches = argkmin.launches = 0
+    checkpoint_case(est, pca, X, y, Xd, Xsweep, ysweep, torch)
+    check(lloyd_step.launches == 0, "the checkpoint case launched lloyd_step")
+    knn_entry["launches"] += argkmin.launches
+    lloyd_step.launches = argkmin.launches = 0
+    entry["launches"] += item7_case(X, y, Xd, classic, torch)
+    print(f"streaming phase: {time.perf_counter() - t_phase:.3f} s "
+          f"(resident put GB/s {rates})", flush=True)
 
     print(smi)
     print(json.dumps({"kernels": [entry, knn_entry]}))

@@ -9,7 +9,8 @@ with the JAX package's TPU kernels rewritten by hand for NVIDIA Hopper
 The port imports neither JAX nor any module of ``sq_learn_tpu``. Importing
 the package loads only :mod:`.obs` (standard library only, so that
 ``python -m sq_learn_tpu_torch.obs`` reads an artifact without torch);
-the names below and every subpackage load on first use.
+the names below and every subpackage (the streaming engine and
+``resilience`` among them) load on first use.
 """
 
 import importlib
@@ -31,12 +32,13 @@ _EXPORTS = {
                 "MiniBatchKMeans", "MiniBatchQKMeans", "QKMeans",
                 "TruncatedSVD", "k_means"),
     ".pipeline": ("Pipeline", "make_pipeline"),
+    ".utils.checkpoint": ("load_estimator", "save_estimator"),
 }
 _ORIGIN = {name: module for module, names in _EXPORTS.items()
            for name in names}
 
 __all__ = sorted([*_ORIGIN, "feature_extraction", "obs", "pipeline",
-                  "preprocessing"])
+                  "preprocessing", "resilience", "streaming", "utils"])
 
 
 def __getattr__(name):

@@ -43,7 +43,7 @@ from ..parallel.init import kmeans_plusplus_batched
 from ..utils.random import as_generator, gumbel
 from ..utils.validation import check_sample_weight
 from .qkmeans import _cluster_partials, e_step, tolerance
-from .qpca import _is_row_source
+from ..streaming import is_row_source
 
 _STORE = ("a store-backed (out-of-core) mini-batch fit is not ported yet: "
           "ROADMAP.md §1 item 7, the data planes (oocore/)")
@@ -325,7 +325,7 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
     # -- API ---------------------------------------------------------------
 
     def _input(self, X):
-        if _is_row_source(X):
+        if is_row_source(X):
             raise NotImplementedError(_STORE)
         return self._validated_X(X, resolve_device(self.device))
 

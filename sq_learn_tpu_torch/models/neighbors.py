@@ -8,16 +8,24 @@ a shortlist in reduced precision refined exactly, in plain torch ops, as
 the JAX package leaves it to XLA. Voting is on the host in numpy, after
 one copy of the (n, k) neighbor lists.
 
+A float64 fit (``default_dtype='float64'``) searches in plain float64
+torch ops, off the kernel, as the JAX package keeps float64 on its XLA
+search. Host queries larger than the tile cap stream
+(:func:`~sq_learn_tpu_torch.streaming.stream_map_rows`): each tile is
+searched on the device, the next uploading meanwhile, and only the
+(rows, k) lists are kept.
+
 Every search is one ``knn.search`` span and one classical (zero quantum
 queries) ledger entry under an obs run, each naming the engine that
 served it: the kernel (``argkmin_kernel``), its plain version
-(``argkmin_reference``) or the reduced-precision shortlist
-(``shortlist``).
+(``argkmin_reference``), the reduced-precision shortlist
+(``shortlist``), the float64 search (``plain``) or the streamed search
+(``streamed-device``).
 
 Not ported: ``use_pallas`` (the device of the data decides), the host fast
 path, the tiny-predict host routing and the memo of rejected kernels (the
-device a model was fitted on computes every search) and streamed predict.
-``mesh`` and float64 data raise ``NotImplementedError`` naming their item.
+device a model was fitted on computes every search). ``mesh`` raises
+``NotImplementedError`` naming its item.
 """
 
 import numbers
@@ -33,11 +41,10 @@ from ..base import (BaseEstimator, ClassifierMixin, check_is_fitted,
 from ..ops.kernels import argkmin
 from ..ops.linalg import (check_compute_dtype, is_reduced,
                           pairwise_sq_distances, row_norms)
-from ..utils.validation import check_X_y
+from ..streaming import stream_map_rows
+from ..utils.validation import check_X_y, host_ingest
 
 _MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
-_FLOAT64 = ("the k-NN search takes float32 data; {} is not ported yet: "
-            "ROADMAP.md §1 item 7, remaining estimators and host engines")
 
 #: distance-matrix entries one query block of :func:`knn_indices` may hold
 _BLOCK_ELEMENTS = 1 << 24
@@ -83,12 +90,14 @@ def knn_indices(X_train, X_query, k, block=4096, compute_dtype=None):
     distance matrix would pass ``_BLOCK_ELEMENTS``). When the shortlist
     would hold the whole training set the reduced dtype is dropped.
     """
+    nq, nt, kc = X_query.shape[0], X_train.shape[0], _shortlist_len(k)
+    block = max(1, min(block, _BLOCK_ELEMENTS // nt))
+    if X_train.dtype != torch.float32:
+        return _plain_search(X_train, X_query, k, block)
     if not _shortlists(X_train, k, compute_dtype):
         X_train = X_train.contiguous()
         return argkmin(X_train, row_norms(X_train, squared=True),
                        X_query.contiguous(), k)
-    nq, nt, kc = X_query.shape[0], X_train.shape[0], _shortlist_len(k)
-    block = max(1, min(block, _BLOCK_ELEMENTS // nt))
     idx = torch.empty((nq, k), dtype=torch.int32, device=X_query.device)
     d2 = torch.empty((nq, k), dtype=X_query.dtype, device=X_query.device)
     for q0 in range(0, nq, block):
@@ -100,6 +109,23 @@ def knn_indices(X_train, X_query, k, block=4096, compute_dtype=None):
         exact = torch.sum((q[:, None, :] - X_train[cand]) ** 2, dim=-1)
         vals, within = _smallest(exact, k)
         order = torch.gather(cand, 1, within)
+        idx[q0:q0 + block] = order.to(torch.int32)
+        d2[q0:q0 + block] = vals
+    return idx, d2
+
+
+def _plain_search(X_train, X_query, k, block):
+    """The exact search in plain torch ops, in the data's dtype: the JAX
+    package keeps float64 fits off its kernel, on the XLA search, which
+    ranks by max(‖q‖²+‖t‖²−2·q·t, 0) (``sq_learn_tpu/ops/linalg.py:
+    209-211``), ties to the lowest index; queries in blocks of at most
+    ``block`` rows."""
+    nq = X_query.shape[0]
+    idx = torch.empty((nq, k), dtype=torch.int32, device=X_query.device)
+    d2 = torch.empty((nq, k), dtype=X_query.dtype, device=X_query.device)
+    for q0 in range(0, nq, block):
+        vals, order = _smallest(
+            pairwise_sq_distances(X_query[q0:q0 + block], X_train), k)
         idx[q0:q0 + block] = order.to(torch.int32)
         d2[q0:q0 + block] = vals
     return idx, d2
@@ -135,8 +161,6 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
             raise NotImplementedError(_MESH)
         check_compute_dtype(self.compute_dtype)
         X, y = check_X_y(X, y, device=resolve_device(self.device))
-        if X.dtype != torch.float32:
-            raise NotImplementedError(_FLOAT64.format(f"X of dtype {X.dtype}"))
         self.classes_, y_enc = np.unique(y, return_inverse=True)
         self.X_fit_ = X
         self.y_fit_ = y_enc.ravel().astype(np.int32)
@@ -161,13 +185,39 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
         return out
 
     def _search_impl(self, X, k):
-        """((idx, d2), engine): the engine that served the search."""
-        if _shortlists(self.X_fit_, k, self.compute_dtype):
-            return knn_indices(self.X_fit_, X, k,
+        """((idx, d2), engine): the engine that served the search. Host
+        queries above the tile cap stream (``"streamed-device"``): each
+        tile is searched on the device as a resident query set is, and
+        only its (rows, k) lists are kept."""
+        if not isinstance(X, torch.Tensor):
+            return stream_map_rows(
+                X, lambda tile: self._device_search(tile, k)[0],
+                device=self._train_rows().device,
+                validate=True), "streamed-device"
+        return self._device_search(X, k)
+
+    def _device_search(self, X, k):
+        """((idx, d2), engine) of queries resident on the device."""
+        X_train = self._train_rows()
+        if X_train.dtype != torch.float32:
+            return knn_indices(X_train, X.to(X_train.dtype), k), "plain"
+        if _shortlists(X_train, k, self.compute_dtype):
+            return knn_indices(X_train, X, k,
                                compute_dtype=self.compute_dtype), "shortlist"
-        return argkmin(self.X_fit_, self._x_sq_fit, X, k), (
+        return argkmin(X_train, self._x_sq_fit, X, k), (
             "argkmin_kernel" if X.device.type == "cuda"
             else "argkmin_reference")
+
+    def _train_rows(self):
+        """The training rows on the device, and their squared norms. A
+        model loaded from a checkpoint holds numpy rows and no norms (a
+        private cache is not saved): both are placed here, once."""
+        if not isinstance(self.X_fit_, torch.Tensor):
+            self.X_fit_ = torch.as_tensor(np.asarray(self.X_fit_),
+                                          device=resolve_device(self.device))
+        if getattr(self, "_x_sq_fit", None) is None:
+            self._x_sq_fit = row_norms(self.X_fit_, squared=True)
+        return self.X_fit_
 
     def _check_k(self, k):
         """Validate a neighbor count: 1 ≤ k ≤ n_samples_fit (sklearn's
@@ -184,9 +234,15 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
         return int(k)
 
     def _query(self, X):
+        """Validated queries: a tensor on the training rows' device, or,
+        for host queries above the tile cap, the host array the search
+        streams (its values are checked on the device, tile by tile)."""
         check_is_fitted(self, "n_samples_fit_")
+        Xh, over_cap = host_ingest(X)
+        if over_cap:
+            return check_n_features(self, Xh)
         return check_n_features(
-            self, self._validated_X(X, self.X_fit_.device))
+            self, self._validated_X(X, self._train_rows().device))
 
     def kneighbors(self, X, n_neighbors=None, return_distance=True):
         """(distances, indices) of the nearest training rows, ascending;

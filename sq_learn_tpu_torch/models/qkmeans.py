@@ -39,8 +39,15 @@ generators of its own. The fit loop itself records no guarantee draws,
 as the JAX package's traced loop records none, and a fit's results and
 kernel launches are the same with obs on or off.
 
-Modes and parameters this slice does not cover raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+Ingest, as in the JAX package's staged route: host data larger than the
+streaming engine's tile cap (``SQ_TRANSFER_CHUNK_BYTES``, 128 MiB) is
+assembled on the device tile by tile (``streamed_prestats``, the upload
+staged through pinned memory and its values checked there), and
+``ingest_`` records the route; ``predict`` of such data walks it in tiles
+too. float16 and data that is not float32 run the Lloyd step as plain
+torch ops, as the JAX package runs them off its kernel, and
+``algorithm='elkan'`` warns and runs the Lloyd route. ``mesh`` raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
 """
 
 import functools
@@ -63,14 +70,16 @@ from ..ops.quantum.noise import gaussian_estimate
 from ..ops.quantum.norms import _mu_grid
 from ..ops.quantum.tomography import real_tomography
 from ..parallel.init import kmeans_plusplus_batched, resolve_init_subsample
-from ..sketch.engine import (SKETCH_SEED, audit_sketch, exact_bundle,
-                             fetch_components, finalize_components,
-                             record_sketch_obs, resolve_sketch_rows,
-                             sample_indices, sketch_components,
-                             sketch_delta_stat)
+from ..sketch.engine import (AUDIT_ELEMS, SKETCH_SEED, audit_sketch,
+                             exact_bundle, fetch_components,
+                             finalize_components, record_sketch_obs,
+                             resolve_sketch_rows, sample_indices,
+                             sketch_components, sketch_delta_stat)
+from ..streaming import stream_map_rows, streamed_prestats
 from ..utils.plotting import plot_runtime_surfaces
 from ..utils.random import as_generator, gumbel
-from ..utils.validation import check_sample_weight, validation_scope
+from ..utils.validation import (check_sample_weight, host_ingest,
+                                validation_scope)
 
 LloydMode = ("classic", "delta", "ipe")
 
@@ -97,11 +106,14 @@ def _stop_rule_read_due(step):
 IPE_WINDOW = 16
 
 _MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
-_ELKAN = ("algorithm='elkan' (the host Elkan engine) is not ported: "
-          "ROADMAP.md §1 item 7, remaining estimators and host engines")
-_DTYPE = ("the fused Lloyd kernel takes float32 data with compute_dtype "
-          "None/'float32'/'bfloat16'; {} is not ported yet: ROADMAP.md §1 "
-          "item 7, remaining estimators and host engines")
+
+def _on_device(X, device):
+    """``X`` as a tensor on ``device``: host data of a streamed fit is
+    uploaded for the sketch audit, which reads nothing above
+    ``AUDIT_ELEMS`` elements."""
+    if isinstance(X, torch.Tensor) or X.size > AUDIT_ELEMS:
+        return X
+    return torch.from_numpy(X).to(device)
 
 
 def tolerance(X, tol):
@@ -307,15 +319,19 @@ def _update_centers(sums, counts, centers):
 
 
 def _kernel_dtype(X, compute_dtype):
-    """The dtype the fused kernel reads X in (bfloat16 serves
-    ``compute_dtype='bfloat16'``); raises on what it does not take."""
+    """The dtype the fused Lloyd kernel reads X in, or None when the step
+    runs as plain torch ops. The JAX package sends only float32 data with
+    no reduced dtype, or with bfloat16, to its Pallas kernel; float16 and
+    every other data dtype (float64 under ``default_dtype='float64'``)
+    take its XLA path (``sq_learn_tpu/models/qkmeans.py:343-353``), which
+    the port runs as plain torch ops — the JAX package's own routing, not
+    a fallback."""
     if X.dtype != torch.float32:
-        raise NotImplementedError(_DTYPE.format(f"X of dtype {X.dtype}"))
+        return None
     if not is_reduced(compute_dtype, X.dtype):
         return torch.float32
     if check_compute_dtype(compute_dtype) != "bfloat16":
-        raise NotImplementedError(
-            _DTYPE.format(f"compute_dtype={compute_dtype!r}"))
+        return None
     return torch.bfloat16
 
 
@@ -334,12 +350,14 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
     last and the best centers are re-evaluated by :func:`e_step`, the
     better one returned with consistent labels.
 
-    The classic and δ modes run the fused kernel; the ``ipe`` mode runs
-    :func:`e_step` and the one-hot partial sums in plain torch, launching
-    no kernel (the JAX package routes only those two modes through its
-    Pallas kernel). With ``intermediate_error`` and δ > 0 every
-    iteration's new centers go through :func:`center_tomography` at δ/2;
-    a frozen restart's centers stay bit-equal.
+    The classic and δ modes run the fused kernel on float32 data (with no
+    reduced ``compute_dtype``, or bfloat16); the ``ipe`` mode, float16
+    and other data dtypes run :func:`e_step` and the one-hot partial sums
+    in plain torch, launching no kernel, as the JAX package routes them
+    off its Pallas kernel (:func:`_kernel_dtype`). With
+    ``intermediate_error`` and δ > 0 every iteration's new centers go
+    through :func:`center_tomography` at δ/2; a frozen restart's centers
+    stay bit-equal.
 
     Returns (labels (R, n), inertia (R,), centers (R, k, m), n_iter (R,),
     history) with history ``{"inertia", "center_shift"}`` (R, max_iter)
@@ -347,7 +365,8 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
     """
     if mode not in LloydMode:
         raise ValueError(f"mode must be one of {LloydMode}, got {mode!r}")
-    Xk = X.to(_kernel_dtype(X, compute_dtype))
+    kernel_dtype = None if mode == "ipe" else _kernel_dtype(X, compute_dtype)
+    Xk = None if kernel_dtype is None else X.to(kernel_dtype)
     estep = functools.partial(e_step, delta=delta, mode=mode, ipe_q=ipe_q,
                               compute_dtype=compute_dtype)
     window = float(delta) if mode == "delta" else 0.0
@@ -376,7 +395,7 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
     for step in range(max_iter):
         if _stop_rule_read_due(step) and not bool(active.any()):
             break
-        if mode == "ipe":
+        if Xk is None:
             labels, inertia, min_d2 = estep(generator, X, weights, centers,
                                             x_sq_norms)
             sums, counts = _cluster_partials(X, weights, labels, k)
@@ -457,16 +476,18 @@ def lloyd_restarts_from(generator, X, weights, x_sq_norms, centers0, **kw):
 
 
 def fused_init(generator, X, weights, *, n_init, init, n_clusters, quantum,
-               mu_grid=(), init_subsample=0, sketch_idx=None):
+               mu_grid=(), init_subsample=0, sketch_idx=None, stats=None):
     """Step 1 of the fit: pre-fit statistics (:func:`fit_prestats`,
-    sketched when ``sketch_idx`` holds sampled rows) and every restart's
-    initial centers (:func:`_restart_inits`), in the centered space. An
-    array ``init`` (a (k, m) tensor in the data's space) is centered and
-    runs as the one restart."""
-    stats = fit_prestats(X, quantum=quantum, mu_grid=mu_grid,
-                         sketch_idx=sketch_idx)
+    sketched when ``sketch_idx`` holds sampled rows; ``stats`` passes
+    those a streamed ingest already made, and then ``X`` is not read) and
+    every restart's initial centers (:func:`_restart_inits`), in the
+    centered space. An array ``init`` (a (k, m) tensor in the data's
+    space) is centered and runs as the one restart."""
+    if stats is None:
+        stats = fit_prestats(X, quantum=quantum, mu_grid=mu_grid,
+                             sketch_idx=sketch_idx)
     if isinstance(init, torch.Tensor):
-        return stats, (init.to(X) - stats["mean"])[None]
+        return stats, (init.to(stats["mean"]) - stats["mean"])[None]
     centers0 = _restart_inits(generator, stats["Xc"], weights, stats["xsq"],
                               n_init=n_init, init=init,
                               n_clusters=n_clusters,
@@ -592,20 +613,28 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             return "classic"
         return "ipe" if self.true_distance_estimate else "delta"
 
-    def _check_ported(self, X, mode):
-        """Raise NotImplementedError on what this slice does not cover."""
+    def _check_ported(self, dtype, mode):
+        """Raise NotImplementedError on what this slice does not cover
+        (``mesh``), and warn where a setting does not engage."""
         if self.mesh is not None:
             raise NotImplementedError(_MESH)
         if self.algorithm == "elkan":
             if mode == "classic":
-                raise NotImplementedError(_ELKAN)
-            warnings.warn(
-                "algorithm='elkan' applies to the classical (delta=0) path "
-                "only: the δ-window error model needs the full distance row "
-                "per sample. Using the Lloyd kernel.", RuntimeWarning)
+                # the JAX package's accelerator resolution; its pruned
+                # Elkan engine is a native host engine, not ported
+                warnings.warn(
+                    "algorithm='elkan' prunes with data-dependent "
+                    "branching, so the port runs the fused Lloyd kernel "
+                    "(sklearn's elkan ≡ lloyd contract: the same labels).",
+                    RuntimeWarning)
+            else:
+                warnings.warn(
+                    "algorithm='elkan' applies to the classical (delta=0) "
+                    "path only: the δ-window error model needs the full "
+                    "distance row per sample. Using the Lloyd kernel.",
+                    RuntimeWarning)
         cd = self._checked_compute_dtype()
-        _kernel_dtype(X, cd)
-        if mode == "ipe" and is_reduced(cd, X.dtype):
+        if mode == "ipe" and is_reduced(cd, dtype):
             warnings.warn(
                 "compute_dtype with true_distance_estimate (IPE mode) feeds "
                 "reduced-precision inner products into the quantum noise "
@@ -645,14 +674,20 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         """Compute q-means clustering (reference ``qMeans_.fit``,
         ``_dmeans.py:1211-1325``) on the estimator's device."""
         device = resolve_device(self.device)
-        X = self._validated_X(X, device)
+        # host input above the tile cap streams (the JAX package's staged
+        # route, streamed_prestats): it is checked on the host, assembled
+        # on the card tile by tile and its values checked there
+        Xh, over_cap = host_ingest(X)
+        streamed = over_cap and self.mesh is None
+        self.ingest_ = "streamed" if streamed else "monolithic"
+        X = Xh if streamed else self._validated_X(X, device)
         self.n_features_in_ = X.shape[1]
         self._check_params(X)
         with _obs.span("qkmeans.fit", n_samples=X.shape[0],
                        n_features=X.shape[1],
                        n_clusters=self.n_clusters) as sp:
             seed, centers = self._fit_impl(X, sample_weight, device)
-            sp.set(backend=device.type, ingest="monolithic",
+            sp.set(backend=device.type, ingest=self.ingest_,
                    n_iter=self.n_iter_)
         self._ledger_fit_entry(X)
         self._audit_fit_entry(X, seed, centers)
@@ -660,7 +695,9 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
 
     def _fit_impl(self, X, sample_weight, device):
         """The fit body proper; returns the seed of the fit's generator and
-        the fitted centers as the device tensor they were fetched from."""
+        the fitted centers as the device tensor they were fetched from.
+        ``X`` is a tensor on ``device``, or host data on the streamed
+        route."""
         delta = 0.0 if self.delta is None else float(self.delta)
         if delta == 0:
             warnings.warn("Attention! You are running the classic version of "
@@ -669,15 +706,16 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                 raise ValueError(
                     "intermediate_error cannot be True if delta is zero.")
         mode = self._mode(delta)
-        self._check_ported(X, mode)
-        w = check_sample_weight(sample_weight, X)
+        dtype = (X.dtype if isinstance(X, torch.Tensor)
+                 else torch.from_numpy(X[:0]).dtype)
+        self._check_ported(dtype, mode)
         init = self.init
         if hasattr(init, "__array__") and not callable(init):
             if self.n_init != "auto" and int(self.n_init) > 1:
                 warnings.warn(
                     "Explicit initial center position passed: performing "
                     "only one init of the restart loop.", RuntimeWarning)
-            init = torch.as_tensor(np.asarray(init), dtype=X.dtype,
+            init = torch.as_tensor(np.asarray(init), dtype=dtype,
                                    device=device)
             if init.shape != (self.n_clusters, X.shape[1]):
                 raise ValueError(
@@ -702,6 +740,19 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             sk_idx = torch.as_tensor(
                 sample_indices(rng_sk, X.shape[0], rows), device=device)
         n_init = self._resolved_n_init(self.init)
+        mu_grid = MU_GRID if quantum else ()
+        stats = None
+        if self.ingest_ == "streamed":
+            # a tripped breaker gets its half-open probe first, and raises
+            # if it stays open; the sketch rides the resident buffer
+            from ..resilience import breaker
+
+            breaker.preflight("qkmeans.fit", device)
+            stats = streamed_prestats(X, quantum=quantum, mu_grid=mu_grid,
+                                      sketch_idx=sk_idx, device=device,
+                                      validate=True)
+        w = check_sample_weight(sample_weight,
+                                X if stats is None else stats["Xc"])
         # the JAX package runs both steps under jit: nothing inside them
         # records a guarantee draw
         with _obs.guarantees.no_audit():
@@ -710,8 +761,8 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                 stats, centers0 = fused_init(
                     generator, X, w, n_init=n_init, init=init,
                     n_clusters=self.n_clusters, quantum=quantum,
-                    mu_grid=MU_GRID if quantum else (), init_subsample=sub,
-                    sketch_idx=sk_idx)
+                    mu_grid=mu_grid, init_subsample=sub,
+                    sketch_idx=sk_idx, stats=stats)
                 sp.sync(centers0)
             with _obs.span("qkmeans.fused_fit", mode=mode):
                 out = fused_fit(
@@ -738,7 +789,7 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                         m=X.shape[1], s=rows, mu_grid=MU_GRID,
                         delta_stat=delta_stat)
                     record_sketch_obs(sstats)
-                    audit_sketch(sstats, X)
+                    audit_sketch(sstats, _on_device(X, device))
                 else:
                     sstats = exact_bundle(
                         MU_GRID, host["eta"], host["frob"],
@@ -801,9 +852,11 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                 short_circuit=True, estimator="qkmeans")
             return
         stride = max(1, X.shape[0] // 256)
-        Xs = X[::stride][:256]
         C = centers
-        gen = as_generator(seed, X.device)
+        Xs = X[::stride][:256]
+        if not isinstance(Xs, torch.Tensor):
+            Xs = torch.from_numpy(np.ascontiguousarray(Xs)).to(C.device)
+        gen = as_generator(seed, C.device)
         if self._mode(delta) == "ipe":
             inner_product_estimates(gen, Xs.to(torch.float32),
                                     C.to(torch.float32), epsilon=delta / 2,
@@ -863,18 +916,54 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         """Closest-center assignment, with optional quantum error δ: the
         δ-means pick or, with ``true_distance_estimate``, the IPE E-step
         (reference intent, JAX ``_predict_impl``)."""
-        X = self._inference_input(X)
+        check_is_fitted(self, "cluster_centers_")
+        device = resolve_device(self.device)
+        Xh, over_cap = host_ingest(X)
         delta = 0.0 if delta is None else float(delta)
+        kw = dict(delta=delta, mode=self._mode(delta), ipe_q=self.ipe_q,
+                  compute_dtype=self._checked_compute_dtype())
+        if over_cap:
+            return self._predict_streamed(check_n_features(self, Xh),
+                                          device, kw)
+        X = self._inference_input(X)
         # the JAX package's E-step runs under jit: no guarantee draws
         with _obs.span("qkmeans.predict", n_queries=X.shape[0],
                        delta=delta), _obs.guarantees.no_audit():
             labels, _, _ = e_step(
                 as_generator(self.random_state, X.device), X,
                 torch.ones(X.shape[0], dtype=X.dtype, device=X.device),
-                self._centers_tensor(X), row_norms(X, squared=True),
-                delta=delta, mode=self._mode(delta), ipe_q=self.ipe_q,
-                compute_dtype=self._checked_compute_dtype())
+                self._centers_tensor(X), row_norms(X, squared=True), **kw)
             return labels.cpu().numpy()
+
+    def _predict_streamed(self, Xh, device, kw):
+        """The streamed predict (JAX ``predict_tile``): the query rows walk
+        in bounded tiles, the next upload under the current tile's norms
+        and E-step; only the labels stay, and come back once. A noisy mode
+        draws each tile's noise from a generator seeded from the fit's
+        ``random_state`` and the tile's first row, as the JAX package folds
+        the offset into its key; the classic argmin draws nothing."""
+        base = as_generator(self.random_state, device).initial_seed()
+        centers = torch.as_tensor(np.asarray(self.cluster_centers_),
+                                  dtype=torch.from_numpy(Xh[:0]).dtype,
+                                  device=device)
+
+        def tile_fn(tile, start):
+            seed = np.random.SeedSequence([base, start]).generate_state(
+                2, np.uint32)
+            gen = as_generator(int(seed[0]) << 31 | int(seed[1]) >> 1,
+                               device)
+            labels, _, _ = e_step(
+                gen, tile, torch.ones(tile.shape[0], dtype=tile.dtype,
+                                      device=device),
+                centers, row_norms(tile, squared=True), **kw)
+            return labels
+
+        with _obs.span("qkmeans.predict", n_queries=Xh.shape[0],
+                       delta=kw["delta"], ingest="streamed"), \
+                _obs.guarantees.no_audit():
+            return stream_map_rows(Xh, tile_fn, device=device,
+                                   with_offsets=True,
+                                   validate=True).cpu().numpy()
 
     def transform(self, X):
         """Distances to the cluster centers (purely classical, as the

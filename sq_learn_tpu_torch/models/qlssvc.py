@@ -279,7 +279,9 @@ class QLSSVC(ClassifierMixin, BaseEstimator):
         return check_n_features(self, self._validated_X(X, self._device()))
 
     def _train_rows(self):
-        return self.X_.to(self._device())
+        """The training rows on the device (a model loaded from a
+        checkpoint holds them as numpy)."""
+        return torch.as_tensor(self.X_, device=self._device())
 
     def _h(self, X):
         """Decision values α·K(X_train, x) + b of the validated rows X."""

@@ -44,10 +44,16 @@ guarantee draws of the top-k/least-k extraction; the quantum routines
 record their own draws where the JAX package's eager calls do, and the
 binary searches, which it runs under ``jit``, record none.
 
-Not ported: ``mesh`` (ROADMAP.md §1 item 6), streamed and store-backed
-ingest and a ``compute_dtype`` other than float32 (item 7) raise
-``NotImplementedError``; the tiny-fit host routing is not ported at all
-(a fit computes on the device it was given).
+Ingest, as in the JAX package: the partial-U Gram route (integral
+``n_components`` on tall host input, no μ(A)) streams X in tiles under
+``ingest='streamed'``, or under 'auto' when X is larger than the tile cap
+(:mod:`~sq_learn_tpu_torch.streaming`): X is never resident on the card,
+and ``ingest_`` records the route. ``compute_dtype`` engages only that
+route with the full solver (``effective_compute_dtype_``).
+
+Not ported: ``mesh`` (ROADMAP.md §1 item 6) and store-backed ingest (the
+out-of-core stores) raise ``NotImplementedError``; the tiny-fit host
+routing is not ported at all (a fit computes on the device it was given).
 """
 
 import math
@@ -68,16 +74,15 @@ from ..ops.quantum import (QuantumState, amplitude_estimation,
                            tomography)
 from ..ops.quantum.norms import _search_grid
 from ..sketch import engine as _sketch
+from ..streaming import is_row_source, streamed_centered_svd_topk
 from ..utils.plotting import plot_runtime_surfaces
 from ..utils.random import as_generator
-from ..utils.validation import check_array, validation_scope
+from ..utils.validation import (check_array, host_ingest,
+                                validation_scope)
 
 _MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
 _INGEST = ("{} is not ported yet: ROADMAP.md §1 item 7, the data planes "
-           "(streaming, out-of-core stores)")
-_DTYPE = ("compute_dtype={!r} is not ported yet (the port's qPCA computes "
-          "in float32): ROADMAP.md §1 item 7, remaining estimators and "
-          "host engines")
+           "(oocore/, the out-of-core stores)")
 
 # ---------------------------------------------------------------------------
 # Functional core
@@ -243,12 +248,6 @@ def _infer_dimension(spectrum, n_samples):
     return int(ll.argmax())
 
 
-def _is_row_source(X):
-    """The JAX package's shard-store protocol (``streaming.is_row_source``)."""
-    return all(hasattr(X, a) for a in
-               ("shape", "dtype", "nbytes", "fingerprint", "read_rows"))
-
-
 # ---------------------------------------------------------------------------
 # Estimator
 # ---------------------------------------------------------------------------
@@ -271,9 +270,9 @@ class QPCA(TransformerMixin, BaseEstimator):
     on large ones; the quantum estimators require 'full'. ``sketch`` sets
     the μ(A) row sample (:mod:`~sq_learn_tpu_torch.sketch`): 'auto' samples
     ``max(4096, 2·m)`` rows when the centered matrix is ≥4× larger and
-    tall, and ``muA`` is the certified upper bound. ``ingest`` accepts
-    'auto' and 'monolithic' (both ingest monolithically); 'streamed',
-    ``mesh`` and a ``compute_dtype`` other than float32 raise.
+    tall, and ``muA`` is the certified upper bound. ``ingest`` is 'auto',
+    'monolithic' or 'streamed' (the module docstring says which fits
+    stream); ``mesh`` raises.
     """
 
     def __init__(self, n_components=None, *, copy=True, whiten=False,
@@ -368,11 +367,19 @@ class QPCA(TransformerMixin, BaseEstimator):
                 delattr(self, attr)
 
         device = resolve_device(self.device)
-        X = self._validated_X(X, device)
+        # host input is checked on the host first: a streamed fit never
+        # uploads X whole, so its values are checked tile by tile
+        Xh, over_cap = host_ingest(X)
+        shape = tuple((X if Xh is None else Xh).shape)
+        n_components, solver = self._plan(shape)
+        streamed = self._resolve_ingest(Xh, over_cap, solver, n_components,
+                                        shape)
+        self.ingest_ = "streamed" if streamed else "monolithic"
+        X = Xh if streamed else self._validated_X(X, device)
         self.n_features_in_ = X.shape[1]
         with _obs.span("qpca.fit", n_samples=X.shape[0],
                        n_features=X.shape[1]) as sp:
-            self._fit_impl(X)
+            self._fit_impl(X, device, n_components, solver)
             sp.set(backend=device.type, solver=self._fit_svd_solver,
                    ingest=self.ingest_)
         return self
@@ -381,33 +388,26 @@ class QPCA(TransformerMixin, BaseEstimator):
         """Raise NotImplementedError on what this slice does not cover."""
         if self.mesh is not None:
             raise NotImplementedError(_MESH)
-        if _is_row_source(X):
+        if is_row_source(X):
             raise NotImplementedError(_INGEST.format(
                 "a store-backed (out-of-core) qPCA fit"))
-        if self.ingest == "streamed":
-            raise NotImplementedError(_INGEST.format("ingest='streamed'"))
-        if self.ingest not in ("auto", "monolithic"):
+        if self.ingest not in ("auto", "monolithic", "streamed"):
             raise ValueError(
                 f"ingest must be 'auto', 'monolithic' or 'streamed', got "
                 f"{self.ingest!r}")
-        name = check_compute_dtype(self.compute_dtype)
-        if name not in (None, "float32"):
-            raise NotImplementedError(_DTYPE.format(self.compute_dtype))
+        check_compute_dtype(self.compute_dtype)
 
-    def _fit_impl(self, X):
-        """Solver resolution, SVD and the quantum estimators; every quantum
-        fit kwarg was stashed on ``self`` by :meth:`fit`."""
-        self._generator = as_generator(self.random_state, X.device)
-
-        # n_components handling (reference _qPCA.py:527-536)
+    def _plan(self, shape):
+        """(n_components, solver) of a fit on data of ``shape``: the
+        reference's n_components handling (``_qPCA.py:527-536``) and
+        solver dispatch (``_qPCA.py:538-553``)."""
         if self.n_components is None:
             self.n_components_flag = False
-            n_components = min(X.shape)
+            n_components = min(shape)
         else:
             self.n_components_flag = True
             n_components = self.n_components
 
-        # solver dispatch (reference _qPCA.py:538-553)
         quantum_requested = (
             self.quantum_retained_variance or self.theta_estimate
             or self.estimate_all or self.estimate_least_k
@@ -417,10 +417,10 @@ class QPCA(TransformerMixin, BaseEstimator):
             if quantum_requested:
                 # the QADRA estimators need the full spectrum
                 solver = "full"
-            elif max(X.shape) <= 500 or n_components == "mle":
+            elif max(shape) <= 500 or n_components == "mle":
                 solver = "full"
             elif isinstance(n_components, numbers.Integral) and \
-                    1 <= n_components < 0.8 * min(X.shape):
+                    1 <= n_components < 0.8 * min(shape):
                 solver = "randomized"
             else:
                 solver = "full"
@@ -429,7 +429,41 @@ class QPCA(TransformerMixin, BaseEstimator):
                 f"quantum estimators require svd_solver='full' (or 'auto'); "
                 f"got svd_solver={solver!r} with quantum fit kwargs set")
         self._fit_svd_solver = solver
+        return n_components, solver
 
+    def _resolve_ingest(self, Xh, over_cap, solver, n_components, shape):
+        """Resolve ``ingest`` to streamed (True) or monolithic for this fit
+        (the JAX package's ``_resolve_ingest``). The streamed engine
+        serves the full solver's partial-U Gram route on host input
+        (``Xh``, None for a tensor already on the card; ``over_cap`` from
+        :func:`host_ingest`); μ(A) needs the resident centered matrix, so
+        a QADRA fit never streams. 'streamed' on another route warns and
+        ingests monolithically, on the same device; 'auto' streams when a
+        monolithic upload would pass the tile cap."""
+        if self.ingest == "monolithic":
+            return False
+        structural = (
+            solver == "full"
+            and not self._need_mu()
+            and isinstance(n_components, numbers.Integral)
+            and n_components > 0
+            and Xh is not None
+            and self._partial_u_route(n_components, *shape))
+        if self.ingest == "streamed":
+            if not structural:
+                warnings.warn(
+                    "ingest='streamed' requires the full-solver Gram route "
+                    "(integral n_components, tall host input, no QADRA "
+                    "estimator — mu(A) needs the resident matrix); this "
+                    "fit ingests monolithically.", RuntimeWarning)
+            return structural
+        return structural and over_cap
+
+    def _fit_impl(self, X, device, n_components, solver):
+        """The SVD and the quantum estimators, on the planned solver; every
+        quantum fit kwarg was stashed on ``self`` by :meth:`fit`. ``X`` is
+        a tensor on ``device``, or host data on the streamed route."""
+        self._generator = as_generator(self.random_state, device)
         engaged = (self.compute_dtype is not None and solver == "full"
                    and self._partial_u_route(n_components, *X.shape))
         self.effective_compute_dtype_ = (
@@ -440,7 +474,6 @@ class QPCA(TransformerMixin, BaseEstimator):
                 "(svd_solver='full', integral n_components, aspect ratio "
                 ">= 8, no mesh); this fit runs in the input dtype.",
                 RuntimeWarning)
-        self.ingest_ = "monolithic"
 
         if solver == "full":
             self._fit_full(X, n_components)
@@ -514,10 +547,23 @@ class QPCA(TransformerMixin, BaseEstimator):
                 f"n_components={n_components!r} must be of type int when "
                 f">= 1, was of type={type(n_components)!r}")
 
-        if self._partial_u_route(n_components, n_samples, n_features):
+        cd = check_compute_dtype(self.compute_dtype)
+        if self.ingest_ == "streamed":
+            # the same route, built tile by tile: the m×m Gram and the
+            # column mean accumulate on the card while the next tile
+            # uploads; X is never resident there. A tripped breaker gets
+            # its half-open probe first, and raises if it stays open
+            from ..resilience import breaker
+
+            device = self._generator.device
+            breaker.preflight("qpca.fit", device)
+            mean, U, S, Vt = streamed_centered_svd_topk(
+                X, int(n_components), compute_dtype=cd, device=device,
+                validate=True)
+        elif self._partial_u_route(n_components, n_samples, n_features):
             # only the U columns the fit keeps are materialized: the full
             # U product is the same O(n·m²) GEMM as the Gram matrix
-            mean, U, S, Vt = centered_svd_topk(X, int(n_components))
+            mean, U, S, Vt = centered_svd_topk(X, int(n_components), cd)
         else:
             mean, U, S, Vt = centered_svd(X)
         self.mean_ = mean.cpu().numpy()

@@ -38,7 +38,8 @@ import contextlib
 import math
 import threading
 
-from . import _env, recorder
+from .. import _knobs
+from . import recorder
 
 __all__ = [
     "GuaranteeViolationError",
@@ -90,7 +91,7 @@ def no_audit():
 
 def strict():
     """True when flagged sites must raise (``SQ_OBS_AUDIT_STRICT=1``)."""
-    return _env.flag("SQ_OBS_AUDIT_STRICT")
+    return _knobs.get_bool("SQ_OBS_AUDIT_STRICT")
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ import os
 import threading
 import time
 
-from . import _env
+from .. import _knobs
 
 #: the record envelope version of the JAX package this port's artifacts
 #: follow (``sq_learn_tpu/obs/recorder.py:93``)
@@ -161,7 +161,8 @@ class Recorder:
     """In-memory store of one run's records, with an optional JSONL sink.
 
     Public views: ``spans``, ``counters``, ``gauges``, ``gauge_events``,
-    ``ledger_entries``, ``guarantee_records`` and ``tradeoff_records`` —
+    ``ledger_entries``, ``guarantee_records``, ``tradeoff_records``,
+    ``fault_events`` and ``breaker_events`` —
     plain Python containers, safe to read at any point in the run.
     """
 
@@ -173,6 +174,8 @@ class Recorder:
         self.ledger_entries = []
         self.guarantee_records = []
         self.tradeoff_records = []
+        self.fault_events = []
+        self.breaker_events = []
         self.path = path
         self._seq = 0
         self._sink = None
@@ -343,12 +346,12 @@ def snapshot():
 
 def _default_path():
     """Sink path of the run that ``SQ_OBS=1`` enables."""
-    return _env.raw("SQ_OBS_PATH") or DEFAULT_PATH
+    return _knobs.get_raw("SQ_OBS_PATH") or DEFAULT_PATH
 
 
 # SQ_OBS=1 enables at first import, sink at SQ_OBS_PATH; the atexit
 # disable flushes the sink of a run that never calls disable() itself
-if _env.flag("SQ_OBS"):
+if _knobs.get_bool("SQ_OBS"):
     enable(_default_path())
     import atexit
 

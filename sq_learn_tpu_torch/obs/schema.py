@@ -26,9 +26,15 @@ tradeoff   sweep (str), point (number), accuracy (number),
            q_runtime (number | null), c_runtime (number | null); optional
            wall_s (number ≥ 0), accuracy_metric (str), budget (object:
            str → number), attrs (object)
+fault      kind (str), tile (int | null) — one injected fault of the
+           ``SQ_FAULTS`` harness (:mod:`sq_learn_tpu_torch.resilience.
+           faults`); optional host (int), stall_s (number ≥ 0)
+breaker    state (str ∈ {closed, open, half_open}), prev (str),
+           reason (str), consecutive (int ≥ 0) — one circuit-breaker
+           transition (:mod:`sq_learn_tpu_torch.resilience.supervisor`)
 =========  ==============================================================
 
-The JAX package's other types (watchdog, probe, fault, breaker, xla_cost,
+The JAX package's other types (watchdog, probe, xla_cost,
 regression, slo, budget, alert, control, elastic, clock, io) come with
 the planes that write them (``ROADMAP.md`` §1); until then a record of
 any of them is rejected, with an error that names its type.
@@ -45,7 +51,9 @@ KNOWN_VERSIONS = set(range(1, SCHEMA_VERSION + 1))
 
 #: every record type the port writes, machine-readable
 RECORD_TYPES = ("meta", "span", "counter", "gauge", "ledger", "guarantee",
-                "tradeoff")
+                "tradeoff", "fault", "breaker")
+
+_BREAKER_STATES = frozenset({"closed", "open", "half_open"})
 
 
 def _check(cond, errors, msg):
@@ -149,6 +157,26 @@ def validate_record(rec):
         if "budget" in rec:
             _check(_str_to_number(rec["budget"]), errors,
                    "tradeoff.budget object of str → number")
+    elif t == "fault":
+        _check(isinstance(rec.get("kind"), str), errors, "fault.kind str")
+        _check(rec.get("tile") is None or isinstance(rec["tile"], int),
+               errors, "fault.tile int or null")
+        if "host" in rec:
+            _check(isinstance(rec["host"], int)
+                   and not isinstance(rec["host"], bool), errors,
+                   "fault.host int")
+        if "stall_s" in rec:
+            _check(_number(rec["stall_s"]) and rec["stall_s"] >= 0, errors,
+                   "fault.stall_s non-negative number")
+    elif t == "breaker":
+        _check(rec.get("state") in _BREAKER_STATES, errors,
+               f"breaker.state in {sorted(_BREAKER_STATES)}")
+        _check(isinstance(rec.get("prev"), str), errors, "breaker.prev str")
+        _check(isinstance(rec.get("reason"), str), errors,
+               "breaker.reason str")
+        _check(isinstance(rec.get("consecutive"), int)
+               and rec["consecutive"] >= 0, errors,
+               "breaker.consecutive non-negative int")
     else:
         errors.append(
             f"unknown record type {t!r} (the port writes "

@@ -16,6 +16,8 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from .. import _knobs
+
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -30,7 +32,7 @@ class KernelBuildError(RuntimeError):
 
 
 def _nvcc():
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+    for root in (_knobs.get_raw("CUDA_HOME"), "/usr/local/cuda"):
         if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
             return os.path.join(root, "bin", "nvcc")
     found = shutil.which("nvcc")

@@ -15,12 +15,13 @@ this cache. ``SQ_STATS_CACHE=0`` disables it. Process-global, LRU-bounded
 """
 
 import collections
-import os
 import threading
 import zlib
 
 import numpy as np
 import torch
+
+from .. import _knobs
 
 __all__ = ["clear", "enabled", "key_for", "lookup", "store"]
 
@@ -33,7 +34,7 @@ _store = collections.OrderedDict()
 
 def enabled():
     """True unless ``SQ_STATS_CACHE=0``."""
-    return os.environ.get("SQ_STATS_CACHE", "1") != "0"
+    return _knobs.get_bool("SQ_STATS_CACHE")
 
 
 def data_digest(X, max_rows=64):

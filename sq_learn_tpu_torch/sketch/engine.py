@@ -34,11 +34,11 @@ exact statistics (:func:`audit_sketch`).
 
 import dataclasses
 import math
-import os
 
 import numpy as np
 import torch
 
+from .. import _knobs
 from .. import obs as _obs
 from ..ops.linalg import smallest_eigenvalue
 from ..ops.quantum.norms import _grid_exponents, _power_sweep, select_mu
@@ -72,7 +72,7 @@ AUDIT_ELEMS = 8_000_000
 def sketch_delta_stat():
     """The sketch engine's failure budget δ_stat (``SQ_SKETCH_DELTA``,
     default 0.05). 0 disables sketching entirely (zero-budget = exact)."""
-    env = os.environ.get("SQ_SKETCH_DELTA")
+    env = _knobs.get_raw("SQ_SKETCH_DELTA")
     return float(env) if env else DEFAULT_DELTA_STAT
 
 
@@ -85,7 +85,7 @@ def resolve_sketch_rows(n_samples, n_features, setting="auto"):
     disables). A zero δ_stat also disables.
     """
     if setting == "auto":
-        env = os.environ.get("SQ_SKETCH_ROWS")
+        env = _knobs.get_raw("SQ_SKETCH_ROWS")
         if env is not None:
             setting = int(float(env))
     if setting == "auto":

@@ -231,12 +231,28 @@ def test_check_k_errors_match_jax(blobs, k, match):
 
 
 def test_not_ported_modes_raise(blobs):
-    Xtr, ytr, _ = blobs
+    """``mesh`` raises naming its item. float64 data was ported since
+    (item 7): a float64 fit searches in plain float64 ops, off the kernel,
+    ranking by max(‖q‖²+‖t‖²−2·q·t, 0) with ties to the lowest index, as
+    the JAX package's XLA search does."""
+    Xtr, ytr, Xte = blobs
     with pytest.raises(NotImplementedError, match="item 6"):
         KNeighborsClassifier(mesh=object()).fit(Xtr, ytr)
     with config_context(default_dtype="float64"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            KNeighborsClassifier().fit(Xtr, ytr)
+        wide = KNeighborsClassifier(n_neighbors=5).fit(Xtr, ytr)
+        assert wide.X_fit_.dtype == torch.float64
+        dist, idx = wide.kneighbors(Xte)
+        assert wide._search_impl(torch.from_numpy(
+            Xte.astype(np.float64)), 5)[1] == "plain"
+    Q, T = Xte.astype(np.float64), Xtr.astype(np.float64)
+    d = np.maximum((Q * Q).sum(1)[:, None] + (T * T).sum(1)[None]
+                   - 2.0 * Q @ T.T, 0.0)
+    ref = np.argsort(d, axis=1, kind="stable")[:, :5]
+    np.testing.assert_array_equal(idx, ref)
+    np.testing.assert_allclose(dist, np.sqrt(np.take_along_axis(d, ref, 1)),
+                               rtol=1e-12, atol=1e-12)
+    narrow = KNeighborsClassifier(n_neighbors=5).fit(Xtr, ytr)
+    np.testing.assert_array_equal(wide.predict(Xte), narrow.predict(Xte))
 
 
 def test_input_errors(blobs):

@@ -180,6 +180,20 @@ def _write_artifact(path):
     obs.counter_add("c", 2)
     obs.gauge("g", 1.5, unit="s")
     obs.record_span("external", 0.25, k=1)
+    # a fault injection and the breaker transitions it feeds
+    from sq_learn_tpu_torch.resilience import faults, supervisor
+
+    faults.arm("put_fail:tiles=0,times=1")
+    breaker = supervisor.CircuitBreaker()
+    try:
+        faults.get_plan().on_put(0)
+    except faults.InjectedTransferError:
+        breaker.record_failure("InjectedTransferError")
+    finally:
+        faults.disarm()
+    for _ in range(2):  # SQ_BREAKER_K = 3 consecutive failures trip it
+        breaker.record_failure("InjectedTransferError")
+    breaker.reset()
     quantum, classical = est.quantum_runtime_model(*X.shape)
     for delta in (0.0, 0.5):
         obs.frontier.record_tradeoff(

@@ -405,12 +405,21 @@ def test_random_init_kmeans_and_functional_api():
 def test_unported_modes_raise_naming_the_roadmap(kw, match):
     """Modes the port leaves out raise naming their ROADMAP item. The IPE
     E-step and tomography of the centers were ported since: those cases
-    now fit, with finite centers and the runtime-model statistics."""
+    now fit, with finite centers and the runtime-model statistics. So were
+    ``algorithm='elkan'`` and ``compute_dtype='float16'`` (item 7): elkan
+    warns and fits the Lloyd route, float16 fits in plain torch ops."""
     X = _data(n=64)
     if match in ("IPE", "tomography"):
         est = QKMeans(n_clusters=3, random_state=0, **kw).fit(X)
         assert np.isfinite(est.cluster_centers_).all() and est.n_iter_ >= 1
         assert np.isfinite(est.condition_number_) and est.eta_ > 0
+        return
+    if match in ("elkan", "float16"):
+        with pytest.warns(RuntimeWarning if match == "elkan"
+                          else UserWarning, match=match if match == "elkan"
+                          else "classic"):
+            est = QKMeans(n_clusters=3, random_state=0, **kw).fit(X)
+        assert np.isfinite(est.cluster_centers_).all() and est.n_iter_ >= 1
         return
     with pytest.raises(NotImplementedError, match=match) as err:
         QKMeans(n_clusters=3, **kw).fit(X)
@@ -431,6 +440,58 @@ def test_sketch_auto_at_scale_raises_sketch_zero_runs():
     exact = QKMeans(sketch=0, **kw).fit(X)
     assert exact.n_iter_ >= 1 and not exact.sketch_info_["sketched"]
     assert exact.sketch_info_["sample_rows"] == 0
+
+
+def test_float16_lloyd_matches_jax_xla_route():
+    """Item 7: float16 runs the JAX package's XLA route, off the Pallas
+    kernel (the port: plain torch ops, no kernel); it holds the JAX
+    functional core at δ=0 (labels and n_iter equal, floats at rtol
+    1e-4). bfloat16 stays on the kernel (``test_torch_lloyd_kernel.py``)."""
+    compute_dtype = "float16"
+    X = _data(seed=5)
+    Xc = X - X.mean(0)
+    w = np.ones(700, np.float32)
+    xsq = (Xc * Xc).sum(1)
+    c0 = _centers0(Xc)[0]
+    j_lab, j_in, j_c, j_it, _ = jax.jit(functools.partial(
+        jqk.lloyd_single, delta=0.0, mode="classic", max_iter=30, tol=1e-6,
+        use_pallas=False, compute_dtype=compute_dtype))(
+        jax.random.PRNGKey(0), jnp.asarray(Xc), jnp.asarray(w),
+        jnp.asarray(c0), jnp.asarray(xsq))
+    assert tqk._kernel_dtype(_t(Xc), compute_dtype) is None
+    assert tqk._kernel_dtype(_t(Xc), "bfloat16") == torch.bfloat16
+    t_lab, t_in, t_c, t_it, _ = tqk.lloyd_single(
+        as_generator(0, "cpu"), _t(Xc), _t(w), _t(c0)[None], _t(xsq),
+        delta=0.0, mode="classic", max_iter=30, tol=1e-6,
+        compute_dtype=compute_dtype)
+    np.testing.assert_array_equal(t_lab[0].numpy(), np.asarray(j_lab))
+    assert int(t_it[0]) == int(j_it)
+    np.testing.assert_allclose(t_c[0].numpy(), np.asarray(j_c), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(t_in[0]), float(j_in), rtol=1e-4)
+
+
+def test_elkan_labels_equal_lloyd_and_float64_fits():
+    """Item 7: ``algorithm='elkan'`` at δ=0 warns and runs the Lloyd route
+    (sklearn's elkan ≡ lloyd contract: the same labels), and a float64 fit
+    (``default_dtype='float64'``) runs the plain torch step and finds the
+    float32 fit's clusters."""
+    X = _data(seed=8)
+    kw = dict(n_clusters=5, n_init=3, delta=0.0, random_state=0)
+    with pytest.warns(RuntimeWarning, match="elkan"):
+        elkan = QKMeans(algorithm="elkan", **kw).fit(X)
+    lloyd = QKMeans(algorithm="lloyd", **kw).fit(X)
+    np.testing.assert_array_equal(elkan.labels_, lloyd.labels_)
+    np.testing.assert_array_equal(elkan.cluster_centers_,
+                                  lloyd.cluster_centers_)
+    with config_context(default_dtype="float64"):
+        wide = QKMeans(**kw).fit(X)
+        assert tqk._kernel_dtype(check_array(X, device="cpu"), None) is None
+    assert adjusted_rand_score(wide.labels_, lloyd.labels_) == 1.0
+    # the same centers, up to the order the k-means++ draws gave them
+    gap = np.linalg.norm(wide.cluster_centers_[:, None]
+                         - lloyd.cluster_centers_[None], axis=-1)
+    assert gap.min(axis=1).max() < 1e-4
 
 
 def test_bf16_compute_dtype_fit_clusters():

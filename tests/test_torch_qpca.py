@@ -17,7 +17,9 @@ Tolerances:
 Run as a script (``python tests/test_torch_qpca.py``) it measures the JAX
 package's own float32 error of ``explained_variance_`` at the trial's
 shape, 70 000 × 784 with 61 components, against a float64 reference — the
-number ``chip_smoke.py``'s spectrum check is scaled from.
+number ``chip_smoke.py``'s spectrum check is scaled from — and the same
+error of its bfloat16 partial-U route, which sets the smoke's bfloat16
+tolerance.
 """
 
 import numpy as np
@@ -57,18 +59,20 @@ def _close(a, b, rtol=1e-4):
                                atol=rtol * float(np.abs(b).max()))
 
 
-def jax_spectrum_error(n, m, k, seed=784):
+def jax_spectrum_error(n, m, k, seed=784, compute_dtype=None):
     """Largest relative error of the JAX package's float32
-    ``explained_variance_`` (its partial-U Gram route, ``centered_svd_topk``)
-    over the first k components of ``synthetic_surrogate(n, m, 10, seed)``,
-    against the same route in float64."""
+    ``explained_variance_`` (its partial-U Gram route, ``centered_svd_topk``,
+    with ``compute_dtype`` on its GEMMs) over the first k components of
+    ``synthetic_surrogate(n, m, 10, seed)``, against the same route in
+    float64."""
     import jax.numpy as jnp
 
     from sq_learn_tpu.datasets import _loaders
     from sq_learn_tpu.ops.linalg import centered_svd_topk
 
     X, _ = _loaders.synthetic_surrogate(n, m, 10, seed=seed)
-    _, _, S, _ = centered_svd_topk(jnp.asarray(X), k)
+    _, _, S, _ = centered_svd_topk(jnp.asarray(X), k,
+                                   compute_dtype=compute_dtype)
     ev32 = np.asarray(S)[:k].astype(np.float64) ** 2 / (n - 1)
     Xc = X.astype(np.float64) - X.astype(np.float64).mean(0)
     ev64 = np.linalg.eigvalsh(Xc.T @ Xc)[::-1][:k] / (n - 1)
@@ -364,7 +368,21 @@ class _Store:
 ])
 def test_unported_options_raise_naming_the_roadmap(data, kw, fit_input,
                                                    item):
+    """``mesh`` and store-backed ingest raise naming their ROADMAP item.
+    ``ingest='streamed'`` and the reduced compute dtypes were ported since
+    (item 7): on this short input (not tall enough for the partial-U
+    route) 'streamed' warns and ingests monolithically, and a compute
+    dtype warns that it did not engage, as in the JAX package."""
     X = data if fit_input is None else fit_input
+    if "ingest" in kw or "compute_dtype" in kw:
+        with pytest.warns(RuntimeWarning, match="monolithically|partial-U"):
+            pca = QPCA(n_components=3, svd_solver="full", **kw).fit(X)
+        ref = QPCA(n_components=3, svd_solver="full").fit(X)
+        assert pca.ingest_ == "monolithic"
+        assert pca.effective_compute_dtype_ is None
+        np.testing.assert_array_equal(pca.singular_values_,
+                                      ref.singular_values_)
+        return
     with pytest.raises(NotImplementedError, match=item) as err:
         QPCA(n_components=3, **kw).fit(X)
     assert "ROADMAP.md" in str(err.value)
@@ -388,6 +406,31 @@ def test_runtime_model_and_truncated_svd_raise_naming_the_roadmap(data):
     assert svd.components_.shape == (2, data.shape[1])
     assert np.isfinite(svd.singular_values_).all()
     assert (np.diff(svd.singular_values_) <= 0).all()
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float16"])
+def test_reduced_compute_dtype_matches_jax(compute_dtype):
+    """Item 7: a reduced ``compute_dtype`` engages the partial-U Gram route
+    with the full solver (both GEMMs on rounded operands, float32
+    accumulation) and is recorded in ``effective_compute_dtype_``; the
+    spectrum and components hold the JAX package's at rtol 1e-4 (the same
+    rounded operands, sums in another order), and the reduced Gram moves
+    the spectrum off the float32 one."""
+    X, _ = synthetic_surrogate(1600, 16, 4, seed=2)
+    kw = dict(n_components=4, svd_solver="full", ingest="monolithic",
+              compute_dtype=compute_dtype)
+    port = QPCA(**kw).fit(X)
+    ref = JaxQPCA(**kw).fit(X)
+    assert port.effective_compute_dtype_ == ref.effective_compute_dtype_ \
+        == compute_dtype
+    np.testing.assert_allclose(port.all_singular_values_,
+                               ref.all_singular_values_, rtol=1e-4)
+    _close(port.components_, ref.components_, 1e-4)
+    f32 = QPCA(n_components=4, svd_solver="full").fit(X)
+    assert not np.array_equal(port.singular_values_, f32.singular_values_)
+    with pytest.warns(RuntimeWarning, match="partial-U"):
+        short = QPCA(n_components=0.9, compute_dtype=compute_dtype).fit(X)
+    assert short.effective_compute_dtype_ is None
 
 
 def test_float32_compute_dtype_engages_the_partial_u_route():
@@ -559,5 +602,8 @@ def test_fit_mu_does_not_depend_on_earlier_fits():
 
 if __name__ == "__main__":
     # the JAX package's float32 error at the trial's shape (see the module
-    # docstring); run with JAX_PLATFORMS=cpu
+    # docstring), then its bfloat16 partial-U route's; run with
+    # JAX_PLATFORMS=cpu
     print(jax_spectrum_error(70_000, 784, 61))
+    print("bfloat16", jax_spectrum_error(70_000, 784, 61,
+                                         compute_dtype="bfloat16"))

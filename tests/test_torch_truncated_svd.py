@@ -129,8 +129,10 @@ def test_unported_options_raise_and_bad_ones_are_rejected():
     X = _low_rank()
     with pytest.raises(NotImplementedError, match="item 6"):
         TruncatedSVD(mesh=object()).fit(X)
-    with pytest.raises(NotImplementedError, match="item 7, the data planes"):
-        TruncatedSVD(ingest="streamed").fit(X)
+    # ingest='streamed' was ported since (item 7): it fits, tile by tile
+    est = TruncatedSVD(ingest="streamed", random_state=0).fit(X)
+    assert est.ingest_ == "streamed" and np.isfinite(
+        est.singular_values_).all()
     for kw, match in (({"n_components": 30}, "n_components"),
                       ({"algorithm": "lobpcg"}, "algorithm"),
                       ({"ingest": "tiled"}, "ingest")):
