@@ -90,6 +90,17 @@ that call's wall clock, host time by operator):
   streamed one under the profiler, and the host's float64 total variance
   that the streamed fit takes.
   ``python3 chip_profile.py --streaming`` runs this part alone.
+- the out-of-core plane (``python3 chip_profile.py --oocore`` runs it
+  alone): the store S1 of ``chip_smoke.py`` (``create_synthetic_store``,
+  1 000 000 × 784, 374 shards of 8 MiB, 3.14 GB) and its mini-batch fit
+  (``MiniBatchQKMeans(n_clusters=10, batch_size=1024, max_iter=2,
+  max_no_improvement=None, delta=0.5, random_state=0)``) taken apart:
+  the fit and its labelling pass warm; one epoch's host batch walk with
+  the CRC off and on, at readahead depth 0 and 2; ``zlib.crc32`` alone
+  over every shard; the uploads of one epoch's batches through the pinned
+  ring; one mini-batch step and one labelling Lloyd launch (1024 × 784,
+  k=10, R=1) in device ms; then one epoch of the fit and the labelling
+  pass under the profiler (device busy share, kernels, host operators).
 
 It needs one NVIDIA GPU and exits non-zero without one.
 """
@@ -980,6 +991,113 @@ def streaming(X, torch):
           lambda: float(np.var(Xc, axis=0, dtype=np.float64).sum()))
 
 
+def oocore(torch):
+    """The out-of-core plane on S1: where one epoch of the store-backed
+    mini-batch fit and its labelling pass spend their time (see the module
+    docstring)."""
+    import shutil
+    import tempfile
+    import zlib
+
+    import numpy as np
+
+    from sq_learn_tpu_torch import oocore as ooc
+    from sq_learn_tpu_torch.models import MiniBatchQKMeans
+    from sq_learn_tpu_torch.models.minibatch import minibatch_step
+    from sq_learn_tpu_torch.oocore.fit import _BatchUploader, keyed_generator
+    from sq_learn_tpu_torch.ops.kernels import lloyd_step
+
+    def wall(label, fn, reps=1):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        print(f"{label}: {', '.join(f'{w:.3f}' for w in out)} s",
+              flush=True)
+        return min(out)
+
+    def env(**values):
+        for k, v in values.items():
+            os.environ[k] = str(v)
+
+    tmp = tempfile.mkdtemp(prefix="sq-ooc-profile-")
+    try:
+        env(SQ_OOC_PREFETCH_THREADS=6)
+        t0 = time.perf_counter()
+        S1 = ooc.create_synthetic_store(os.path.join(tmp, "s1"), 1_000_000,
+                                        784, n_classes=10, seed=784)
+        del os.environ["SQ_OOC_PREFETCH_THREADS"]
+        print(f"S1 built in {time.perf_counter() - t0:.3f} s, "
+              f"{S1.n_shards} shards, {S1.nbytes / 1e9:.3f} GB", flush=True)
+        gb = S1.nbytes / 1e9
+        kw = dict(n_clusters=10, batch_size=1024, max_iter=2,
+                  max_no_improvement=None, delta=0.5, random_state=0)
+        est = MiniBatchQKMeans(**kw)
+        fit_s = wall("S1 mini-batch fit (2 epochs + labelling), cold then "
+                     "warm", lambda: est.fit(S1), reps=2)
+        centers = est.cluster_centers_
+        label_s = wall("S1 labelling pass (977 Lloyd launches)",
+                       lambda: ooc.assign_labels(S1, centers,
+                                                 batch_rows=1024), reps=2)
+        plan = ooc.EpochPlan(seed=0, batch_rows=1024)
+        for verify, depth in (("off", 0), ("all", 0), ("all", 2)):
+            env(SQ_OOC_VERIFY=verify, SQ_OOC_PREFETCH_DEPTH=depth)
+            s = wall(f"one epoch's host batch walk, CRC {verify}, readahead "
+                     f"depth {depth}",
+                     lambda: sum(1 for _ in plan.iter_batches(S1, 0)),
+                     reps=2)
+            print(f"  = {gb / s:.3f} GB/s", flush=True)
+        os.environ.pop("SQ_OOC_VERIFY")
+        os.environ.pop("SQ_OOC_PREFETCH_DEPTH")
+        shard = S1.read_shard(0)
+        t0 = time.perf_counter()
+        for _ in range(S1.n_shards):
+            zlib.crc32(shard)
+        crc_s = time.perf_counter() - t0
+        print(f"zlib.crc32 over {S1.n_shards} shards of 8 MiB (one epoch's "
+              f"bytes): {crc_s:.3f} s = {gb / crc_s:.3f} GB/s", flush=True)
+        batches = [np.ascontiguousarray(b, np.float32)
+                   for _, b in plan.iter_batches(S1, 0)]
+        up = _BatchUploader(torch.device("cuda:0"), 1024 * 784 * 4)
+        try:
+            up_s = wall("uploads of one epoch's 977 batches through the "
+                        "pinned ring",
+                        lambda: [up(b, i) for i, b in enumerate(batches)],
+                        reps=2)
+        finally:
+            up.close()
+        print(f"  = {gb / up_s:.3f} GB/s", flush=True)
+        Xb = torch.from_numpy(batches[0]).to("cuda:0")
+        wb = torch.ones(1024, device="cuda:0")
+        C = torch.from_numpy(centers).to("cuda:0")
+        counts = torch.ones(10, device="cuda:0")
+
+        def step():
+            minibatch_step(keyed_generator("cuda:0", 0, 0, 0, 0xBA7C), Xb,
+                           wb, C, counts, 0, delta=0.5, mode="delta",
+                           reassignment_ratio=0.01)
+
+        step_ms = events_ms(step, torch)
+        xsq = torch.sum(Xb * Xb, dim=1)
+        lloyd_ms = events_ms(lambda: lloyd_step(Xb, wb, xsq, C[None]),
+                             torch)
+        print(f"one mini-batch step (δ=0.5, reassignment on) {step_ms:.4f} "
+              f"device ms, × 977 = {977 * step_ms / 1e3:.3f} s an epoch; one "
+              f"labelling Lloyd launch {lloyd_ms:.4f} device ms, × 977 = "
+              f"{977 * lloyd_ms / 1e3:.3f} s; the fit {fit_s:.3f} s, the "
+              f"labelling pass {label_s:.3f} s", flush=True)
+        del batches
+        one = MiniBatchQKMeans(**dict(kw, max_iter=1, compute_labels=False))
+        profiled("S1 mini-batch fit, one epoch", lambda: one.fit(S1), torch)
+        profiled("S1 labelling pass",
+                 lambda: ooc.assign_labels(S1, centers, batch_rows=1024),
+                 torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -1006,6 +1124,9 @@ def main():
     X, y = synthetic_surrogate(70_000, 784, 10, seed=784)
     if sys.argv[1:] == ["--streaming"]:
         streaming(X, torch)
+        return 0
+    if sys.argv[1:] == ["--oocore"]:
+        oocore(torch)
         return 0
     est = QKMeans(n_clusters=10, n_init=10, max_iter=300, delta=0.5,
                   true_distance_estimate=False, sketch=0, random_state=0)
@@ -1037,6 +1158,7 @@ def main():
     grid_fold(X, y, torch)
     minibatch_fit(X, torch)
     streaming(X, torch)
+    oocore(torch)
     return 0
 
 

@@ -369,7 +369,8 @@ def ari(a, b):
     np.add.at(table, (ai, bi), 1)
 
     def pairs(v):
-        return (v * (v - 1) // 2).sum()
+        # a Python int: the products below pass int64 past ~3·10⁶ rows
+        return int((v * (v - 1) // 2).sum())
 
     index = pairs(table)
     ra, rb, total = pairs(table.sum(1)), pairs(table.sum(0)), pairs(
@@ -2447,6 +2448,525 @@ def item7_case(X, y, Xd, classic, torch):
     return elkan_launches
 
 
+# -- the out-of-core phase ---------------------------------------------------
+# S1: create_synthetic_store(1 000 000 × 784, 10 classes, seed 784), 8 MiB
+# shards (2 674 rows, 374 shards), 3.14 GB; its fits run under a 256 MiB
+# single-materialization budget. The mini-batch fit runs 2 epochs of
+# 1024-row batches (977 a pass) and labels the store with one Lloyd launch
+# per 1024-row tile.
+OOC_N, OOC_M, OOC_K, OOC_SEED = 1_000_000, 784, 10, 784
+OOC_BUDGET = 256 << 20
+OOC_BATCH, OOC_EPOCHS, OOC_ARI_FLOOR = 1024, 2, 0.95
+OOC_TILES = -(-OOC_N // OOC_BATCH)
+OOC_SAMPLED_TILES = (0, OOC_TILES // 2, OOC_TILES - 1)  # the last is a tail
+OOC_COMPONENTS = 61
+# the store qPCA's singular values against a float64 Gram of the store: 3×
+# the JAX package's float32 error on its store route at 400 000 × 784, the
+# largest of the CPU sizes ``PYTHONPATH=. JAX_PLATFORMS=cpu python
+# tests/test_torch_oocore.py`` measures (2.19e-5 at 100 000, 4.00e-5 at
+# 200 000 rows)
+OOC_SPECTRUM_RTOL = 3 * 4.571089676113689e-05
+# S2: store_from_array of synthetic_surrogate(100 000, 784, 10, seed=784),
+# 313.6 MB in 38 shards; S3: 1 000 × 784 quantized pixel rows in 1 MiB
+# shards, LZ4 (the pure-Python codec runs at ~2 MB/s)
+OOC_S2_N, OOC_S3_N, OOC_S3_SHARD_BYTES = 100_000, 1_000, 1 << 20
+OOC_CODEC_RATIO = 0.7
+OOC_CKPT_EVERY = 25
+# the JAX package's out-of-core span and counter names (its oocore/ and
+# models/minibatch.py; tests/test_torch_oocore.py pins the sets)
+OOC_SPANS = frozenset({
+    "oocore.create_store", "oocore.minibatch_fit", "oocore.epoch",
+    "oocore.assign_labels", "oocore.prefetch", "minibatch.fit_store",
+    "minibatch.partial_fit_store"})
+OOC_COUNTERS = frozenset({
+    "oocore.shard_reads", "oocore.shard_read_bytes", "oocore.crc_failures",
+    "oocore.rereads", "oocore.prefetch_hits", "oocore.prefetch_stalls",
+    "oocore.prefetch_stall_s", "oocore.prefetch_occupancy",
+    "oocore.codec_bytes_in", "oocore.codec_bytes_out",
+    "oocore.async_ckpt_writes", "oocore.async_ckpt_dropped"})
+# the killed child: a δ-means store fit of S2, its checkpoints every 25
+# batches, slowed by read stalls so that the parent sees a snapshot of
+# epoch 1 before the fit ends
+OOC_CHILD = """
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import sq_learn_tpu_torch as sqt
+from sq_learn_tpu_torch import obs, oocore
+from sq_learn_tpu_torch.models import MiniBatchQKMeans
+sqt.set_config(device=sys.argv[5])
+rec = obs.enable()
+est = MiniBatchQKMeans(**eval(sys.argv[4])).fit(oocore.open_store(sys.argv[2]))
+np.savez(sys.argv[3], centers=est.cluster_centers_, counts=est.counts_,
+         n_steps=est.n_steps_, labels=est.labels_,
+         resumed_from=rec.gauges.get("resilience.resume_cursor", 0))
+"""
+
+
+def ooc_shards(n):
+    """Shards of an n × 784 float32 store at the default 8 MiB (374 for S1,
+    38 for S2)."""
+    return -(-n // ((8 << 20) // (OOC_M * 4)))
+
+
+def ooc_truth(store):
+    """The truth labels of a synthetic store: shard i's first draw."""
+    import numpy as np
+
+    seed = store.manifest["provenance"]["seed"]
+    n_classes = store.manifest["provenance"]["n_classes"]
+    return np.concatenate([
+        np.random.default_rng((seed, i)).integers(0, n_classes, size=rows)
+        for i, rows in enumerate(store.shard_sizes)])
+
+
+def ooc_label_kernel(store, centers, torch):
+    """The Lloyd kernel at the labelling pass's shape (1024 × 784, k=10,
+    R=1, window 0) on three of its tiles (the first, a middle one and the
+    padded tail), against its plain version and the float64 distances:
+    labels agree wherever no center lies within three times the kernel's
+    worst min_d2 error of the deciding boundary, min_d2 within D2_RTOL,
+    inertia within rtol 1e-5; then timed on the first tile against the
+    plain version and the bound. Returns the kernel's shape entry. Its
+    own launches, made to compare the kernel, leave the count as it was."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.ops.kernels import (lloyd_step,
+                                                lloyd_step_reference,
+                                                lloyd_step_work)
+
+    counted = lloyd_step.launches
+    n, m = store.shape
+    C = torch.from_numpy(np.ascontiguousarray(centers)).to(CARD)[None]
+    csq = torch.sum(C * C, dim=-1)
+    C64 = C.double()
+    worst = {"min_d2": 0.0, "inertia_rel": 0.0, "flips": 0}
+    first = None
+    for t in OOC_SAMPLED_TILES:
+        start, stop = t * OOC_BATCH, min(n, (t + 1) * OOC_BATCH)
+        valid = stop - start
+        X = torch.zeros((OOC_BATCH, m), device=CARD)
+        X[:valid] = torch.from_numpy(store.read_rows(start, stop)).to(CARD)
+        w = (torch.arange(OOC_BATCH, device=CARD) < valid).float()
+        xsq = torch.sum(X * X, dim=1)
+        out = lloyd_step(X, w, xsq, C)
+        ref = lloyd_step_reference(X, w, xsq, C)
+        d2 = ((xsq.double()[None, :, None] + (C64 ** 2).sum(-1)[:, None, :])
+              - 2.0 * torch.matmul(X.double(), C64.transpose(1, 2)))
+        d2, lab_k, lab_r = d2[:, :valid], out[0][:, :valid], ref[0][:, :valid]
+        exact_min = d2.min(dim=-1).values
+        tol = D2_RTOL * (xsq[None, :valid] + csq.max(dim=1).values[:, None])
+        err = float((out[1][:, :valid] - ref[1][:, :valid]).abs().max())
+        check(bool(((out[1][:, :valid] - ref[1][:, :valid]).abs()
+                    <= tol).all()),
+              f"labelling tile {t}: min_d2 off its plain version by {err}")
+        k_err = float((out[1][:, :valid] - exact_min).abs().max())
+        margin = 3.0 * max(k_err, float((ref[1][:, :valid]
+                                          - exact_min).abs().max()))
+        for other, what in ((d2.argmin(-1), "the float64 decision"),
+                            (lab_r, "the plain version")):
+            bad = unexplained_flips(d2, lab_k, other.to(lab_k.dtype), 0.0,
+                                    margin)
+            check(bad == 0, f"labelling tile {t}: {bad} label flips "
+                            f"against {what} beyond the margin {margin}")
+        rel = float((out[4] - ref[4]).abs().max() / ref[4].abs().max())
+        check(rel <= 1e-5, f"labelling tile {t}: inertia {float(out[4][0])} "
+                           f"against {float(ref[4][0])}, relative {rel}")
+        worst = {"min_d2": max(worst["min_d2"], err),
+                 "inertia_rel": max(worst["inertia_rel"], rel),
+                 "flips": worst["flips"] + int((lab_k != lab_r).sum())}
+        if first is None:
+            first = (X, w, xsq)
+    X, w, xsq = first
+    ms = time_ms(lambda: lloyd_step(X, w, xsq, C))
+    plain_ms = time_ms(lambda: lloyd_step_reference(X, w, xsq, C))
+    lloyd_step.launches = counted
+    nbytes, ops = lloyd_step_work(OOC_BATCH, m, OOC_K, 1, torch.float32, 0.0)
+    bytes_ms, ops_ms = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+    entry = {"shape": f"{OOC_BATCH}x{m} k={OOC_K} R=1", "window": 0.0,
+             "launches": None, "max_abs_err": worst["min_d2"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"lloyd_step at the labelling shape {entry['shape']}, tiles "
+          f"{OOC_SAMPLED_TILES}: label flips against the plain version "
+          f"{worst['flips']} (none beyond the float32 margin), max |min_d2 "
+          f"err| {worst['min_d2']}, inertia relative {worst['inertia_rel']}; "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{entry['bound_ms']:.5f} ms by {entry['bound_by']})", flush=True)
+    return entry
+
+
+def ooc_float64_spectrum(store, k, torch):
+    """The top-k singular values of the centered store from a float64
+    Gram accumulated on the card in one streamed pass."""
+    from sq_learn_tpu_torch.streaming import stream_fold
+
+    n, m = store.shape
+
+    def step(acc, tile):
+        t = tile.double()
+        acc[0].addmm_(t.T, t)
+        acc[1].add_(t.sum(0))
+        return acc
+
+    G, colsum = stream_fold(
+        store, step, (torch.zeros((m, m), dtype=torch.float64),
+                      torch.zeros(m, dtype=torch.float64)),
+        device=CARD, checkpoint=False)
+    mean = colsum / n
+    ev = torch.linalg.eigvalsh(G - n * torch.outer(mean, mean)).flip(0)[:k]
+    return torch.sqrt(ev).cpu().numpy()
+
+
+def ooc_s1_case(tmp, torch):
+    """S1: the store build, the mini-batch fit and its labelling pass
+    (ARI, 977 Lloyd launches, the kernel held on sampled tiles), a refit
+    with the same bits, the store qPCA against a float64 spectrum, a host
+    walk of the store. Returns the Lloyd kernel's shape entry, its
+    launches those of the two fits' labelling passes."""
+    import numpy as np
+
+    from sq_learn_tpu_torch import oocore
+    from sq_learn_tpu_torch.models import QPCA, MiniBatchQKMeans
+    from sq_learn_tpu_torch.ops.kernels import argkmin, lloyd_step
+
+    t0 = time.perf_counter()
+    old = _env(SQ_OOC_PREFETCH_THREADS=6)
+    try:
+        S1 = oocore.create_synthetic_store(
+            os.path.join(tmp, "s1"), OOC_N, OOC_M, n_classes=OOC_K,
+            seed=OOC_SEED, kind="gaussian")
+    finally:
+        _env(**old)
+    build_s = time.perf_counter() - t0
+    check(S1.shape == (OOC_N, OOC_M) and S1.n_shards == ooc_shards(OOC_N),
+          f"S1 has shape {S1.shape} in {S1.n_shards} shards")
+    truth = ooc_truth(S1)
+    print(f"S1 {OOC_N}×{OOC_M} float32, {S1.nbytes / 1e9:.3f} GB in "
+          f"{S1.n_shards} shards of {S1.shard_sizes[0]} rows: built in "
+          f"{build_s:.3f} s ({S1.nbytes / build_s / 1e9:.3f} GB/s); disk "
+          f"free after it {shutil_free(tmp) / 1e9:.1f} GB", flush=True)
+    kw = dict(n_clusters=OOC_K, batch_size=OOC_BATCH, max_iter=OOC_EPOCHS,
+              max_no_improvement=None, delta=WINDOW, random_state=0)
+    old = _env(SQ_OOC_RAM_BUDGET_BYTES=OOC_BUDGET)
+    try:
+        fits, walls = [], []
+        for run in range(2):
+            before = lloyd_step.launches
+            t0 = time.perf_counter()
+            est = MiniBatchQKMeans(**kw).fit(S1)
+            walls.append(time.perf_counter() - t0)
+            launches = lloyd_step.launches - before
+            check(launches == OOC_TILES and argkmin.launches == 0,
+                  f"the S1 fit launched lloyd_step {launches} and argkmin "
+                  f"{argkmin.launches} times, not {OOC_TILES} and 0")
+            fits.append(est)
+        a, b = fits
+        check(a.n_steps_ == OOC_EPOCHS * OOC_TILES and a.n_iter_ == 2,
+              f"S1 fit: n_steps_ {a.n_steps_}, n_iter_ {a.n_iter_}")
+        check(all(np.array_equal(getattr(a, name), getattr(b, name))
+                  for name in ("cluster_centers_", "counts_", "labels_"))
+              and a.inertia_ == b.inertia_, "S1: two fits differ")
+        check(np.isfinite(a.cluster_centers_).all()
+              and np.isfinite(a.inertia_), "S1 fit is not finite")
+        fit_ari = ari(truth, a.labels_)
+        check(fit_ari >= OOC_ARI_FLOOR,
+              f"S1 fit: ARI {fit_ari} < {OOC_ARI_FLOOR}")
+        print(f"MiniBatchQKMeans({kw}).fit(S1) under a {OOC_BUDGET}-byte "
+              f"budget: {walls[0]:.3f} s, then {walls[1]:.3f} s with the "
+              f"same bits; n_steps_ {a.n_steps_}, ARI {fit_ari}, inertia_ "
+              f"{a.inertia_}, {launches} Lloyd launches in the labelling "
+              f"pass", flush=True)
+        t0 = time.perf_counter()
+        labels, inertia = oocore.assign_labels(S1, a.cluster_centers_,
+                                               batch_rows=OOC_BATCH)
+        label_s = time.perf_counter() - t0
+        check(np.array_equal(labels, a.labels_) and inertia == a.inertia_,
+              "S1: a second labelling pass differs")
+        entry = ooc_label_kernel(S1, a.cluster_centers_, torch)
+        entry["launches"] = 2 * OOC_TILES
+        print(f"S1 labelling pass alone: {label_s:.3f} s, "
+              f"{S1.nbytes / label_s / 1e9:.3f} GB/s", flush=True)
+        t0 = time.perf_counter()
+        pca = QPCA(n_components=OOC_COMPONENTS, svd_solver="full").fit(S1)
+        pca_s = time.perf_counter() - t0
+    finally:
+        _env(**old)
+    check(pca.ingest_ == "streamed", f"S1 qPCA ingest_ {pca.ingest_}")
+    S64 = ooc_float64_spectrum(S1, OOC_COMPONENTS, torch)
+    rel = np.abs(pca.singular_values_.astype(np.float64) - S64) / S64
+    check(rel.max() <= OOC_SPECTRUM_RTOL,
+          f"S1 qPCA: singular values off float64 by {rel.max()} > "
+          f"{OOC_SPECTRUM_RTOL}")
+    view = S1.prefetched()
+    rows, _ = oocore.store._plan_shards(OOC_N, OOC_M * 4, 128 << 20)
+    t0 = time.perf_counter()
+    try:
+        for start in range(0, OOC_N, rows):
+            view.read_rows(start, min(OOC_N, start + rows))
+    finally:
+        view.close()
+    walk_s = time.perf_counter() - t0
+    print(f"QPCA({OOC_COMPONENTS}, svd_solver='full').fit(S1): {pca_s:.3f} s, "
+          f"ingest_ streamed, singular values within {rel.max()} of the "
+          f"float64 Gram (limit {OOC_SPECTRUM_RTOL}); host walk of S1 "
+          f"(read, CRC, 128 MiB tiles, readahead): {walk_s:.3f} s = "
+          f"{S1.nbytes / walk_s / 1e9:.3f} GB/s", flush=True)
+    return entry
+
+
+def shutil_free(path):
+    import shutil
+
+    return shutil.disk_usage(path).free
+
+
+def ooc_s2_case(tmp, torch):
+    """S2: the store qPCA against the streamed fit of its array; prefetch
+    depth 0 against 3; each read injector at depth 3 against the clean
+    fit; persistent corruption and a breaker trip raise."""
+    import numpy as np
+
+    from sq_learn_tpu_torch import oocore
+    from sq_learn_tpu_torch.datasets import synthetic_surrogate
+    from sq_learn_tpu_torch.models import QPCA, MiniBatchQKMeans
+    from sq_learn_tpu_torch.resilience import faults, supervisor
+
+    X2, _ = synthetic_surrogate(OOC_S2_N, OOC_M, OOC_K, seed=OOC_SEED)
+    S2 = oocore.store_from_array(os.path.join(tmp, "s2"), X2)
+    check(S2.n_shards == ooc_shards(OOC_S2_N),
+          f"S2 has {S2.n_shards} shards")
+    kw = dict(n_components=OOC_COMPONENTS, svd_solver="full")
+    disk = QPCA(**kw).fit(S2)
+    ram = QPCA(ingest="streamed", **kw).fit(X2)
+    check(disk.ingest_ == ram.ingest_ == "streamed"
+          and np.array_equal(disk.singular_values_, ram.singular_values_)
+          and np.array_equal(disk.components_, ram.components_),
+          "S2: the store qPCA fit differs from the streamed array fit")
+    fit_kw = dict(n_clusters=OOC_K, batch_size=OOC_BATCH, max_iter=2,
+                  max_no_improvement=None, delta=WINDOW, random_state=0)
+
+    def fit(depth, spec=None):
+        old = _env(SQ_OOC_PREFETCH_DEPTH=depth, SQ_RETRY_BACKOFF_S=0.001)
+        plan = faults.arm(spec) if spec else None
+        try:
+            est = MiniBatchQKMeans(**fit_kw).fit(oocore.open_store(S2.path))
+        finally:
+            faults.disarm()
+            _env(**old)
+        if plan is not None:
+            check(spec.split(":")[0] in {e["kind"] for e in plan.events},
+                  f"S2: {spec} injected nothing")
+        return est
+
+    def same(a, b):
+        return all(np.array_equal(getattr(a, name), getattr(b, name))
+                   for name in ("cluster_centers_", "counts_", "labels_"))
+
+    t0 = time.perf_counter()
+    ref = fit(0)
+    ref_s = time.perf_counter() - t0
+    check(same(ref, fit(3)), "S2: prefetch depth 3 differs from depth 0")
+    for spec in ("read_fail:tiles=3/17,times=1",
+                 "read_stall:tiles=5,times=1,s=0.05",
+                 "corrupt_shard:tiles=7/30,times=1",
+                 "cold_tier:s=0.002,per_mb=0.01"):
+        check(same(ref, fit(3, spec)),
+              f"S2: the fit under {spec} differs from the clean fit")
+    try:
+        fit(3, "corrupt_shard:tiles=11,times=99")
+        check(False, "S2: persistent corruption did not raise")
+    except oocore.ShardCorruptionError as exc:
+        check("shard 11" in str(exc), f"S2: corruption raised {exc}")
+    try:
+        fit(3, "read_fail:p=1,times=99")
+        check(False, "S2: a breaker trip did not raise")
+    except supervisor.BreakerOpenError as exc:
+        check("oocore.read_shard" in str(exc), f"S2: breaker raised {exc}")
+    finally:
+        supervisor.breaker.reset("chip_smoke")
+    print(f"S2 {OOC_S2_N}×{OOC_M} ({S2.nbytes / 1e6:.1f} MB, {S2.n_shards} "
+          f"shards): store qPCA == streamed array qPCA bit for bit; "
+          f"δ-means fit {ref_s:.3f} s; depth 0 == depth 3; read_fail, "
+          f"read_stall, corrupt_shard, cold_tier at depth 3 == clean; "
+          f"persistent corruption raised ShardCorruptionError naming shard "
+          f"11; read failures tripped the breaker (BreakerOpenError)",
+          flush=True)
+    return S2, fit_kw
+
+
+def ooc_kill_case(S2, fit_kw, here, tmp, torch):
+    """A child process fits S2 on the card with checkpoints every
+    OOC_CKPT_EVERY batches; it is SIGKILLed once a snapshot of epoch 1
+    exists, and its rerun resumes and equals an uninterrupted fit bit for
+    bit."""
+    import signal
+
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import MiniBatchQKMeans
+
+    kw = dict(fit_kw, max_iter=3)
+    ref = MiniBatchQKMeans(**kw).fit(S2)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    os.makedirs(ckpt_dir)
+    snap = os.path.join(ckpt_dir, "oocore_minibatch_fit.npz")
+    out = os.path.join(tmp, "child.npz")
+    env = dict(os.environ, SQ_STREAM_CKPT_DIR=ckpt_dir,
+               SQ_STREAM_CKPT_EVERY=str(OOC_CKPT_EVERY),
+               SQ_FAULTS="read_stall:p=1,s=0.05,times=999")
+    cmd = [sys.executable, "-c", OOC_CHILD, here, S2.path, out, repr(kw),
+           CARD]
+    per_epoch = -(-OOC_S2_N // OOC_BATCH)
+    t0 = time.perf_counter()
+    log = open(os.path.join(tmp, "child.log"), "w+")
+    child = subprocess.Popen(cmd, env=env, stdout=log, stderr=log)
+    cursor = 0
+    try:
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and child.poll() is None:
+            if os.path.exists(snap):
+                try:
+                    with np.load(snap) as npz:
+                        cursor = int(npz["__cursor__"])
+                except (OSError, ValueError, KeyError):
+                    cursor = 0  # replaced while read: poll again
+                if cursor > per_epoch:
+                    break
+            time.sleep(0.01)
+        if child.poll() is not None:
+            log.seek(0)
+            check(False, f"the child ended before a snapshot of epoch 1: "
+                         f"{log.read()[-2000:]}")
+        child.send_signal(signal.SIGKILL)
+        check(child.wait() == -signal.SIGKILL, "the child was not killed")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        log.close()
+    kill_s = time.perf_counter() - t0
+    check(os.path.exists(snap) and not os.path.exists(out),
+          "the killed child left no snapshot, or a result")
+    env.pop("SQ_FAULTS")
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600)
+    check(done.returncode == 0, f"the resumed child failed: "
+                                f"{done.stderr[-2000:]}")
+    with np.load(out) as npz:
+        resumed = int(npz["resumed_from"])
+        check(resumed > per_epoch, f"the rerun resumed from {resumed}")
+        check(np.array_equal(npz["centers"], ref.cluster_centers_)
+              and np.array_equal(npz["counts"], ref.counts_)
+              and int(npz["n_steps"]) == ref.n_steps_
+              and np.array_equal(npz["labels"], ref.labels_),
+              "the resumed fit differs from the uninterrupted one")
+    check(not os.listdir(ckpt_dir), "the finished fit left snapshots")
+    print(f"SIGKILL resume on S2: the child killed at a snapshot of step "
+          f"{cursor} (epoch 1) after {kill_s:.3f} s; the rerun resumed "
+          f"from step {resumed} and finished in "
+          f"{time.perf_counter() - t0:.3f} s bit-equal to the uninterrupted "
+          f"fit (centers, counts, n_steps_ {ref.n_steps_}, labels)",
+          flush=True)
+
+
+def ooc_codec_case(tmp, here, torch):
+    """S3 under obs: the LZ4 store's round trip, its ratio, its fit
+    against the uncompressed twin's, the codec counters; then the obs
+    artifact: schema, the storage and trace CLIs, the names."""
+    import numpy as np
+
+    from sq_learn_tpu_torch import obs, oocore
+    from sq_learn_tpu_torch.models import MiniBatchQKMeans
+
+    path = os.path.join(tmp, "ooc_obs.jsonl")
+    rec = obs.enable(path)
+    kw = dict(n_classes=OOC_K, seed=OOC_SEED, kind="pixels",
+              shard_bytes=OOC_S3_SHARD_BYTES)
+    t0 = time.perf_counter()
+    S3 = oocore.create_synthetic_store(os.path.join(tmp, "s3"), OOC_S3_N,
+                                       OOC_M, codec="lz4", **kw)
+    build_s = time.perf_counter() - t0
+    twin = oocore.create_synthetic_store(os.path.join(tmp, "s3none"),
+                                         OOC_S3_N, OOC_M, codec="none", **kw)
+    check(np.array_equal(S3.read_rows(0, OOC_S3_N),
+                         twin.read_rows(0, OOC_S3_N)),
+          "S3: the LZ4 store's rows differ from its uncompressed twin's")
+    ratio = S3.stored_nbytes / S3.nbytes
+    check(ratio <= OOC_CODEC_RATIO, f"S3: stored/raw {ratio}")
+    fit_kw = dict(n_clusters=OOC_K, batch_size=256, max_iter=2,
+                  max_no_improvement=None, delta=WINDOW, random_state=0)
+    t0 = time.perf_counter()
+    a = MiniBatchQKMeans(**fit_kw).fit(S3)
+    fit_s = time.perf_counter() - t0
+    b = MiniBatchQKMeans(**fit_kw).fit(twin)
+    check(all(np.array_equal(getattr(a, name), getattr(b, name))
+              for name in ("cluster_centers_", "counts_", "labels_")),
+          "S3: the LZ4 store's fit differs from its twin's")
+    obs.disable()
+    check(rec.counters.get("oocore.codec_bytes_in", 0) > 0
+          and rec.counters.get("oocore.codec_bytes_out", 0)
+          > rec.counters["oocore.codec_bytes_in"],
+          f"S3: codec counters {rec.counters}")
+    errors = obs.schema.validate_jsonl(path)["errors"]
+    check(errors == [], f"the out-of-core obs artifact: {errors[:5]}")
+    spans = {s["name"] for s in rec.spans
+             if s["name"].startswith(("oocore.", "minibatch."))}
+    counters = {c for c in rec.counters if c.startswith("oocore.")}
+    check(spans <= OOC_SPANS | {"minibatch.fit", "minibatch.partial_fit"}
+          and {"oocore.create_store", "oocore.minibatch_fit",
+               "oocore.epoch", "oocore.assign_labels",
+               "minibatch.fit_store"} <= spans,
+          f"out-of-core spans {sorted(spans)}")
+    check(counters <= OOC_COUNTERS and {"oocore.shard_reads",
+                                        "oocore.codec_bytes_in"} <= counters,
+          f"out-of-core counters {sorted(counters)}")
+    env = dict(os.environ, PYTHONPATH=here)
+    trace_path = os.path.join(tmp, "ooc.trace.json")
+    for args in (["storage", path, "--advise"],
+                 ["trace", path, "-o", trace_path]):
+        done = subprocess.run([sys.executable, "-m",
+                               "sq_learn_tpu_torch.obs", *args], env=env,
+                              capture_output=True, text=True, timeout=300)
+        check(done.returncode == 0,
+              f"obs {args[0]} exited {done.returncode}: {done.stderr}")
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    check(any(e.get("cat") == "io" for e in events)
+          and any(e.get("name") == "oocore.minibatch_fit" for e in events),
+          "the trace holds no io or fit events")
+    print(f"S3 {OOC_S3_N}×{OOC_M} pixels, LZ4 in {S3.n_shards} shards: "
+          f"built in {build_s:.3f} s, stored/raw {ratio:.4f}, round trip "
+          f"bit-equal; δ-means fit {fit_s:.3f} s bit-equal to the "
+          f"uncompressed twin's; codec bytes in/out "
+          f"{rec.counters['oocore.codec_bytes_in']}/"
+          f"{rec.counters['oocore.codec_bytes_out']}; obs artifact: 0 "
+          f"schema errors, {len(rec.io_records)} io records, obs storage "
+          f"and obs trace exit 0, {len(events)} trace events, names in the "
+          f"JAX package's set", flush=True)
+
+
+def oocore_phase(here, torch):
+    """The out-of-core phase (``sq_learn_tpu_torch.oocore``) in a
+    temporary directory. Returns the Lloyd kernel's entry for the
+    labelling shape."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="sq-ooc-")
+    try:
+        print(f"out-of-core phase in {tmp}: "
+              f"{shutil_free(tmp) / 1e9:.1f} GB free", flush=True)
+        entry = ooc_s1_case(tmp, torch)
+        S2, fit_kw = ooc_s2_case(tmp, torch)
+        ooc_kill_case(S2, fit_kw, here, tmp, torch)
+        ooc_codec_case(tmp, here, torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return entry
+
+
 def main():
     import numpy as np
     import torch
@@ -2735,6 +3255,18 @@ def main():
     entry["launches"] += item7_case(X, y, Xd, classic, torch)
     print(f"streaming phase: {time.perf_counter() - t_phase:.3f} s "
           f"(resident put GB/s {rates})", flush=True)
+
+    # the out-of-core phase: shard stores, the store-backed fits, resume,
+    # the codec and obs; the labelling pass's Lloyd launches join the
+    # kernel's
+    lloyd_step.launches = argkmin.launches = 0
+    t_phase = time.perf_counter()
+    ooc_entry = oocore_phase(here, torch)
+    check(argkmin.launches == 0, "the out-of-core phase launched argkmin")
+    entry["launches"] += lloyd_step.launches
+    entry["shapes"].append(ooc_entry)
+    print(f"out-of-core phase: {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
 
     print(smi)
     print(json.dumps({"kernels": [entry, knn_entry]}))

@@ -5,9 +5,9 @@ Every environment read of ``sq_learn_tpu_torch`` goes through the typed
 accessors below, against a registry entry that carries the knob's name,
 kind, default, scope, a one-line doc and the file whose prose describes
 it. The registry holds the knobs of the planes the port has: ``obs``,
-the streaming engine, the transfer supervisor, the fault harness and the
-sketch engine. The JAX package's other knobs (serving, out-of-core
-stores, the elastic mesh, XLA's caches) come with their planes.
+the streaming engine, the transfer supervisor, the fault harness, the
+sketch engine and the out-of-core shard stores. The JAX package's other
+knobs (serving, the elastic mesh, XLA's caches) come with their planes.
 
 Runtime contract, as in the JAX package:
 
@@ -86,6 +86,12 @@ _ENTRIES = [
        "A flagged (ε, δ)-guarantee audit site raises (Clopper-Pearson "
        "lower bound above the declared δ/γ).",
        "sq_learn_tpu_torch/obs/guarantees.py"),
+    _K("SQ_OBS_TRACE", "path", None, "lib",
+       "Render the closed run into Chrome trace-event JSON at this path.",
+       "sq_learn_tpu_torch/obs/trace.py"),
+    _K("SQ_OBS_ROTATE_BYTES", "int", 0, "lib",
+       "Rotate the JSONL sink to gzipped <path>.<n>.gz segments at this "
+       "many written bytes (0 = off).", "sq_learn_tpu_torch/obs/recorder.py"),
     # -- resilience ---------------------------------------------------------
     _K("SQ_FAULTS", "spec", None, "lib",
        "Deterministic fault-injection schedule (armed at import).",
@@ -143,6 +149,32 @@ _ENTRIES = [
     _K("SQ_STATS_CACHE", "flag", True, "lib",
        "Digest-keyed spectral-stats cache (0 disables).",
        "sq_learn_tpu_torch/sketch/cache.py"),
+    # -- out-of-core shard stores -------------------------------------------
+    _K("SQ_OOC_SHARD_BYTES", "int", 8 << 20, "lib",
+       "Shard split size for new out-of-core stores.",
+       "sq_learn_tpu_torch/oocore/store.py"),
+    _K("SQ_OOC_RAM_BUDGET_BYTES", "int", 0, "lib",
+       "Enforced single-materialization RAM budget (0 = off); also caps "
+       "readahead.", "sq_learn_tpu_torch/oocore/store.py"),
+    _K("SQ_OOC_VERIFY", "str", "all", "lib",
+       "Read-side CRC policy for shard stores: all | touch | off.",
+       "sq_learn_tpu_torch/oocore/store.py"),
+    _K("SQ_OOC_REREAD_MAX", "int", 2, "lib",
+       "Quarantine re-read budget after a CRC mismatch.",
+       "sq_learn_tpu_torch/oocore/store.py"),
+    _K("SQ_OOC_CODEC", "str", "none", "lib",
+       "Per-shard codec for NEW store builds (lz4 = LZ4 block format + "
+       "byte shuffle).", "sq_learn_tpu_torch/oocore/store.py"),
+    _K("SQ_OOC_PREFETCH_DEPTH", "int", None, "lib",
+       "Shard readahead depth (0 = serial bit-for-bit, unset = auto: 2 "
+       "multi-core / 0 single-core).",
+       "sq_learn_tpu_torch/oocore/prefetch.py"),
+    _K("SQ_OOC_PREFETCH_THREADS", "int", 2, "lib",
+       "Prefetch worker-pool width (also sizes parallel store builds).",
+       "sq_learn_tpu_torch/oocore/prefetch.py"),
+    _K("SQ_OOC_ASYNC_CKPT", "flag", True, "lib",
+       "Async mid-epoch fit snapshots (0 = synchronous writes).",
+       "sq_learn_tpu_torch/oocore/fit.py"),
     # -- external (owned upstream; registered so reads are auditable) ------
     _K("CUDA_HOME", "path", None, "external",
        "CUDA toolkit root whose bin/nvcc builds the kernels (then "

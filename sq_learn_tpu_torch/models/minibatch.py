@@ -22,10 +22,26 @@ Pallas kernel, so the port runs it in plain torch ops. Its host engines
 (``_host_*``, the CPU route) and its tiny-fit routing are not ported: a
 fit runs on the device it is given.
 
+A shard store (:class:`~sq_learn_tpu_torch.oocore.ShardStore`, or any row
+source) fits out of core, as in the JAX package: ``fit`` runs the
+resumable multi-epoch engine (:func:`~sq_learn_tpu_torch.oocore.fit.
+minibatch_epoch_fit`, ``max_iter`` epochs of the deterministic
+shard-shuffled batch walk, checkpointed under ``SQ_STREAM_CKPT_DIR``) and
+labels the store through the Lloyd kernel; ``partial_fit`` walks one
+epoch per call. The JAX package runs those steps on the host; the port
+runs them on the estimator's device. The classic and δ-means error
+models are supported (IPE raises), a ``sample_weight`` raises, and the
+init is k-means++ on a keyed subsample or an explicit array. The keyed
+draws take an integer seed: an integral ``random_state`` is it, anything
+else derives it from the port's generator (``initial_seed()`` of
+:func:`~sq_learn_tpu_torch.utils.random.as_generator`), where the JAX
+package derives it from its key's data.
+
 Under an obs run ``fit`` and ``partial_fit`` are spans
-(``minibatch.fit``, ``minibatch.partial_fit``); the steps record no
-guarantee draws, as the JAX package's ``jit``'d steps record none. The
-store-backed spans come with ``oocore/``.
+(``minibatch.fit``, ``minibatch.partial_fit``, and
+``minibatch.fit_store``, ``minibatch.partial_fit_store`` from a store);
+the steps record no guarantee draws, as the JAX package's ``jit``'d steps
+record none.
 """
 
 import numbers
@@ -44,9 +60,6 @@ from ..utils.random import as_generator, gumbel
 from ..utils.validation import check_sample_weight
 from .qkmeans import _cluster_partials, e_step, tolerance
 from ..streaming import is_row_source
-
-_STORE = ("a store-backed (out-of-core) mini-batch fit is not ported yet: "
-          "ROADMAP.md §1 item 7, the data planes (oocore/)")
 
 
 def reassign_picks(generator, wb, n_pick):
@@ -326,11 +339,16 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
 
     def _input(self, X):
         if is_row_source(X):
-            raise NotImplementedError(_STORE)
+            raise ValueError(
+                "predict, transform and score take arrays; label a shard "
+                "store with sq_learn_tpu_torch.oocore.assign_labels")
         return self._validated_X(X, resolve_device(self.device))
 
     def fit(self, X, y=None, sample_weight=None):
-        """Mini-batch q-means on the estimator's device."""
+        """Mini-batch q-means on the estimator's device (out of core from
+        a shard store)."""
+        if is_row_source(X):
+            return self._fit_store(X, sample_weight)
         X = self._input(X)
         self.n_features_in_ = X.shape[1]
         if X.shape[0] < self.n_clusters:
@@ -373,7 +391,14 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         The first call initializes the centers on the batch; a width
         different from the fitted one is rejected before any state moves.
         The draws of successive calls come from one generator, seeded from
-        ``random_state`` at the first call."""
+        ``random_state`` at the first call. A shard store advances the
+        state by one epoch of its batch walk."""
+        if is_row_source(X):
+            if sample_weight is not None:
+                raise ValueError(
+                    "store-backed partial_fit takes no per-row "
+                    "sample_weight (no aligned resident weight array)")
+            return self._partial_fit_store(X)
         X = check_n_features(self, self._input(X))
         self.n_features_in_ = X.shape[1]
         with _obs.span("minibatch.partial_fit", batch=X.shape[0]) as sp, \
@@ -406,6 +431,141 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         if self.compute_labels:
             # the batch's labels and inertia under the updated centers
             self.labels_, self.inertia_ = self._full_assign(X, sample_weight)
+
+    # -- out of core ---------------------------------------------------------
+
+    def _store_mode(self):
+        """The δ-window of a store-backed fit: the classic (0) and
+        δ-means error models; IPE needs a resident array."""
+        delta = self._delta()
+        mode = self._mode(delta)
+        if mode not in ("classic", "delta"):
+            raise ValueError(
+                "store-backed fits support the classic (delta=0) and "
+                "delta-means error models; true_distance_estimate/IPE "
+                "needs a resident array")
+        if delta == 0:
+            warnings.warn("Attention! You are running the classic version "
+                          "of mini-batch k-means (delta=0).")
+        return delta if mode == "delta" else 0.0
+
+    def _store_seed(self):
+        """Integer seed of the epoch engine's keyed draws: an integral
+        ``random_state`` as it is, anything else the initial seed of the
+        port's generator for it."""
+        if isinstance(self.random_state, numbers.Integral):
+            return int(self.random_state)
+        return int(as_generator(self.random_state, "cpu").initial_seed())
+
+    def _store_init(self):
+        if isinstance(self.init, str) and self.init == "random":
+            raise ValueError(
+                "store-backed fits init with 'k-means++' (subsampled) or "
+                "an explicit center array")
+        return (np.asarray(self.init) if hasattr(self.init, "__array__")
+                else None)
+
+    def _label_store(self, store, device):
+        from ..oocore.fit import assign_labels
+
+        labels, inertia = assign_labels(
+            store, self.cluster_centers_,
+            batch_rows=max(self.batch_size, 1024), device=device)
+        self.labels_ = labels
+        self.inertia_ = float(inertia)
+
+    def _fit_store(self, store, sample_weight):
+        """Multi-epoch fit over a shard store on the estimator's device
+        (``max_iter`` epochs), resumable bit for bit from its mid-epoch
+        checkpoints (``SQ_STREAM_CKPT_DIR``)."""
+        from ..oocore.fit import minibatch_epoch_fit
+
+        if sample_weight is not None:
+            raise ValueError(
+                "store-backed fits take no per-row sample_weight (the "
+                "store has no aligned resident weight array); materialize "
+                "the data to use weights")
+        n, m = store.shape
+        self.n_features_in_ = m
+        if n < self.n_clusters:
+            raise ValueError(
+                f"n_samples={n} should be >= n_clusters={self.n_clusters}.")
+        window = self._store_mode()
+        device = resolve_device(self.device)
+        # tol's scale from the manifest's build-time column stats
+        tol_ = 0.0 if self.tol == 0 else float(self.tol) * store.var_mean()
+        init = self._store_init()
+        with _obs.span("minibatch.fit_store", n_samples=n, n_features=m,
+                       n_clusters=self.n_clusters) as sp:
+            out = minibatch_epoch_fit(
+                store, n_clusters=self.n_clusters,
+                batch_rows=self.batch_size, max_epochs=self.max_iter,
+                seed=self._store_seed(), window=window,
+                reassignment_ratio=float(self.reassignment_ratio),
+                tol=tol_, max_no_improvement=self.max_no_improvement,
+                init=init, verbose=self.verbose, device=device)
+            sp.set(backend=device.type, n_steps=out["n_steps"],
+                   resumed_from=out["resumed_from"] or None)
+        self.cluster_centers_ = out["centers"]
+        self.counts_ = out["counts"]
+        self.n_iter_ = int(out["n_epochs"])
+        self.n_steps_ = int(out["n_steps"])
+        if self.compute_labels:
+            self._label_store(store, device)
+        return self
+
+    def _partial_fit_store(self, store):
+        """One epoch over the store: each call walks the next epoch's
+        deterministic shuffle (its index is the number of store epochs
+        this estimator has consumed) and advances the same centers and
+        counts ``partial_fit`` batches do."""
+        from ..oocore import EpochPlan
+        from ..oocore.fit import _BatchUploader, _init_centers, batch_step
+
+        n, m = store.shape
+        if hasattr(self, "n_features_in_") and m != self.n_features_in_:
+            raise ValueError(
+                f"X has {m} features, but {type(self).__name__} is "
+                f"expecting {self.n_features_in_} features as input.")
+        self.n_features_in_ = m
+        window = self._store_mode()
+        seed = self._store_seed()
+        device = resolve_device(self.device)
+        b = min(self.batch_size, n)
+        epoch = int(getattr(self, "_store_epochs_", 0))
+        if not hasattr(self, "cluster_centers_"):
+            centers = _init_centers(store, self.n_clusters, b, seed,
+                                    self._store_init(), device)
+            counts = torch.zeros(self.n_clusters, dtype=torch.float32,
+                                 device=device)
+            self.n_steps_ = 0
+        else:
+            centers = torch.as_tensor(
+                np.asarray(self.cluster_centers_, np.float32), device=device)
+            counts = torch.as_tensor(np.asarray(self.counts_, np.float32),
+                                     device=device)
+        plan = EpochPlan(seed=seed, batch_rows=b)
+        upload = _BatchUploader(device, b * m * 4)
+        try:
+            with _obs.span("minibatch.partial_fit_store", epoch=epoch,
+                           n_samples=n) as sp, _obs.guarantees.no_audit():
+                for bi, Xb in plan.iter_batches(store, epoch):
+                    centers, counts, _ = batch_step(
+                        device, Xb, centers, counts,
+                        int(getattr(self, "n_steps_", 0)), seed=seed,
+                        epoch=epoch, batch=bi, window=window,
+                        reassignment_ratio=self.reassignment_ratio,
+                        upload=upload)
+                    self.n_steps_ = int(getattr(self, "n_steps_", 0)) + 1
+                sp.set(backend=device.type, n_steps=self.n_steps_)
+        finally:
+            upload.close()
+        self._store_epochs_ = epoch + 1
+        self.cluster_centers_ = centers.cpu().numpy()
+        self.counts_ = counts.cpu().numpy()
+        if self.compute_labels:
+            self._label_store(store, device)
+        return self
 
     def _centers_tensor(self, X):
         return torch.as_tensor(np.asarray(self.cluster_centers_),

@@ -51,9 +51,16 @@ Ingest, as in the JAX package: the partial-U Gram route (integral
 and ``ingest_`` records the route. ``compute_dtype`` engages only that
 route with the full solver (``effective_compute_dtype_``).
 
-Not ported: ``mesh`` (ROADMAP.md §1 item 6) and store-backed ingest (the
-out-of-core stores) raise ``NotImplementedError``; the tiny-fit host
-routing is not ported at all (a fit computes on the device it was given).
+A shard store (:class:`~sq_learn_tpu_torch.oocore.ShardStore`, or any
+row source) fits as in the JAX package: it has no resident form, so it
+must take the streamed partial-U Gram route: ``svd_solver='auto'``
+becomes 'full', ``ingest='monolithic'`` raises, and a fit off that route
+(a QADRA estimator, whose μ(A) needs the resident centered matrix, or
+``n_samples < 8·n_features``) raises ``ValueError``.
+
+Not ported: ``mesh`` (ROADMAP.md §1 item 6) raises
+``NotImplementedError``; the tiny-fit host routing is not ported at all
+(a fit computes on the device it was given).
 """
 
 import math
@@ -81,8 +88,6 @@ from ..utils.validation import (check_array, host_ingest,
                                 validation_scope)
 
 _MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
-_INGEST = ("{} is not ported yet: ROADMAP.md §1 item 7, the data planes "
-           "(oocore/, the out-of-core stores)")
 
 # ---------------------------------------------------------------------------
 # Functional core
@@ -368,10 +373,14 @@ class QPCA(TransformerMixin, BaseEstimator):
 
         device = resolve_device(self.device)
         # host input is checked on the host first: a streamed fit never
-        # uploads X whole, so its values are checked tile by tile
-        Xh, over_cap = host_ingest(X)
+        # uploads X whole, so its values are checked tile by tile (a
+        # store's too: its manifest and per-read CRCs check its bytes)
+        if is_row_source(X):
+            Xh, over_cap = X, True
+        else:
+            Xh, over_cap = host_ingest(X)
         shape = tuple((X if Xh is None else Xh).shape)
-        n_components, solver = self._plan(shape)
+        n_components, solver = self._plan(shape, is_row_source(X))
         streamed = self._resolve_ingest(Xh, over_cap, solver, n_components,
                                         shape)
         self.ingest_ = "streamed" if streamed else "monolithic"
@@ -385,22 +394,20 @@ class QPCA(TransformerMixin, BaseEstimator):
         return self
 
     def _check_ported(self, X):
-        """Raise NotImplementedError on what this slice does not cover."""
+        """Raise NotImplementedError on what the port does not cover."""
         if self.mesh is not None:
             raise NotImplementedError(_MESH)
-        if is_row_source(X):
-            raise NotImplementedError(_INGEST.format(
-                "a store-backed (out-of-core) qPCA fit"))
         if self.ingest not in ("auto", "monolithic", "streamed"):
             raise ValueError(
                 f"ingest must be 'auto', 'monolithic' or 'streamed', got "
                 f"{self.ingest!r}")
         check_compute_dtype(self.compute_dtype)
 
-    def _plan(self, shape):
+    def _plan(self, shape, store=False):
         """(n_components, solver) of a fit on data of ``shape``: the
         reference's n_components handling (``_qPCA.py:527-536``) and
-        solver dispatch (``_qPCA.py:538-553``)."""
+        solver dispatch (``_qPCA.py:538-553``); a shard store (``store``)
+        resolves 'auto' to the full solver's Gram route."""
         if self.n_components is None:
             self.n_components_flag = False
             n_components = min(shape)
@@ -413,7 +420,10 @@ class QPCA(TransformerMixin, BaseEstimator):
             or self.estimate_all or self.estimate_least_k
             or self.spectral_norm_est or self.condition_number_est)
         solver = self.svd_solver
-        if solver == "auto":
+        if solver == "auto" and store:
+            # the truncated path would materialize X for its range finder
+            solver = "full"
+        elif solver == "auto":
             if quantum_requested:
                 # the QADRA estimators need the full spectrum
                 solver = "full"
@@ -439,7 +449,24 @@ class QPCA(TransformerMixin, BaseEstimator):
         :func:`host_ingest`); μ(A) needs the resident centered matrix, so
         a QADRA fit never streams. 'streamed' on another route warns and
         ingests monolithically, on the same device; 'auto' streams when a
-        monolithic upload would pass the tile cap."""
+        monolithic upload would pass the tile cap. A row source has no
+        resident form: off that route, or under 'monolithic', it raises."""
+        if is_row_source(Xh):
+            if self.ingest == "monolithic":
+                raise ValueError(
+                    "ingest='monolithic' cannot materialize a shard "
+                    "store; store-backed fits stream")
+            if not (solver == "full" and not self._need_mu()
+                    and isinstance(n_components, numbers.Integral)
+                    and n_components > 0
+                    and self._partial_u_route(n_components, *shape)):
+                raise ValueError(
+                    "store-backed qPCA fits require the streamed "
+                    "partial-U Gram route: svd_solver='full' (or 'auto'),"
+                    " integral n_components > 0, n_samples >= "
+                    "8*n_features, and no QADRA estimator (mu(A) needs "
+                    "the resident centered matrix)")
+            return True
         if self.ingest == "monolithic":
             return False
         structural = (

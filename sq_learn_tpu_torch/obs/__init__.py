@@ -17,17 +17,19 @@ Quickstart::
 Environment: ``SQ_OBS=1`` enables at import with a JSONL sink at
 ``SQ_OBS_PATH`` (default ``sq_obs.jsonl``); ``SQ_OBS_AUDIT_STRICT=1``
 makes a flagged guarantee site raise. The files are read by
-``python -m sq_learn_tpu_torch.obs {audit,frontier}``, and by the JAX
-package's readers.
+``python -m sq_learn_tpu_torch.obs {audit,frontier,trace,storage}``, and
+by the JAX package's readers. :mod:`.storage` is the out-of-core plane's
+per-shard ledger; :mod:`.trace` renders a run as a Chrome trace
+(``SQ_OBS_TRACE``); ``SQ_OBS_ROTATE_BYTES`` rotates the sink.
 
 Not ported: ``xla.py`` (XLA's per-compilation cost analysis) and
 ``watchdog.py`` (jit retrace counts) have no object in an eager torch
 port; the rest of the JAX package's ``obs`` (budget, control, fleet,
-storage, trace, report, regress, probe) comes with the planes whose
-records it reads (``ROADMAP.md`` §1).
+report, regress, probe) comes with the planes whose records it reads
+(``ROADMAP.md`` §1).
 """
 
-from . import frontier, guarantees, ledger, schema
+from . import frontier, guarantees, ledger, schema, storage, trace
 from .recorder import (NULL_SPAN, Recorder, counter_add, disable, enable,
                        enabled, flush, gauge, get_recorder, record_span,
                        snapshot, span)
@@ -53,4 +55,6 @@ __all__ = [
     "schema",
     "snapshot",
     "span",
+    "storage",
+    "trace",
 ]

@@ -24,9 +24,13 @@ validator) read the port's artifacts.
 
 Record envelope: ``{"v": 11, "schema_version": 11, "ts": <unix seconds>,
 "type": <record type>}`` plus the fields of each type
-(:mod:`.schema`). Left out, with their planes (``ROADMAP.md`` §1): sink
-rotation, the fleet envelope, the trace rendered on close, and the
-watchdog, breaker and storage fields of :func:`snapshot`.
+(:mod:`.schema`). ``SQ_OBS_ROTATE_BYTES`` rotates the sink into gzipped
+``<path>.<n>.gz`` segments, and ``SQ_OBS_TRACE=<path>`` renders a closed
+run's sink as a Chrome trace (:mod:`.trace`). The storage ledger
+(:mod:`.storage`) hangs off the recorder and flushes its ``io`` records
+at close. Left out, with their planes (``ROADMAP.md`` §1): the fleet
+envelope and the watchdog, XLA-cost, serving and elastic fields of
+:func:`snapshot`.
 """
 
 import json
@@ -162,8 +166,8 @@ class Recorder:
 
     Public views: ``spans``, ``counters``, ``gauges``, ``gauge_events``,
     ``ledger_entries``, ``guarantee_records``, ``tradeoff_records``,
-    ``fault_events`` and ``breaker_events`` —
-    plain Python containers, safe to read at any point in the run.
+    ``fault_events``, ``breaker_events`` and ``io_records`` — plain
+    Python containers, safe to read at any point in the run.
     """
 
     def __init__(self, path=None):
@@ -176,9 +180,18 @@ class Recorder:
         self.tradeoff_records = []
         self.fault_events = []
         self.breaker_events = []
+        self.io_records = []
+        # the storage ledger (obs.storage), attached at the first
+        # instrumented shard read and flushed by close()
+        self._storage = None
         self.path = path
         self._seq = 0
         self._sink = None
+        # size-based rotation: at SQ_OBS_ROTATE_BYTES written bytes the
+        # live sink is gzipped to <path>.<n>.gz and reopened (0 = off)
+        self._rotate_bytes = _knobs.get_int("SQ_OBS_ROTATE_BYTES")
+        self._sink_bytes = 0
+        self._segments = 0
         if path:
             self._sink = open(path, "a", buffering=1)
             self.record({"type": "meta", "pid": os.getpid(),
@@ -200,9 +213,45 @@ class Recorder:
                 getattr(self, kind).append(rec)
             if self._sink is not None:
                 try:
-                    self._sink.write(json.dumps(rec) + "\n")
+                    line = json.dumps(rec) + "\n"
+                    self._sink.write(line)
+                    self._sink_bytes += len(line)
                 except OSError:
                     pass  # a full disk must not kill the fit
+                else:
+                    if (self._rotate_bytes
+                            and self._sink_bytes >= self._rotate_bytes):
+                        self._rotate_locked()
+
+    def _rotate_locked(self):
+        """Gzip the live sink to the next ``<path>.<n>.gz`` segment and
+        reopen the path with a ``meta`` line stamping the segment ordinal.
+        Rotation trouble leaves an unrotated sink, never a dead run."""
+        import gzip
+        import shutil
+
+        try:
+            self._sink.flush()
+            self._sink.close()
+            self._segments += 1
+            seg = f"{self.path}.{self._segments}.gz"
+            with open(self.path, "rb") as src, gzip.open(seg, "wb") as dst:
+                shutil.copyfileobj(src, dst)
+            self._sink = open(self.path, "w", buffering=1)
+            line = json.dumps({
+                "type": "meta", "pid": os.getpid(), "schema": SCHEMA_VERSION,
+                "segment": self._segments, "v": SCHEMA_VERSION,
+                "schema_version": SCHEMA_VERSION,
+                "ts": round(time.time(), 3)}) + "\n"
+            self._sink.write(line)
+            self._sink_bytes = len(line)
+        except OSError:
+            try:
+                if self._sink is None or self._sink.closed:
+                    self._sink = open(self.path, "a", buffering=1)
+                self._rotate_bytes = 0  # stop retrying on every write
+            except OSError:
+                self._sink = None
 
     def flush(self, fsync=True):
         """Flush the JSONL sink to the OS and, with ``fsync`` (the
@@ -221,6 +270,12 @@ class Recorder:
 
     def close(self):
         with _lock:
+            # the storage ledger's unflushed aggregates land first
+            if self._storage is not None:
+                try:
+                    self._storage.flush("close")
+                except Exception:  # obs must not mask the run it observed
+                    pass
             if self._sink is not None:
                 try:
                     self._sink.close()
@@ -255,13 +310,23 @@ def enable(path=None):
 
 def disable():
     """Close the current run (flushes the sink) and return its recorder.
-    Safe to call when off."""
+    Safe to call when off. With ``SQ_OBS_TRACE=<path>`` and a JSONL sink,
+    the closed run is also rendered as a Chrome trace at that path
+    (:mod:`.trace`); a failed render never masks the run."""
     global _active
     with _lock:
         rec = _active
         _active = None
         if rec is not None:
             rec.close()
+    trace_path = _knobs.get_raw("SQ_OBS_TRACE")
+    if rec is not None and rec.path and trace_path:
+        try:
+            from .trace import write_trace
+
+            write_trace([rec.path], trace_path)
+        except Exception:
+            pass
     return rec
 
 
@@ -322,16 +387,21 @@ def gauge(name, value, **attrs):
 
 def snapshot():
     """One-dict summary of the run: spans, ledger entries, the guarantee
-    audit's draws, violations and flagged sites, trade-off points and the
-    sketch's counters. None when disabled."""
+    audit's draws, violations and flagged sites, trade-off points, the
+    sketch's counters, faults injected and the breaker's state, and the
+    out-of-core plane's transfer, prefetch and codec counters with the
+    storage ledger's per-surface rollup. None when disabled."""
     rec = _active
     if rec is None:
         return None
+    from ..resilience.supervisor import breaker
     from .guarantees import audit
+    from .storage import surfaces_snapshot
 
     audit_flagged = sorted(
         site for site, a in audit(rec.guarantee_records).items()
         if a["flagged"])
+    counters = rec.counters
     return {
         "spans": len(rec.spans),
         "ledger_entries": len(rec.ledger_entries),
@@ -340,7 +410,20 @@ def snapshot():
             1 for g in rec.guarantee_records if g.get("violated")),
         "audit_flagged": audit_flagged,
         "tradeoff_records": len(rec.tradeoff_records),
-        "sketch_estimates": int(rec.counters.get("sketch.estimates", 0)),
+        "sketch_estimates": int(counters.get("sketch.estimates", 0)),
+        "total_transfer_bytes": int(
+            counters.get("streaming.transfer_bytes", 0)),
+        "faults_injected": len(rec.fault_events),
+        "breaker_state": breaker.state(),
+        "breaker_trips": int(breaker.trips),
+        "prefetch_hits": int(counters.get("oocore.prefetch_hits", 0)),
+        "prefetch_stalls": int(counters.get("oocore.prefetch_stalls", 0)),
+        "prefetch_stall_s": round(float(
+            counters.get("oocore.prefetch_stall_s", 0.0)), 6),
+        "codec_bytes_in": int(counters.get("oocore.codec_bytes_in", 0)),
+        "codec_bytes_out": int(counters.get("oocore.codec_bytes_out", 0)),
+        "io_records": len(rec.io_records),
+        "storage_surfaces": surfaces_snapshot(rec),
     }
 
 
@@ -351,6 +434,7 @@ def _default_path():
 
 # SQ_OBS=1 enables at first import, sink at SQ_OBS_PATH; the atexit
 # disable flushes the sink of a run that never calls disable() itself
+# (and renders its trace under SQ_OBS_TRACE)
 if _knobs.get_bool("SQ_OBS"):
     enable(_default_path())
     import atexit

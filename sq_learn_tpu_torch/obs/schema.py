@@ -10,7 +10,8 @@ version is rejected.
 =========  ==============================================================
 type       required fields (beyond the envelope)
 =========  ==============================================================
-meta       pid (int), schema (int)
+meta       pid (int), schema (int); optional segment (int — the ordinal
+           of a rotated sink's segment, ``SQ_OBS_ROTATE_BYTES``)
 span       name (str), seq (int), dur_s (number ≥ 0), depth (int ≥ 0),
            parent (int | null), synced (bool); optional attrs (object),
            error (str)
@@ -32,12 +33,29 @@ fault      kind (str), tile (int | null) — one injected fault of the
 breaker    state (str ∈ {closed, open, half_open}), prev (str),
            reason (str), consecutive (int ≥ 0) — one circuit-breaker
            transition (:mod:`sq_learn_tpu_torch.resilience.supervisor`)
+io         surface (str), store (str — the store's fingerprint), shard
+           (int ≥ 0 | null), reads (int ≥ 0), bytes_stored (int ≥ 0),
+           bytes_raw (int ≥ 0) — one CUMULATIVE storage-ledger aggregate
+           (:mod:`.storage`; the newest record per key wins); optional
+           hits / stalls / serial / retries / quarantined / spills /
+           disk_hits / promotes / misses (int ≥ 0), read_s / crc_s /
+           decode_s / cold_s / stall_s / heat (number ≥ 0), codec (str),
+           reason (str)
 =========  ==============================================================
 
-The JAX package's other types (watchdog, probe, xla_cost,
-regression, slo, budget, alert, control, elastic, clock, io) come with
-the planes that write them (``ROADMAP.md`` §1); until then a record of
-any of them is rejected, with an error that names its type.
+The out-of-core plane rides the generic types as the JAX package's does:
+shard reads are ``counter`` records (``oocore.shard_reads``,
+``oocore.shard_read_bytes``, ``oocore.crc_failures``, ``oocore.rereads``,
+the v7 codec pair ``oocore.codec_bytes_in``/``oocore.codec_bytes_out``,
+the prefetch and async-checkpoint counters), ``span`` records
+(``oocore.create_store`` with its ``codec`` attr, ``oocore.minibatch_fit``,
+``oocore.epoch``, ``oocore.assign_labels``, ``oocore.prefetch``) and read
+faults ``fault`` records.
+
+The JAX package's other types (watchdog, probe, xla_cost, regression,
+slo, budget, alert, control, elastic, clock) come with the planes that
+write them (``ROADMAP.md`` §1); until then a record of any of them is
+rejected, with an error that names its type.
 """
 
 import json
@@ -51,7 +69,7 @@ KNOWN_VERSIONS = set(range(1, SCHEMA_VERSION + 1))
 
 #: every record type the port writes, machine-readable
 RECORD_TYPES = ("meta", "span", "counter", "gauge", "ledger", "guarantee",
-                "tradeoff", "fault", "breaker")
+                "tradeoff", "fault", "breaker", "io")
 
 _BREAKER_STATES = frozenset({"closed", "open", "half_open"})
 
@@ -63,6 +81,10 @@ def _check(cond, errors, msg):
 
 def _number(v):
     return isinstance(v, _NUM) and not isinstance(v, bool)
+
+
+def _int(v):
+    return isinstance(v, int) and not isinstance(v, bool)
 
 
 def _str_to_number(obj):
@@ -90,6 +112,9 @@ def validate_record(rec):
     if t == "meta":
         _check(isinstance(rec.get("pid"), int), errors, "meta.pid int")
         _check(isinstance(rec.get("schema"), int), errors, "meta.schema int")
+        if "segment" in rec:
+            _check(_int(rec["segment"]) and rec["segment"] >= 1, errors,
+                   "meta.segment positive int")
     elif t == "span":
         _check(isinstance(rec.get("name"), str), errors, "span.name str")
         _check(isinstance(rec.get("seq"), int), errors, "span.seq int")
@@ -177,6 +202,30 @@ def validate_record(rec):
         _check(isinstance(rec.get("consecutive"), int)
                and rec["consecutive"] >= 0, errors,
                "breaker.consecutive non-negative int")
+    elif t == "io":
+        _check(isinstance(rec.get("surface"), str), errors,
+               "io.surface str")
+        _check(isinstance(rec.get("store"), str), errors, "io.store str")
+        sh = rec.get("shard", -1)
+        _check(sh is None or (_int(sh) and sh >= 0), errors,
+               "io.shard non-negative int or null")
+        for field in ("reads", "bytes_stored", "bytes_raw"):
+            _check(_int(rec.get(field)) and rec[field] >= 0, errors,
+                   f"io.{field} non-negative int")
+        for field in ("hits", "stalls", "serial", "retries", "quarantined",
+                      "spills", "disk_hits", "promotes", "misses"):
+            if field in rec:
+                _check(_int(rec[field]) and rec[field] >= 0, errors,
+                       f"io.{field} non-negative int")
+        for field in ("read_s", "crc_s", "decode_s", "cold_s", "stall_s",
+                      "heat"):
+            if field in rec:
+                _check(_number(rec[field]) and rec[field] >= 0, errors,
+                       f"io.{field} non-negative number")
+        for field in ("codec", "reason"):
+            if field in rec:
+                _check(isinstance(rec[field], str), errors,
+                       f"io.{field} str")
     else:
         errors.append(
             f"unknown record type {t!r} (the port writes "

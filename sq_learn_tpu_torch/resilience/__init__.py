@@ -3,11 +3,13 @@ circuit breaking (counterpart of ``sq_learn_tpu/resilience``).
 
 - :mod:`.faults` — deterministic, env-armed (``SQ_FAULTS=<spec>``)
   injectors for transfer failures and stalls, NaN-corrupted tiles,
-  mid-pass interrupts and probe timeouts; the shard-store and elastic-mesh
-  kinds parse and wait for their planes.
+  mid-pass interrupts, probe timeouts and the shard-store reads
+  (:mod:`sq_learn_tpu_torch.oocore`); the elastic-mesh kinds parse and
+  wait for their plane.
 - :mod:`.supervisor` — bounded retries, keyed backoff and per-tile
   deadlines around every streamed tile's upload (:func:`~.supervisor.put`)
-  and the probe-fed circuit breaker. An open breaker raises
+  and every shard read (:func:`~.supervisor.supervised_read`), and the
+  probe-fed circuit breaker. An open breaker raises
   :class:`~.supervisor.BreakerOpenError`; nothing moves to the CPU.
 - Resumable streamed passes live in :mod:`sq_learn_tpu_torch.streaming`
   (``SQ_STREAM_CKPT_DIR``), their files in

@@ -42,10 +42,14 @@ Kinds and their params (every param optional unless noted):
     The next ``n=1`` device-health probes report ``"timeout"`` without
     touching the device — feeds the circuit breaker the wedge signal.
 ``read_fail``, ``read_stall``, ``corrupt_shard``, ``cold_tier``
-    The shard-store kinds: they parse, and :meth:`FaultPlan.on_read`,
-    :meth:`~FaultPlan.on_cold` and :meth:`~FaultPlan.corrupt_read` fire
-    them, but nothing in the port reads a shard store until ``oocore/``
-    is ported (``ROADMAP.md`` §1).
+    The shard-store kinds, fired from every shard read of
+    :mod:`sq_learn_tpu_torch.oocore` (on prefetch workers too):
+    ``read_fail`` raises :class:`InjectedReadError` and ``read_stall``
+    sleeps inside the supervised read (:meth:`FaultPlan.on_read`);
+    ``cold_tier`` sleeps ``s`` plus ``per_mb`` × the stored MiB, first
+    touch only by default (:meth:`~FaultPlan.on_cold`); ``corrupt_shard``
+    flips bytes of the read payload, which the manifest CRC catches
+    (:meth:`~FaultPlan.corrupt_read`). ``tiles=`` selects shards.
 ``host_fail``, ``host_stall``
     The elastic-mesh kinds (:meth:`FaultPlan.host_event`); no caller until
     the mesh (item 6).

@@ -45,10 +45,17 @@ host input on the host and pass ``validate=True``, which checks every
 tile's values on the card and raises ``ValueError("Input contains NaN or
 infinity.")`` after the pass (one sync, at its end).
 
+Row sources: every consumer here also takes an out-of-core row source
+(:func:`is_row_source`, a :class:`~sq_learn_tpu_torch.oocore.ShardStore`):
+each tile is then read from disk by ``read_rows`` (supervised,
+CRC-checked shard reads) through the store's bounded readahead view
+(``prefetched()``), which starts at the first row asked for, so a
+resumed pass never reads the shards before its cursor. A store-backed
+fold's checkpoint is keyed on the store's content-complete fingerprint.
+
 Not ported: the mesh variant (``parallel/streaming.py``, ROADMAP.md §1
 item 6); the per-kernel compile budgets and XLA cost records (an eager
-program compiles nothing); shard-store sources are recognized
-(:func:`is_row_source`) but read by nothing until ``oocore/``.
+program compiles nothing).
 """
 
 import functools
@@ -64,6 +71,7 @@ from . import obs as _obs
 from ._config import resolve_device
 from .resilience import faults as _faults
 from .resilience import supervisor as _sup
+from .oocore.store import is_source
 from .utils.checkpoint import tree_leaves, tree_map
 from .utils.validation import host_array
 
@@ -101,11 +109,9 @@ def stream_tile_bytes():
     return _knobs.get_int("SQ_TRANSFER_CHUNK_BYTES")
 
 
-def is_row_source(X):
-    """True for out-of-core row sources (the shard-store protocol:
-    ``shape``/``dtype``/``nbytes``/``fingerprint``/``read_rows``)."""
-    return all(hasattr(X, a) for a in
-               ("shape", "dtype", "nbytes", "fingerprint", "read_rows"))
+#: True for out-of-core row sources (the shard-store protocol:
+#: ``shape``/``dtype``/``nbytes``/``fingerprint``/``read_rows``)
+is_row_source = is_source
 
 
 def worth_streaming(X, max_bytes=None):
@@ -170,6 +176,28 @@ def padded_rows(n_rows, row_bytes, max_bytes=None, multiple=1):
 def _row_bytes(X):
     n = X.shape[0]
     return X.nbytes // max(1, n)
+
+
+def _source_dtype(X):
+    """The host dtype tiles of row source ``X`` are staged in: the
+    source's own, a 64-bit one narrowed as :func:`host_array` narrows
+    host arrays."""
+    if X.dtype.kind != "f":
+        return np.dtype(X.dtype)
+    return host_array(np.zeros(0, X.dtype)).dtype
+
+
+def _rows_input(X):
+    """``X`` as the streaming engine walks it: a row source as it is,
+    anything else as a canonical host array."""
+    return X if is_row_source(X) else host_array(X)
+
+
+def _torch_dtype(X):
+    """The torch dtype of the tiles of ``X`` (a host array or a row
+    source)."""
+    dtype = _source_dtype(X) if is_row_source(X) else X.dtype
+    return _TORCH_DTYPES[np.dtype(dtype)]
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +330,9 @@ def stream_tiles(X, max_bytes=None, device=None, put=None, multiple=1,
                  site=None, start_tile=0):
     """Yield ``(dev_tile, n_valid, start)`` over the row tiles of host
     array ``X``, double-buffered: tile *i+1* is staged before tile *i* is
-    yielded, and nothing blocks between tiles.
+    yielded, and nothing blocks between tiles. ``X`` may be a row source:
+    its tiles are read by ``read_rows`` through its ``prefetched()`` view
+    when it has one.
 
     Tiles are zero-padded to bucketed row counts; ``n_valid`` is the true
     row count of each tile and ``start`` its row offset in ``X``. ``put``
@@ -314,11 +344,19 @@ def stream_tiles(X, max_bytes=None, device=None, put=None, multiple=1,
     With obs on, each tile's bytes feed the ``streaming.transfer_bytes``
     and ``streaming.tiles`` counters.
     """
-    if is_row_source(X):
-        raise NotImplementedError(
-            "streaming a shard store is not ported yet: ROADMAP.md §1, "
-            "oocore/")
-    X = host_array(X)
+    source = is_row_source(X)
+    view = None
+    if source:
+        canonical = _source_dtype(X)
+        if hasattr(X, "prefetched"):
+            # disk-backed stores read their shards ahead on worker
+            # threads; the view starts at the first row asked for, so a
+            # resume's skipped tiles never read their shards
+            wrapped = X.prefetched()
+            if wrapped is not X:
+                X = view = wrapped
+    else:
+        X = host_array(X)
     dev = resolve_device(device)
     n = X.shape[0]
     rows, n_tiles = plan_row_tiles(n, _row_bytes(X), max_bytes, multiple)
@@ -337,7 +375,12 @@ def stream_tiles(X, max_bytes=None, device=None, put=None, multiple=1,
         stop = min(start + rows, n)
         valid = stop - start
         bucket = _bucket_rows(valid, rows, multiple)
-        tile = X[start:stop]
+        if source:
+            tile = X.read_rows(start, stop)
+            if tile.dtype != canonical:
+                tile = tile.astype(canonical)
+        else:
+            tile = X[start:stop]
         if stager is not None:
             # the stager pads on the card: no host copy of the tail
             place = functools.partial(stager, rows=bucket)
@@ -374,6 +417,8 @@ def stream_tiles(X, max_bytes=None, device=None, put=None, multiple=1,
     finally:
         if stager is not None:
             stager.close()
+        if view is not None:
+            view.close()  # joins the readahead workers, closes its span
 
 
 class StreamCheckpoint:
@@ -460,7 +505,8 @@ def _restore_leaf(host, like):
 def stream_fold(X, step, init, *, max_bytes=None, device=None, put=None,
                 multiple=1, with_offsets=False, site=None, checkpoint=None,
                 pass_tag=None, validate=False):
-    """Fold an accumulator over the row tiles of ``X``.
+    """Fold an accumulator over the row tiles of ``X`` (a host array or a
+    row source).
 
     ``step(acc, tile)`` (or ``step(acc, tile, n_valid, start)`` with
     ``with_offsets=True``) returns the new accumulator and may update it in
@@ -479,13 +525,11 @@ def stream_fold(X, step, init, *, max_bytes=None, device=None, put=None,
     pass a distinct ``pass_tag`` per fold. ``checkpoint=False`` opts out
     of the env default (folds whose accumulator holds a dataset-sized
     buffer). A completed pass deletes its checkpoint. ``validate`` checks
-    every tile's values (see the module docstring).
+    every tile's values (see the module docstring). A row source's pass is
+    keyed on the source's content-complete fingerprint instead of the
+    sampled digest of a host array.
     """
-    if is_row_source(X):
-        raise NotImplementedError(
-            "streaming a shard store is not ported yet: ROADMAP.md §1, "
-            "oocore/")
-    Xn = host_array(X)
+    Xn = _rows_input(X)
     dev = resolve_device(device)
     acc = tree_map(lambda a: a.to(dev), init)
     strict = _knobs.get_bool("SQ_RESILIENCE_STRICT")
@@ -500,9 +544,11 @@ def stream_fold(X, step, init, *, max_bytes=None, device=None, put=None,
         n = Xn.shape[0]
         rows, n_tiles = plan_row_tiles(n, _row_bytes(Xn), max_bytes,
                                        multiple)
+        data = (f"store:{Xn.fingerprint}" if is_row_source(Xn)
+                else f"{_data_digest(Xn):08x}")
         fingerprint = (f"v2|{site}|tag={pass_tag}|shape={tuple(Xn.shape)}"
                        f"|dtype={Xn.dtype}|rows={rows}|multiple={multiple}"
-                       f"|data={_data_digest(Xn):08x}")
+                       f"|data={data}")
         loaded = load_stream_state(ckpt.path, acc, fingerprint)
         if loaded is not None:
             host_acc, start_tile = loaded
@@ -665,11 +711,11 @@ def streamed_centered_gram(X, *, max_bytes=None, device=None,
     accumulates the raw Gram and the column sums, and the centered Gram
     follows from ``Xcᵀ·Xc = XᵀX − n·mean·meanᵀ``. X is never resident on
     the device. ``checkpoint`` (or ``SQ_STREAM_CKPT_DIR``) makes the pass
-    resumable."""
-    X = host_array(X)
+    resumable. ``X`` may be a row source."""
+    X = _rows_input(X)
     n, m = X.shape
     dev = resolve_device(device)
-    dtype = torch.from_numpy(X[:0]).dtype
+    dtype = _torch_dtype(X)
     init = (torch.zeros((m, m), dtype=dtype, device=dev),
             torch.zeros((m,), dtype=dtype, device=dev))
     with _obs.span("streaming.centered_gram", n=n, m=m):
@@ -690,10 +736,11 @@ def streamed_centered_svd_topk(X, n_left, *, compute_dtype=None,
     of U. Two passes: (1) Gram + column mean, (2) the (n, k) U block
     assembled into a device buffer. ``compute_dtype`` applies to the U
     block's product (operands rounded, products accumulated in X's dtype);
-    the Gram pass accumulates in the input dtype, as in the JAX package."""
+    the Gram pass accumulates in the input dtype, as in the JAX package.
+    ``X`` may be a row source."""
     from .ops.linalg import gram_spectrum, inner_product, svd_flip_v
 
-    X = host_array(X)
+    X = _rows_input(X)
     n, m = X.shape
     dev = resolve_device(device)
     mean, Gc, _ = streamed_centered_gram(X, max_bytes=max_bytes,

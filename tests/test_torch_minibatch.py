@@ -292,22 +292,29 @@ def test_minibatch_from_numpy_predicts_as_jax(blobs):
 
 
 def test_validation_and_unported_store_input(blobs):
-    X, _ = blobs
+    """Input validation; a row source (here the in-RAM twin of a shard
+    store) now fits out of core, as ``tests/test_torch_oocore.py`` holds
+    in full: ``fit`` runs ``max_iter`` epochs, ``partial_fit`` one epoch,
+    and ``predict`` of a store points to ``oocore.assign_labels``."""
+    from sq_learn_tpu_torch.oocore import ArraySource
+
+    X, y = blobs
     with pytest.raises(ValueError, match="n_init"):
         MiniBatchKMeans(n_clusters=3, n_init="Auto").fit(X)
     with pytest.raises(ValueError, match="n_samples=2"):
         MiniBatchKMeans(n_clusters=3).fit(X[:2])
+    with pytest.raises(ValueError, match="n_samples=2"):
+        MiniBatchKMeans(n_clusters=3).fit(ArraySource(X[:2]))
 
-    class Store:
-        shape, dtype, nbytes, fingerprint = (10, 2), np.float32, 80, "x"
-
-        def read_rows(self, a, b):
-            return np.zeros((b - a, 2), np.float32)
-
-    with pytest.raises(NotImplementedError, match="item 7, the data planes"):
-        MiniBatchKMeans(n_clusters=2).fit(Store())
-    with pytest.raises(NotImplementedError, match="item 7, the data planes"):
-        MiniBatchKMeans(n_clusters=2).partial_fit(Store())
+    source = ArraySource(X, shard_rows=100)
+    est = MiniBatchKMeans(n_clusters=4, batch_size=128, max_iter=3,
+                          random_state=0).fit(source)
+    assert est.n_iter_ == 3 and est.n_steps_ == 3 * 5
+    assert adjusted_rand_score(y, est.labels_) > 0.95
+    est.partial_fit(source)
+    assert est.n_steps_ == 4 * 5
+    with pytest.raises(ValueError, match="assign_labels"):
+        est.predict(source)
     est = MiniBatchKMeans(n_clusters=4, n_init="auto", random_state=0)
     assert est._resolved_n_init() == 1
     assert MiniBatchKMeans(init="random",

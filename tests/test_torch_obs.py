@@ -180,6 +180,12 @@ def _write_artifact(path):
     obs.counter_add("c", 2)
     obs.gauge("g", 1.5, unit="s")
     obs.record_span("external", 0.25, k=1)
+    # a shard store's reads: the storage ledger's io records, flushed at
+    # disable
+    from sq_learn_tpu_torch.oocore import store_from_array
+
+    store_from_array(str(path) + ".store", X,
+                     shard_bytes=2048).read_rows(0, X.shape[0])
     # a fault injection and the breaker transitions it feeds
     from sq_learn_tpu_torch.resilience import faults, supervisor
 
@@ -278,19 +284,34 @@ def test_cli_reads_an_artifact_without_torch(tmp_path):
 
 
 def test_cli_usage_and_later_subcommands(tmp_path, capsys):
+    """``trace`` and ``storage`` run now (their own tests are
+    ``tests/test_torch_obs_trace.py`` and ``tests/test_torch_obs_storage.py``);
+    the subcommands whose planes are still missing raise, naming their
+    ROADMAP item."""
     from sq_learn_tpu_torch.obs.__main__ import main
 
     assert main([]) == 2
     assert main(["nope"]) == 2
     assert guarantees.main([]) == 2 and obs.frontier.main([]) == 2
-    for cmd in ("trace", "report", "regress", "budget", "control",
-                "storage", "fleet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for cmd, item in (("report", "item 7, serving/"),
+                      ("regress", "item 7, the rest of obs"),
+                      ("budget", "item 7, serving/"),
+                      ("control", "item 7, serving/"),
+                      ("fleet", "item 6")):
+        with pytest.raises(NotImplementedError, match=item) as err:
             main([cmd, str(tmp_path)])
+        assert "ROADMAP.md" in str(err.value)
     empty = tmp_path / "empty.jsonl"
     obs.enable(str(empty))
     obs.disable()
     assert obs.frontier.main([str(empty)]) == 1  # no trade-off stated
+    assert main(["storage", str(empty)]) == 2  # no io record
+    assert main(["trace", str(empty), "-o", str(tmp_path / "t.json")]) == 0
+    path = tmp_path / "run.jsonl"
+    _write_artifact(path)
+    capsys.readouterr()
+    assert main(["storage", str(path)]) == 0
+    assert "storage-plane ledger" in capsys.readouterr().out
 
 
 def test_sq_obs_enables_at_import(tmp_path):

@@ -364,16 +364,32 @@ class _Store:
     (dict(ingest="streamed"), None, "item 7"),
     (dict(compute_dtype="bfloat16"), None, "item 7"),
     (dict(compute_dtype="float16"), None, "item 7"),
-    ({}, _Store(), "item 7"),
+    ({}, _Store(), "partial-U Gram route"),
 ])
 def test_unported_options_raise_naming_the_roadmap(data, kw, fit_input,
                                                    item):
-    """``mesh`` and store-backed ingest raise naming their ROADMAP item.
-    ``ingest='streamed'`` and the reduced compute dtypes were ported since
-    (item 7): on this short input (not tall enough for the partial-U
-    route) 'streamed' warns and ingests monolithically, and a compute
-    dtype warns that it did not engage, as in the JAX package."""
+    """``mesh`` raises naming its ROADMAP item. ``ingest='streamed'``, the
+    reduced compute dtypes and store-backed ingest were ported since (item
+    7): on this short input (not tall enough for the partial-U route)
+    'streamed' warns and ingests monolithically, a compute dtype warns
+    that it did not engage, and a 10-row store, which has no resident
+    form, raises the JAX package's ValueError, while a tall store fits on
+    the streamed route (``tests/test_torch_oocore.py`` holds it in
+    full)."""
     X = data if fit_input is None else fit_input
+    if fit_input is not None:
+        from sq_learn_tpu_torch.oocore import ArraySource
+
+        with pytest.raises(ValueError, match=item):
+            QPCA(n_components=3, **kw).fit(X)
+        tall = ArraySource(np.tile(data, (2, 1))[:, :6], shard_rows=50)
+        pca = QPCA(n_components=3, **kw).fit(tall)
+        ref = QPCA(n_components=3, svd_solver="full",
+                   ingest="streamed").fit(np.tile(data, (2, 1))[:, :6])
+        assert pca.ingest_ == "streamed"
+        np.testing.assert_array_equal(pca.singular_values_,
+                                      ref.singular_values_)
+        return
     if "ingest" in kw or "compute_dtype" in kw:
         with pytest.warns(RuntimeWarning, match="monolithically|partial-U"):
             pca = QPCA(n_components=3, svd_solver="full", **kw).fit(X)
