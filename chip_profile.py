@@ -102,6 +102,12 @@ that call's wall clock, host time by operator):
   k=10, R=1) in device ms; then one epoch of the fit and the labelling
   pass under the profiler (device busy share, kernels, host operators).
 
+- the serving plane (``python3 chip_profile.py --serving`` runs it
+  alone): one batched arm of ``chip_smoke.py``'s closed loop at full
+  width, its wall clock, its ``slo`` stage decomposition per batch, and a
+  run under the profiler: the device's busy share, kernel and copy device
+  time per batch against host time per batch, launches per batch.
+
 It needs one NVIDIA GPU and exits non-zero without one.
 """
 
@@ -1098,6 +1104,111 @@ def oocore(torch):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def serving(X, torch):
+    """One batched arm of ``chip_smoke.py``'s closed loop at full width
+    (its SERVE_REQUESTS requests over alpha, gamma, delta, their bf16
+    twins, alpha's int8 twin and aliases; SERVE_CLIENTS clients of
+    SERVE_WINDOW requests in flight, SERVE_CAP rows, SERVE_WAIT_MS ms,
+    after ``registry.warm()``) taken apart: the wall clock of a plain run;
+    the ``slo`` stage decomposition (queue, coalesce, assemble, transfer,
+    compute, scatter) per batch from a run under obs; and a run under the
+    profiler: the device's busy share of the wall clock, kernel and copy
+    device time per batch against host time per batch, and kernel
+    launches and copies per batch."""
+    import json
+    import tempfile
+
+    import chip_smoke as smoke
+    from torch.profiler import ProfilerActivity, profile
+
+    from sq_learn_tpu_torch import obs
+    from sq_learn_tpu_torch.datasets import load_covtype
+    from sq_learn_tpu_torch.models import QPCA, QKMeans, TruncatedSVD
+    from sq_learn_tpu_torch.serving import MicroBatchDispatcher, cache
+
+    t0 = time.perf_counter()
+    Xcov, _, _ = load_covtype()
+    models = {
+        "alpha": QKMeans(n_clusters=10, n_init=10, max_iter=300, delta=0.0,
+                         random_state=0).fit(X),
+        "gamma": QPCA(n_components=61, svd_solver="full",
+                      random_state=0).fit(X),
+        "delta": TruncatedSVD(n_components=10, n_iter=5,
+                              random_state=0).fit(Xcov),
+    }
+    print(f"serving tenants fitted in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    reg = smoke.serving_registry(models, "cuda:0")
+    reg.warm()
+    stream = smoke.serving_stream(smoke.SERVE_REQUESTS, 11, X, Xcov)
+
+    def arm():
+        cache.clear()
+        d = MicroBatchDispatcher(reg, max_batch_rows=smoke.SERVE_CAP,
+                                 max_wait_ms=smoke.SERVE_WAIT_MS,
+                                 autotune=False)
+        _, wall = smoke.closed_loop(d, stream)
+        return d, d.close(), wall
+
+    for label in ("first", "plain", "plain"):
+        d, summary, wall = arm()
+        print(f"serving batched arm, {label}: {wall:.4f} s = "
+              f"{len(stream) / wall:.1f} QPS, p50 {summary['p50_ms']} ms, "
+              f"p99 {summary['p99_ms']} ms, {summary['batches']} batches, "
+              f"occupancy {summary['batch_occupancy']}, "
+              f"{d.megabatches()} megabatches, "
+              f"{summary['transfer_bytes'] / summary['batches']:.0f} "
+              f"transfer bytes per batch", flush=True)
+    batches = summary["batches"]
+    obs.enable()
+    d, summary, wall = arm()
+    obs.disable()
+    stages = dict(summary.get("stages", {}))
+    queue = stages.pop("queue", 0.0)
+    per_batch = {k: 1e3 * v / summary["batches"]
+                 for k, v in sorted(stages.items())}
+    print(f"serving batched arm under obs: {wall:.4f} s, "
+          f"{summary['batches']} batches; slo stages per batch (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in per_batch.items())
+          + f"; queue (a non-head request's wait for its batch to open) "
+          f"{1e3 * queue / summary['requests']:.4f} ms per request",
+          flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        d, summary, wall = arm()
+        torch.cuda.synchronize()
+    batches = summary["batches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)["traceEvents"]
+    kernel_events = [e for e in trace if e.get("cat") == "kernel"]
+    copy_events = [e for e in trace if e.get("cat") == "gpu_memcpy"]
+    kernels = _intervals(trace, {"kernel"})
+    copies = _intervals(trace, {"gpu_memcpy"})
+    busy = _intervals(trace, {"gpu_memcpy", "kernel", "gpu_memset"})
+    print(f"serving batched arm under the profiler: wall {wall:.4f} s, "
+          f"{batches} batches ({wall * 1e3 / batches:.4f} ms of wall clock "
+          f"per batch); device busy {_length(busy) / 1e3:.3f} ms = "
+          f"{_length(busy) / 1e4 / wall:.2f} % of the wall clock; per "
+          f"batch: kernels {_length(kernels) / 1e3 / batches:.4f} ms of "
+          f"device time, copies {_length(copies) / 1e3 / batches:.4f} ms, "
+          f"host (wall minus busy) "
+          f"{(wall * 1e3 - _length(busy) / 1e3) / batches:.4f} ms; "
+          f"{len(kernel_events) / batches:.2f} kernel launches and "
+          f"{len(copy_events) / batches:.2f} copies per batch", flush=True)
+    names = {}
+    for e in kernel_events:
+        key = re.sub(r"<.*", "", e["name"])[:60]
+        names[key] = names.get(key, 0) + 1
+    for name, n in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {n / batches:.2f} per batch  {name}", flush=True)
+    events = prof.key_averages()
+    print(events.table(sort_by="self_cpu_time_total", row_limit=20),
+          flush=True)
+
+
 def main():
     import torch
 
@@ -1127,6 +1238,9 @@ def main():
         return 0
     if sys.argv[1:] == ["--oocore"]:
         oocore(torch)
+        return 0
+    if sys.argv[1:] == ["--serving"]:
+        serving(X, torch)
         return 0
     est = QKMeans(n_clusters=10, n_init=10, max_iter=300, delta=0.5,
                   true_distance_estimate=False, sketch=0, random_state=0)
@@ -1159,6 +1273,7 @@ def main():
     minibatch_fit(X, torch)
     streaming(X, torch)
     oocore(torch)
+    serving(X, torch)
     return 0
 
 

@@ -171,7 +171,31 @@ each of which fails the run:
      labels), float64 7-NN under ``default_dtype='float64'`` (no argkmin
      launch, KNN_ACCURACY_FLOOR) and ``QPCA(61, compute_dtype='bfloat16')``
      on the partial-U route (within BF16_SPECTRUM_RTOL of float64).
-6. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
+6. The serving phase (``sq_learn_tpu_torch.serving`` and obs's budget,
+   control, probe and report), with both kernels' counts at 0 before it
+   and still 0 after it (the serving kernels are plain torch). Tenants on
+   the card: alpha (the δ=0 QKMeans above), gamma (the trial's QPCA(61)),
+   delta (BASELINE #4's randomized TruncatedSVD(10)), a bf16 twin of
+   each, an int8 twin of alpha and SERVE_ALIASES aliases of alpha. Legs:
+   the cold start (the first request per (op, bucket, dtype) at
+   LADDER_SIZES, unwarmed against warmed); the closed loop (SERVE_REQUESTS
+   requests of 1–16 rows, float32 and float64, SERVE_CLIENTS clients of
+   SERVE_WINDOW requests in flight, SERVE_CAP rows, SERVE_WAIT_MS ms,
+   after ``registry.warm()`` with the
+   budgets pinned at 0) batched and sequential, every response held
+   against float64 (labels by the margin rule against the estimator's own
+   predict, transforms within SERVE_DIST_RTOL/SERVE_PROJ_RTOL, quantized
+   responses inside their fold) with 0 aot misses; the same stream again
+   with every batch replayed through its kernel on the same padded batch,
+   bit for bit; the open loop at SERVE_OPEN_LOOP × the batched QPS; the
+   bf16 replay's bytes over the float32 replay's (0.5), live audits
+   clean; the breaker (futures fail with BreakerOpenError, no kernel
+   runs, the half-open probe closes it); the control leg (static arm
+   alerts, the controller's none, at a lower theoretical cost, 0 schema
+   errors, ``python -m sq_learn_tpu_torch.obs report|budget|control``
+   exit 0); a small tenant card == CPU. Its figures print on a
+   ``serving:`` JSON line.
+7. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
 import json
@@ -1712,8 +1736,12 @@ def tradeoff_phase(Xs, ys, sweep, here, torch):
         cli_s = time.perf_counter() - t_cli
         check(cli.returncode == 0,
               f"the frontier CLI exited {cli.returncode}: {cli.stderr}")
-        check(cli.stdout.rstrip("\n").splitlines()[1:]
-              == rendered.splitlines(),
+        # the table, then the per-tenant effective-(ε, δ) section, which
+        # no serving tenant fills here
+        expected = (rendered.splitlines()
+                    + ["== effective (eps, delta) per tenant (live "
+                       "draws) ==", obs.frontier.render_effective({})])
+        check(cli.stdout.rstrip("\n").splitlines()[1:] == expected,
               f"the frontier CLI printed\n{cli.stdout}\nnot\n{rendered}")
         size = os.path.getsize(path)
     print("trade-off guarantee audit:\n" + obs.guarantees.render(audit),
@@ -1741,7 +1769,7 @@ def truncated_svd_path(torch):
     same data, computed on the card; the randomized fit again with
     ingest='streamed' at STREAM_TILE_BYTES, against the same spectrum and
     the monolithic fit's components; then a small arpack fit, card
-    against CPU."""
+    against CPU. Returns the randomized fit and the surrogate's rows."""
     import numpy as np
 
     from sq_learn_tpu_torch.datasets import load_covtype
@@ -1834,6 +1862,7 @@ def truncated_svd_path(torch):
     print(f"small TruncatedSVD arpack 20000×{COVTYPE_M}: card == CPU, "
           f"singular values within {sv} (relative), components within "
           f"{comp}", flush=True)
+    return fitted["randomized"], X
 
 
 def grid_pipeline():
@@ -2967,6 +2996,672 @@ def oocore_phase(here, torch):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# The serving phase (sq_learn_tpu_torch.serving, obs's budget/control/probe)
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS = 12_000
+SERVE_SIZES = (1, 2, 4, 8, 16)
+SERVE_CLIENTS = 8
+SERVE_WINDOW = 64        # requests each client keeps in flight
+SERVE_CAP = 512          # rows per batch, the largest bucket
+SERVE_WAIT_MS = 2.0      # the coalescing window
+SERVE_ALIASES = 16       # names of alpha for the megabatch leg
+SERVE_OPEN_LOOP = 0.5    # the open loop's rate, a share of the batched QPS
+LADDER_SIZES = (1, 9, 17, 33, 65, 129, 257)  # one request per bucket 8..512
+SERVE_QUANT_REQUESTS = 2_000
+SERVE_CONTROL_REQUESTS = 4_000
+SERVE_CONTROL_TARGET = 0.5   # tenants' p99 target: this × the static p99
+SERVE_SMALL_REQUESTS = 400
+# tolerances against float64 (tests/_torch_serving_helpers.py): squared
+# center distances within 1e-5·(‖x‖² + ‖c‖²), projections within
+# 1e-5·‖x − μ‖; labels held wherever the float64 gap between the two
+# nearest squared distances exceeds 3× the measured float32 error
+SERVE_DIST_RTOL = 1e-5
+SERVE_PROJ_RTOL = 1e-5
+SERVE_MARGIN = 3.0
+
+#: the closed loop's request slots, cycled: (tenant, op); "alpha" predicts
+#: spread over alpha and its aliases
+SERVE_SLOTS = (("alpha", "predict"), ("alpha", "transform"),
+               ("gamma", "transform"), ("delta", "transform"),
+               ("alpha_bf16", "predict"), ("gamma_bf16", "transform"),
+               ("delta_bf16", "transform"), ("alpha_i8", "predict"))
+
+
+def serving_stream(n, seed, X, Xcov, slots=SERVE_SLOTS, aliases=True):
+    """``n`` requests of SERVE_SIZES rows, cycling ``slots``, alternating
+    float32 and float64 every cycle; rows drawn from ``X`` (784 wide) or
+    ``Xcov`` (the delta tenants). Each entry: (tenant, op, payload, row
+    indices)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        tenant, op = slots[i % len(slots)]
+        if aliases and tenant == "alpha" and op == "predict":
+            k = (i // len(slots)) % (SERVE_ALIASES + 1)
+            tenant = "alpha" if k == 0 else f"alpha_m{k - 1}"
+        src = Xcov if "delta" in tenant else X
+        idx = rng.integers(0, src.shape[0],
+                           SERVE_SIZES[(i // len(slots)) % len(SERVE_SIZES)])
+        rows = src[idx]
+        if (i // len(slots)) % 2:
+            rows = rows.astype(np.float64)
+        out.append((tenant, op, rows, idx))
+    return out
+
+
+def serving_registry(models, device, capacity=64):
+    """A registry on ``device`` with alpha, gamma and delta, their bf16
+    twins, alpha's int8 twin and SERVE_ALIASES aliases of alpha."""
+    from sq_learn_tpu_torch.serving import ModelRegistry
+
+    reg = ModelRegistry(capacity=capacity, device=device)
+    for name, est in models.items():
+        reg.register(name, est, quantize=None)
+        reg.register(f"{name}_bf16", est, quantize="bf16")
+    reg.register("alpha_i8", models["alpha"], quantize="int8")
+    for k in range(SERVE_ALIASES):
+        reg.register(f"alpha_m{k}", models["alpha"], quantize=None)
+    return reg
+
+
+def closed_loop(d, stream, clients=SERVE_CLIENTS, window=SERVE_WINDOW):
+    """Each of ``clients`` threads replays its slice of ``stream`` keeping
+    ``window`` requests in flight (one ``submit_many`` per window, then
+    every response of it awaited: the JAX package's load-bench client).
+    Returns (responses in stream order, wall seconds)."""
+    import threading
+
+    out = [None] * len(stream)
+    errors = []
+
+    def client(c):
+        try:
+            mine = list(range(c, len(stream), clients))
+            for start in range(0, len(mine), window):
+                idx = mine[start:start + window]
+                futs = d.submit_many([stream[i][:3] for i in idx])
+                for i, f in zip(idx, futs):
+                    out[i] = f.result(timeout=120)
+        except Exception as exc:  # reported below; no thread is lost
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(c,), name=f"client{c}")
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"closed loop: {errors[:3]}")
+    return out, wall
+
+
+def open_loop(d, stream, qps):
+    """Submit ``stream`` at ``qps`` requests per second from one thread,
+    without waiting; then collect. Returns (responses, wall seconds)."""
+    futs = []
+    t0 = time.perf_counter()
+    for i, (tenant, op, rows, _) in enumerate(stream):
+        delay = t0 + i / qps - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        futs.append(d.submit(tenant, op, rows))
+    out = [f.result(timeout=120) for f in futs]
+    return out, time.perf_counter() - t0
+
+
+def _host(v):
+    import numpy as np
+
+    return v.detach().cpu().numpy() if hasattr(v, "detach") else \
+        np.asarray(v)
+
+
+def _base(tenant):
+    """The fitted model a serving tenant name stands for."""
+    for base in ("alpha", "gamma", "delta"):
+        if base in tenant:
+            return base
+    raise KeyError(tenant)
+
+
+def check_responses(stream, outs, models, refs, what):
+    """Every response against float64: labels under the margin rule
+    against ``refs["alpha_labels"]`` (alpha's own predict of X's rows),
+    center distances and projections within their bounds, quantized
+    responses inside their declared fold (``refs["folds"]``). Returns
+    (rows held by the margin rule, rows predicted, the float32
+    squared-distance error measured on the stream's exact alpha
+    transforms)."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.serving import quantize
+
+    centers = _host(models["alpha"].cluster_centers_).astype(np.float64)
+    csq = (centers * centers).sum(1)
+    proj = {}
+    for name in ("gamma", "delta"):
+        if name in models:
+            est = models[name]
+            comps = _host(est.components_).astype(np.float64)
+            mean = getattr(est, "mean_", None)
+            mean = (np.zeros(comps.shape[1]) if mean is None
+                    else _host(mean).astype(np.float64))
+            proj[name] = (mean, comps)
+
+    def quantized(tenant):
+        return tenant.endswith(("_bf16", "_i8")) or (
+            tenant, "transform") in refs.get("folds", {}) or (
+            tenant, "predict") in refs.get("folds", {})
+
+    sq_err = 0.0
+    for (tenant, op, rows, _), out in zip(stream, outs):
+        if _base(tenant) == "alpha" and op == "transform" \
+                and not quantized(tenant):
+            x = np.asarray(rows, np.float32).astype(np.float64)
+            d2 = (x * x).sum(1)[:, None] + csq[None] - 2 * x @ centers.T
+            err = np.abs(np.asarray(out, np.float64) ** 2 - d2)
+            scale = (x * x).sum(1)[:, None] + csq[None]
+            check((err <= SERVE_DIST_RTOL * scale).all(),
+                  f"{what}: a center distance off float64 by "
+                  f"{float((err / scale).max())} of ‖x‖² + ‖c‖²")
+            sq_err = max(sq_err, float(err.max()))
+    held = predicted = 0
+    for (tenant, op, rows, idx), out in zip(stream, outs):
+        base = _base(tenant)
+        x = np.asarray(rows, np.float32)
+        if quantized(tenant):
+            fold, amax = refs["folds"][(tenant, op)]
+            kernel = ("predict_centers" if op == "predict" else
+                      "transform_centers" if base == "alpha"
+                      else "transform_components")
+            realized = quantize.realized_errors(
+                fold.kind, kernel, x, out, refs["host_params"][tenant])
+            check(realized <= fold.tol(amax),
+                  f"{what}: {tenant} {op} realized error {realized} "
+                  f"outside its fold {fold.tol(amax)}")
+        elif base == "alpha" and op == "predict":
+            x64 = x.astype(np.float64)
+            d2 = np.sort((x64 * x64).sum(1)[:, None] + csq[None]
+                         - 2 * x64 @ centers.T, axis=1)
+            keep = (d2[:, 1] - d2[:, 0]) > SERVE_MARGIN * sq_err
+            check(np.array_equal(np.asarray(out)[keep],
+                                 refs["alpha_labels"][idx][keep]),
+                  f"{what}: {tenant} labels differ from the estimator's "
+                  f"predict beyond the margin rule")
+            held += int(keep.sum())
+            predicted += len(idx)
+        elif base in proj:
+            mean, comps = proj[base]
+            c = x.astype(np.float64) - mean
+            err = np.abs(np.asarray(out, np.float64) - c @ comps.T).max(1)
+            check((err <= SERVE_PROJ_RTOL * np.linalg.norm(c, axis=1)
+                   + 1e-12).all(),
+                  f"{what}: a {base} projection off float64 beyond "
+                  f"{SERVE_PROJ_RTOL}·‖x − μ‖")
+    return held, predicted, sq_err
+
+
+def serving_refs(reg, stream, alpha_labels):
+    """The margin rule's labels and, per quantized (tenant, op) of the
+    stream, its fold with the largest batch range the stream can give
+    it."""
+    import numpy as np
+
+    folds, host_params, amax = {}, {}, {}
+    for tenant, op, rows, _ in stream:
+        a = float(np.abs(np.asarray(rows, np.float32)).max())
+        amax[(tenant, op)] = max(amax.get((tenant, op), 0.0), a)
+    for (tenant, op), a in amax.items():
+        model = reg.resolve(tenant)
+        if model.quant_folds:
+            folds[(tenant, op)] = (model.quant_folds[op], a)
+            host_params[tenant] = model.host_params
+    return {"alpha_labels": alpha_labels, "folds": folds,
+            "host_params": host_params}
+
+
+def replay_tap(entries, torch):
+    """Every tapped batch's kernel run again eagerly on the card on the
+    same padded batch: bit-equal to what the dispatcher served, and every
+    response the batch's own rows of it. Returns the number of batches."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.serving import quantize
+
+    view = {np.dtype(np.int16): torch.bfloat16}
+    for name, padded, extra, params, out, results in entries:
+        tile = torch.from_numpy(padded).to(CARD)
+        if padded.dtype in view:
+            tile = tile.view(view[padded.dtype])
+        again = quantize.KERNELS[name](tile, *extra, *params).cpu().numpy()
+        check(again.dtype == out.dtype and again.tobytes() == out.tobytes(),
+              f"serving: a served {name} batch of {padded.shape} differs "
+              f"from its kernel's eager run on the same padded batch")
+        n = sum(len(r) for r in results)
+        check(np.concatenate(results).tobytes() == out[:n].tobytes(),
+              f"serving: {name} responses are not the batch's rows")
+    return len(entries)
+
+
+def nearest_rank(values, q):
+    import math
+
+    ordered = sorted(values)
+    return ordered[min(len(ordered), max(1, math.ceil(len(ordered) * q)))
+                   - 1]
+
+
+def serving_cold_start(models, X):
+    """The first request per (op, bucket, transfer dtype) on a fresh
+    registry, unwarmed and then warmed: wall ms of each. Runs first in
+    the phase, before any serving kernel ran at these shapes."""
+    from sq_learn_tpu_torch.serving import (MicroBatchDispatcher,
+                                            ModelRegistry, aot, cache)
+
+    cases = [(t, op) for t in ("alpha", "alpha_bf16", "alpha_i8")
+             for op in ("predict", "transform")]
+    times = {}
+    for arm in ("unwarmed", "warmed"):
+        aot.clear()
+        cache.clear()
+        reg = ModelRegistry(device=CARD)
+        for tenant in ("alpha", "alpha_bf16", "alpha_i8"):
+            mode = {"alpha": None, "alpha_bf16": "bf16",
+                    "alpha_i8": "int8"}[tenant]
+            reg.register(tenant, models["alpha"], quantize=mode)
+        d = MicroBatchDispatcher(reg, background=False, autotune=False,
+                                 max_batch_rows=SERVE_CAP, max_wait_ms=0)
+        if arm == "warmed":
+            d.warm()
+        else:
+            for tenant in ("alpha", "alpha_bf16", "alpha_i8"):
+                reg.resolve(tenant)  # resident, no kernel run
+        lat = []
+        for tenant, op in cases:
+            for rows in LADDER_SIZES:
+                x = X[:rows]
+                t0 = time.perf_counter()
+                d.serve(tenant, op, x)
+                lat.append(1e3 * (time.perf_counter() - t0))
+        stats = d.aot_stats()
+        d.close()
+        check(stats["misses"] == (len(lat) if arm == "unwarmed" else 0),
+              f"cold start {arm}: aot lookups {stats}")
+        times[arm] = lat
+    return times
+
+
+def serving_phase(models, alpha_labels, X, Xcov, small, here, torch):
+    """The serving plane at full width: alpha (BASELINE #3's q-means,
+    70 000 × 784, k=10), gamma (the trial's QPCA(61)) and delta (BASELINE
+    #4's TruncatedSVD(10), 54 wide) with their bf16 twins, alpha's int8
+    twin and SERVE_ALIASES aliases of alpha, on the card. Returns the
+    phase's figures."""
+    import numpy as np
+
+    from sq_learn_tpu_torch import obs
+    from sq_learn_tpu_torch.serving import (MicroBatchDispatcher, aot,
+                                            cache, pin_compile_budgets)
+
+    figures = {}
+    cache.clear()
+    # cold start first, before any serving kernel ran at these shapes
+    cold = serving_cold_start(models, X)
+    figures["cold_start_p99_ms"] = {arm: nearest_rank(v, 0.99)
+                                    for arm, v in cold.items()}
+    figures["cold_start_p50_ms"] = {arm: nearest_rank(v, 0.5)
+                                    for arm, v in cold.items()}
+    print(f"serving cold start, first request per (op, bucket, dtype), "
+          f"{len(cold['warmed'])} each: unwarmed p50/p99 "
+          f"{figures['cold_start_p50_ms']['unwarmed']:.3f}/"
+          f"{figures['cold_start_p99_ms']['unwarmed']:.3f} ms, warmed "
+          f"{figures['cold_start_p50_ms']['warmed']:.3f}/"
+          f"{figures['cold_start_p99_ms']['warmed']:.3f} ms", flush=True)
+
+    aot.clear()
+    reg = serving_registry(models, CARD)
+    t0 = time.perf_counter()
+    warm = reg.warm()
+    warm_s = time.perf_counter() - t0
+    check(set(warm.values()) == {"loaded"}, f"registry warm: {warm}")
+    pin_compile_budgets(0)
+    stream = serving_stream(SERVE_REQUESTS, 11, X, Xcov)
+    refs = serving_refs(reg, stream, alpha_labels)
+    print(f"serving registry: {len(reg.tenants())} tenants warmed in "
+          f"{warm_s:.3f} s, {aot.cache_size()} signatures "
+          f"(ladder {aot.bucket_ladder(8, SERVE_CAP)})", flush=True)
+
+    arms = {}
+    for arm, coalesce in (("batched", True), ("sequential", False)):
+        cache.clear()
+        d = MicroBatchDispatcher(reg, max_batch_rows=SERVE_CAP,
+                                 max_wait_ms=SERVE_WAIT_MS, autotune=False,
+                                 coalesce=coalesce)
+        outs, wall = closed_loop(d, stream)
+        summary = d.close()
+        stats = d.aot_stats()
+        check(stats["misses"] == 0,
+              f"closed loop {arm}: {stats['misses']} dispatches of an "
+              f"unwarmed signature after warm-up")
+        check(summary["requests"] == len(stream) and d.failed_batches() == 0,
+              f"closed loop {arm}: {summary}")
+        held, predicted, sq_err = check_responses(stream, outs, models,
+                                                  refs, f"closed loop "
+                                                  f"{arm}")
+        arms[arm] = dict(qps=len(stream) / wall, wall_s=wall,
+                         p50_ms=summary["p50_ms"], p99_ms=summary["p99_ms"],
+                         occupancy=summary["batch_occupancy"],
+                         batches=summary["batches"],
+                         transfer_bytes=summary["transfer_bytes"],
+                         megabatches=d.megabatches(), held=held,
+                         predicted=predicted, sq_err=sq_err)
+        print(f"serving closed loop, {arm} (coalesce={coalesce}): "
+              f"{len(stream)} requests from {SERVE_CLIENTS} clients in "
+              f"{wall:.3f} s = {arms[arm]['qps']:.1f} QPS, p50 "
+              f"{summary['p50_ms']} ms, p99 {summary['p99_ms']} ms, "
+              f"{summary['batches']} batches, occupancy "
+              f"{summary['batch_occupancy']}, {summary['transfer_bytes']} "
+              f"transfer bytes, {d.megabatches()} megabatches, 0 aot "
+              f"misses; labels held by the margin rule {held}/{predicted} "
+              f"(float32 squared-distance error {sq_err:.3e})", flush=True)
+    check(arms["sequential"]["batches"] == len(stream),
+          "the sequential arm coalesced")
+    check(arms["batched"]["megabatches"] > 0,
+          "the aliases of alpha never shared a launch")
+    figures["closed_loop"] = arms
+
+    # every response of the same stream, bit for bit against its kernel's
+    # eager run on the same padded batch
+    cache.clear()
+    entries = []
+    d = MicroBatchDispatcher(reg, max_batch_rows=SERVE_CAP,
+                             max_wait_ms=SERVE_WAIT_MS, autotune=False,
+                             tap=lambda *a: entries.append(a))
+    outs, _ = closed_loop(d, stream)
+    d.close()
+    served = {id(r) for e in entries for r in e[5]}
+    check(all(id(o) in served for o in outs),
+          "a response did not come from a tapped batch")
+    figures["replayed_batches"] = replay_tap(entries, torch)
+    print(f"serving: all {len(outs)} responses of the stream equal their "
+          f"kernels' eager runs on the same padded batches, bit for bit "
+          f"({figures['replayed_batches']} batches replayed)", flush=True)
+    del entries
+
+    # the open loop, at SERVE_OPEN_LOOP × the batched arm's QPS
+    cache.clear()
+    qps = SERVE_OPEN_LOOP * arms["batched"]["qps"]
+    d = MicroBatchDispatcher(reg, max_batch_rows=SERVE_CAP,
+                             max_wait_ms=SERVE_WAIT_MS, autotune=False)
+    outs, wall = open_loop(d, stream, qps)
+    summary = d.close()
+    check(d.aot_stats()["misses"] == 0, "open loop: aot misses")
+    check_responses(stream, outs, models, refs, "open loop")
+    figures["open_loop"] = dict(offered_qps=qps, qps=len(stream) / wall,
+                                p50_ms=summary["p50_ms"],
+                                p99_ms=summary["p99_ms"],
+                                occupancy=summary["batch_occupancy"],
+                                batches=summary["batches"])
+    print(f"serving open loop at {qps:.1f} QPS offered: "
+          f"{len(stream) / wall:.1f} QPS, p50 {summary['p50_ms']} ms, p99 "
+          f"{summary['p99_ms']} ms, {summary['batches']} batches, "
+          f"occupancy {summary['batch_occupancy']}", flush=True)
+
+    # quantized: the same replay at float32 and at bf16, audits armed
+    env = _env(SQ_SERVE_AUDIT_EVERY=1)
+    qstream = serving_stream(SERVE_QUANT_REQUESTS, 12, X, Xcov,
+                             slots=(("alpha", "predict"),
+                                    ("alpha", "transform")), aliases=False)
+    rec = obs.enable()
+    nbytes = {}
+    try:
+        for twin in ("alpha", "alpha_bf16"):
+            cache.clear()
+            d = MicroBatchDispatcher(reg, background=False, autotune=False,
+                                     max_batch_rows=SERVE_CAP)
+            twin_stream = [(twin, op, rows, idx)
+                           for _, op, rows, idx in qstream]
+            futs = [d.submit(t, op, rows) for t, op, rows, _ in twin_stream]
+            d.flush()
+            outs = [f.result(timeout=60) for f in futs]
+            nbytes[twin] = d.close()["transfer_bytes"]
+            check_responses(twin_stream, outs, models,
+                            serving_refs(reg, twin_stream, alpha_labels),
+                            f"quantized replay {twin}")
+    finally:
+        obs.disable()
+        _env(**env)
+    draws = [g for g in rec.guarantee_records
+             if g["site"].startswith("serving.quant.")]
+    check(draws and not any(g["violated"] for g in draws),
+          f"quantized replay: {len(draws)} audit draws, "
+          f"{sum(g['violated'] for g in draws)} violated")
+    figures["bf16_bytes_ratio"] = nbytes["alpha_bf16"] / nbytes["alpha"]
+    check(figures["bf16_bytes_ratio"] == 0.5,
+          f"bf16 replay moved {figures['bf16_bytes_ratio']} of the float32 "
+          f"replay's bytes")
+    print(f"serving quantized replay ({len(qstream)} requests): bf16 moved "
+          f"{nbytes['alpha_bf16']} bytes against float32's "
+          f"{nbytes['alpha']} (ratio {figures['bf16_bytes_ratio']}); "
+          f"{len(draws)} live audit draws, none outside its fold", flush=True)
+
+    figures["breaker"] = serving_breaker_leg(reg, stream)
+    figures["control"] = serving_control_leg(models, X, Xcov, here)
+    pin_compile_budgets(None)
+
+    # a small tenant on the card against the same tenant on the CPU
+    from sq_learn_tpu_torch.serving import ModelRegistry
+
+    sstream = serving_stream(SERVE_SMALL_REQUESTS, 13, X, Xcov,
+                             slots=(("alpha", "predict"),
+                                    ("alpha", "transform")), aliases=False)
+    served = {}
+    for device in (CARD, "cpu"):
+        cache.clear()
+        sreg = ModelRegistry(device=device)
+        sreg.register("alpha", small, quantize=None)
+        d = MicroBatchDispatcher(sreg, background=False, autotune=False)
+        futs = [d.submit(t, op, rows) for t, op, rows, _ in sstream]
+        d.flush()
+        served[device] = [f.result(timeout=60) for f in futs]
+        d.close()
+    # the card's labels are held against the CPU's under the margin rule
+    cpu_labels = {}
+    for (t, op, rows, idx), o in zip(sstream, served["cpu"]):
+        if op == "predict":
+            cpu_labels.update(zip(idx.tolist(), np.asarray(o).tolist()))
+    labels = np.full(X.shape[0], -1, np.int64)
+    labels[list(cpu_labels)] = list(cpu_labels.values())
+    held = {}
+    for device in (CARD, "cpu"):
+        held[device] = check_responses(sstream, served[device],
+                                       {"alpha": small},
+                                       {"alpha_labels": labels},
+                                       f"small tenant on {device}")
+    print(f"serving small tenant {_host(small.cluster_centers_).shape}: "
+          f"card == CPU ({held[CARD][0]}/{held[CARD][1]} card labels held "
+          f"by the margin rule; transforms of both within "
+          f"{SERVE_DIST_RTOL}·(‖x‖² + ‖c‖²) of float64)", flush=True)
+    return figures
+
+
+def serving_breaker_leg(reg, stream):
+    """An armed transfer fault trips the breaker: the affected futures
+    raise BreakerOpenError, none hangs, no kernel runs (on the card or
+    anywhere else) and serving.failed_batches counts them; after the
+    cooldown the half-open probe (a fresh subprocess on the card) closes
+    the breaker and serving resumes."""
+    from sq_learn_tpu_torch import obs
+    from sq_learn_tpu_torch.resilience import BreakerOpenError, faults
+    from sq_learn_tpu_torch.resilience.supervisor import breaker
+    from sq_learn_tpu_torch.serving import MicroBatchDispatcher, cache
+    from sq_learn_tpu_torch.serving import quantize
+
+    devices = []
+    saved = dict(quantize.KERNELS)
+
+    def counted(fn):
+        def run(*args, **kw):
+            devices.append(args[0].device.type)
+            return fn(*args, **kw)
+        return run
+
+    quantize.KERNELS.update({k: counted(fn) for k, fn in saved.items()})
+    env = _env(SQ_BREAKER_K=3, SQ_RETRY_MAX=5, SQ_RETRY_BACKOFF_S=0.001,
+               SQ_BREAKER_COOLDOWN_S=1.0)
+    rec = obs.enable()
+    try:
+        cache.clear()
+        d = MicroBatchDispatcher(reg, background=False, autotune=False,
+                                 max_batch_rows=SERVE_CAP)
+        faults.arm("put_fail:tiles=0,times=100")
+        futs = [d.submit(t, op, rows) for t, op, rows, _ in stream[:16]]
+        d.flush()
+        faults.disarm()
+        errs = [f.exception(timeout=60) for f in futs]
+        state = breaker.state()
+        failed = d.failed_batches()
+        check(all(isinstance(e, BreakerOpenError) for e in errs)
+              and state == "open" and not devices,
+              f"breaker leg: errors {[type(e).__name__ for e in errs]}, "
+              f"state {state}, kernels run on {devices}")
+        time.sleep(1.0)  # the cooldown
+        t0 = time.perf_counter()
+        futs = [d.submit(t, op, rows) for t, op, rows, _ in stream[16:48]]
+        d.flush()
+        outs = [f.result(timeout=120) for f in futs]
+        resume_s = time.perf_counter() - t0
+        d.close()
+    finally:
+        quantize.KERNELS.update(saved)
+        faults.disarm()
+        obs.disable()
+        _env(**env)
+    probes = [p["outcome"] for p in rec.probe_events]
+    check(breaker.state() == "closed" and probes == ["ok"]
+          and set(devices) == {"cuda"} and len(outs) == 32,
+          f"breaker leg: state {breaker.state()} after the cooldown, probes "
+          f"{probes}, kernels run on {sorted(set(devices))}")
+    check(rec.counters.get("serving.failed_batches") == failed > 0,
+          f"breaker leg: serving.failed_batches "
+          f"{rec.counters.get('serving.failed_batches')} against {failed}")
+    breaker.reset("chip_smoke")
+    print(f"serving breaker: put failures opened it; {len(errs)} futures "
+          f"of {failed} batches raised BreakerOpenError, no kernel ran, "
+          f"serving.failed_batches {failed}; after the cooldown the "
+          f"half-open probe ({probes[0]}) closed it and 32 requests served "
+          f"in {resume_s:.3f} s (probe included)", flush=True)
+    return {"failed_batches": failed, "resume_s": resume_s}
+
+
+def serving_control_leg(models, X, Xcov, here):
+    """Tenants declare p99 targets of SERVE_CONTROL_TARGET × the static
+    arm's measured p99 plus (ε, δ) headroom. The static arm (autotune=False) trips
+    at least one alert; the controller arm none, at a lower summed
+    theoretical cost. Both artifacts validate with 0 schema errors and
+    ``python -m sq_learn_tpu_torch.obs report|budget|control`` exit 0 on
+    the controller's."""
+    import shutil
+    import tempfile
+
+    from sq_learn_tpu_torch import obs
+    from sq_learn_tpu_torch.serving import (MicroBatchDispatcher,
+                                            ModelRegistry, cache)
+    from sq_learn_tpu_torch.serving.control import theoretical_cost
+
+    declared = {"ctl_alpha": (0.01, 1e-3), "ctl_gamma": (0.01, 1e-3),
+                "ctl_delta": (None, 1e-3)}
+    slots = (("ctl_alpha", "predict"), ("ctl_alpha", "transform"),
+             ("ctl_gamma", "transform"), ("ctl_delta", "transform"))
+    stream = serving_stream(SERVE_CONTROL_REQUESTS, 14, X, Xcov, slots=slots,
+                            aliases=False)
+    # the static arm's p99 without targets sets the targets
+    reg = ModelRegistry(device=CARD)
+    for tenant in declared:
+        reg.register(tenant, models[_base(tenant)], quantize=None)
+    cache.clear()
+    d = MicroBatchDispatcher(reg, max_batch_rows=SERVE_CAP,
+                             max_wait_ms=SERVE_WAIT_MS, autotune=False)
+    d.warm()
+    closed_loop(d, stream)
+    target = SERVE_CONTROL_TARGET * d.close()["p99_ms"]
+    tmp = tempfile.mkdtemp(prefix="sq-serve-")
+    out = {}
+    try:
+        for arm, autotune in (("static", False), ("controller", True)):
+            path = os.path.join(tmp, f"{arm}.jsonl")
+            rec = obs.enable(path)
+            reg = ModelRegistry(device=CARD)
+            ctl = reg.controller() if autotune else None
+            for tenant, (eps, delta) in declared.items():
+                reg.register(tenant, models[_base(tenant)], quantize=None,
+                             slo_p99_ms=target, slo_eps=eps,
+                             slo_delta=delta)
+            cache.clear()
+            d = MicroBatchDispatcher(reg, max_batch_rows=SERVE_CAP,
+                                     max_wait_ms=SERVE_WAIT_MS,
+                                     autotune=autotune, autotune_every=8)
+            d.warm()
+            _, wall = closed_loop(d, stream)
+            summary = d.close()
+            obs.disable()
+            if ctl is None:
+                cost = sum(theoretical_cost(delta) for _, delta
+                           in declared.values())
+            else:
+                cost = sum(c["cost_served"]
+                           for c in ctl.contracts().values())
+            valid = obs.schema.validate_jsonl(path)
+            actions = {}
+            for r in rec.control_records:
+                actions[r["action"]] = actions.get(r["action"], 0) + 1
+            out[arm] = dict(alerts=len(rec.alert_records), cost=cost,
+                            p99_ms=summary["p99_ms"],
+                            qps=len(stream) / wall, actions=actions,
+                            errors=valid["errors"], path=path)
+            check(not valid["errors"],
+                  f"control leg {arm}: schema errors {valid['errors'][:3]}")
+        check(out["static"]["alerts"] >= 1,
+              "control leg: the static arm tripped no alert")
+        check(out["controller"]["alerts"] == 0,
+              f"control leg: the controller arm tripped "
+              f"{out['controller']['alerts']} alerts")
+        check(out["controller"]["cost"] < out["static"]["cost"],
+              f"control leg: summed theoretical cost "
+              f"{out['controller']['cost']} not under the static "
+              f"{out['static']['cost']}")
+        env = dict(os.environ, PYTHONPATH=here)
+        codes = {}
+        for cmd in ("report", "budget", "control"):
+            res = subprocess.run(
+                [sys.executable, "-m", "sq_learn_tpu_torch.obs", cmd,
+                 out["controller"]["path"]], cwd=here, env=env,
+                capture_output=True, text=True, timeout=120)
+            codes[cmd] = res.returncode
+        check(set(codes.values()) == {0},
+              f"control leg: obs CLIs on the controller's artifact {codes}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serving control: p99 targets {target:.3f} ms; static arm "
+          f"{out['static']['alerts']} alerts, summed theoretical cost "
+          f"{out['static']['cost']:.6g}; controller arm "
+          f"{out['controller']['alerts']} alerts, cost "
+          f"{out['controller']['cost']:.6g}, actions "
+          f"{out['controller']['actions']}; 0 schema errors; obs report/"
+          f"budget/control exit {codes}", flush=True)
+    for arm in out.values():
+        arm.pop("path")
+        arm.pop("errors")
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -3197,7 +3892,7 @@ def main():
     # BASELINE #4, TruncatedSVD: no kernel launch
     lloyd_step.launches = argkmin.launches = 0
     t0 = time.perf_counter()
-    truncated_svd_path(torch)
+    svd, Xcov = truncated_svd_path(torch)
     check(lloyd_step.launches == argkmin.launches == 0,
           "the TruncatedSVD path launched a kernel")
     print(f"TruncatedSVD path: {time.perf_counter() - t0:.3f} s, lloyd_step "
@@ -3267,6 +3962,19 @@ def main():
     entry["shapes"].append(ooc_entry)
     print(f"out-of-core phase: {time.perf_counter() - t_phase:.3f} s",
           flush=True)
+
+    # the serving phase: the serving kernels are plain torch, so neither
+    # hand-written kernel may launch in it
+    lloyd_step.launches = argkmin.launches = 0
+    t_phase = time.perf_counter()
+    serving = serving_phase({"alpha": classic, "gamma": pca, "delta": svd},
+                            streamed_pred, X, Xcov, on["cpu"], here, torch)
+    check(lloyd_step.launches == argkmin.launches == 0,
+          f"the serving phase launched lloyd_step {lloyd_step.launches} and "
+          f"argkmin {argkmin.launches} times")
+    serving["phase_s"] = time.perf_counter() - t_phase
+    print(f"serving phase: {serving['phase_s']:.3f} s", flush=True)
+    print("serving: " + json.dumps(serving), flush=True)
 
     print(smi)
     print(json.dumps({"kernels": [entry, knn_entry]}))

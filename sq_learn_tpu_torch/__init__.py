@@ -38,7 +38,8 @@ _ORIGIN = {name: module for module, names in _EXPORTS.items()
            for name in names}
 
 __all__ = sorted([*_ORIGIN, "feature_extraction", "obs", "pipeline",
-                  "preprocessing", "resilience", "streaming", "utils"])
+                  "preprocessing", "resilience", "serving", "streaming",
+                  "utils"])
 
 
 def __getattr__(name):

@@ -6,8 +6,10 @@ accessors below, against a registry entry that carries the knob's name,
 kind, default, scope, a one-line doc and the file whose prose describes
 it. The registry holds the knobs of the planes the port has: ``obs``,
 the streaming engine, the transfer supervisor, the fault harness, the
-sketch engine and the out-of-core shard stores. The JAX package's other
-knobs (serving, the elastic mesh, XLA's caches) come with their planes.
+sketch engine, the out-of-core shard stores and the serving plane. The
+JAX package's other knobs (the elastic mesh, XLA's caches, among them
+``SQ_COMPILE_CACHE_DIR``: eager torch compiles nothing to persist) come
+with their planes or have no object here.
 
 Runtime contract, as in the JAX package:
 
@@ -92,6 +94,25 @@ _ENTRIES = [
     _K("SQ_OBS_ROTATE_BYTES", "int", 0, "lib",
        "Rotate the JSONL sink to gzipped <path>.<n>.gz segments at this "
        "many written bytes (0 = off).", "sq_learn_tpu_torch/obs/recorder.py"),
+    _K("SQ_OBS_STRICT", "flag", False, "lib",
+       "With the serving kernels' budgets pinned, a dispatch of a "
+       "signature that was never warmed raises.",
+       "sq_learn_tpu_torch/serving/dispatcher.py"),
+    _K("SQ_OBS_BUDGET_STRICT", "flag", False, "lib",
+       "A tripped multi-window error-budget burn alert raises "
+       "BudgetBurnError.", "sq_learn_tpu_torch/obs/budget.py"),
+    _K("SQ_OBS_BUDGET_WINDOWS", "spec", "60,600", "lib",
+       "Comma-separated rolling error-budget windows in seconds.",
+       "sq_learn_tpu_torch/obs/budget.py"),
+    _K("SQ_OBS_BUDGET_BURN", "float", 2.0, "lib",
+       "Multi-window burn-rate alert threshold (must hold in EVERY "
+       "window).", "sq_learn_tpu_torch/obs/budget.py"),
+    _K("SQ_PROBE_TTL_S", "float", 300.0, "lib",
+       "TTL of a cached device-health probe result (0 disables caching).",
+       "sq_learn_tpu_torch/obs/probe.py"),
+    _K("SQ_PROBE_CACHE", "path", None, "lib",
+       "Cross-process probe-cache file (default: sq_probe_cache.json in "
+       "the temp dir).", "sq_learn_tpu_torch/obs/probe.py"),
     # -- resilience ---------------------------------------------------------
     _K("SQ_FAULTS", "spec", None, "lib",
        "Deterministic fault-injection schedule (armed at import).",
@@ -175,6 +196,84 @@ _ENTRIES = [
     _K("SQ_OOC_ASYNC_CKPT", "flag", True, "lib",
        "Async mid-epoch fit snapshots (0 = synchronous writes).",
        "sq_learn_tpu_torch/oocore/fit.py"),
+    # -- serving plane ------------------------------------------------------
+    _K("SQ_SERVE_MAX_WAIT_MS", "float", 2.0, "lib",
+       "Micro-batch coalescing window.",
+       "sq_learn_tpu_torch/serving/dispatcher.py"),
+    _K("SQ_SERVE_MAX_BATCH_ROWS", "int", 512, "lib",
+       "Row cap of one padded serving batch.",
+       "sq_learn_tpu_torch/serving/dispatcher.py"),
+    _K("SQ_SERVE_MIN_BUCKET_ROWS", "int", 8, "lib",
+       "Smallest padded pow2 serving bucket.",
+       "sq_learn_tpu_torch/serving/dispatcher.py"),
+    _K("SQ_SERVE_REGISTRY_CAP", "int", 8, "lib",
+       "LRU capacity of the checkpoint-backed model registry.",
+       "sq_learn_tpu_torch/serving/registry.py"),
+    _K("SQ_SERVE_AOT", "flag", True, "lib",
+       "Warm the bucket ladder at registry warm (0 skips).",
+       "sq_learn_tpu_torch/serving/aot.py"),
+    _K("SQ_SERVE_CACHE", "flag", True, "lib",
+       "Digest-keyed transform result cache (0 kills it).",
+       "sq_learn_tpu_torch/serving/cache.py"),
+    _K("SQ_SERVE_CACHE_ENTRIES", "int", 256, "lib",
+       "RAM-LRU entry cap of the serving result cache.",
+       "sq_learn_tpu_torch/serving/cache.py"),
+    _K("SQ_SERVE_CACHE_DIR", "path", None, "lib",
+       "Arm the serving cache's compressed disk-spill tier.",
+       "sq_learn_tpu_torch/serving/cache.py"),
+    _K("SQ_SERVE_CACHE_DISK_ENTRIES", "int", 4096, "lib",
+       "Entry bound of the disk-spill tier.",
+       "sq_learn_tpu_torch/serving/cache.py"),
+    _K("SQ_SERVE_QUANTIZE", "str", None, "lib",
+       "Process-default serving quantization: bf16 | int8 | auto | "
+       "none.", "sq_learn_tpu_torch/serving/quantize.py"),
+    _K("SQ_SERVE_QUANT_DELTA", "float", 1e-3, "lib",
+       "Declared audit budget δ_q of the quantization fold.",
+       "sq_learn_tpu_torch/serving/quantize.py"),
+    _K("SQ_SERVE_AUDIT_EVERY", "int", 8, "lib",
+       "Quantization-fold guarantee-draw cadence in batches.",
+       "sq_learn_tpu_torch/serving/quantize.py"),
+    _K("SQ_SERVE_SLO_P50_MS", "float", None, "lib",
+       "Run-level p50 latency SLO target.",
+       "sq_learn_tpu_torch/serving/slo.py"),
+    _K("SQ_SERVE_SLO_P99_MS", "float", None, "lib",
+       "Run-level p99 latency SLO target.",
+       "sq_learn_tpu_torch/serving/slo.py"),
+    _K("SQ_SERVE_SLO_STRICT", "flag", False, "lib",
+       "A violated SLO raises at dispatcher close.",
+       "sq_learn_tpu_torch/serving/slo.py"),
+    _K("SQ_SERVE_SLO_FLUSH_BATCHES", "int", 256, "lib",
+       "Windowed slo/budget record flush stride in batches (0 "
+       "disables).", "sq_learn_tpu_torch/serving/slo.py"),
+    _K("SQ_SERVE_NATIVE", "flag", True, "lib",
+       "One gather into a pooled pinned buffer per batch (0 = the "
+       "per-request path, bit-identical).",
+       "sq_learn_tpu_torch/serving/dispatcher.py"),
+    _K("SQ_SERVE_MEGABATCH", "flag", True, "lib",
+       "Cross-tenant coalescing of same-fingerprint tenants into one "
+       "kernel launch (0 = tenant-scoped batches).",
+       "sq_learn_tpu_torch/serving/dispatcher.py"),
+    _K("SQ_SERVE_AUTOTUNE", "flag", True, "lib",
+       "SLO-driven (ε, δ) autotuner + admission control (0 pins the "
+       "static serving plane bit-identically).",
+       "sq_learn_tpu_torch/serving/control.py"),
+    _K("SQ_SERVE_AUTOTUNE_EVERY", "int", 32, "lib",
+       "Controller evaluation cadence in dispatched batches.",
+       "sq_learn_tpu_torch/serving/control.py"),
+    _K("SQ_SERVE_AUTOTUNE_BURN", "float", 1.5, "lib",
+       "Burn rate at which the controller degrades a tenant (below the "
+       "alert threshold: act BEFORE the SLO gate trips).",
+       "sq_learn_tpu_torch/serving/control.py"),
+    _K("SQ_SERVE_AUTOTUNE_RELAX", "float", 0.25, "lib",
+       "Burn rate below which a budget counts as underspent (relax "
+       "candidate).", "sq_learn_tpu_torch/serving/control.py"),
+    _K("SQ_SERVE_AUTOTUNE_PATIENCE", "int", 3, "lib",
+       "Consecutive underspent evaluations before the controller "
+       "relaxes a tenant's served (ε, δ).",
+       "sq_learn_tpu_torch/serving/control.py"),
+    _K("SQ_SERVE_AUTOTUNE_DELTA_CAP", "float", 4.0, "lib",
+       "Largest served-δ multiple of the declared δ the relax ladder "
+       "may bank.", "sq_learn_tpu_torch/serving/control.py"),
     # -- external (owned upstream; registered so reads are auditable) ------
     _K("CUDA_HOME", "path", None, "external",
        "CUDA toolkit root whose bin/nvcc builds the kernels (then "

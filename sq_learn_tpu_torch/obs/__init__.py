@@ -17,19 +17,24 @@ Quickstart::
 Environment: ``SQ_OBS=1`` enables at import with a JSONL sink at
 ``SQ_OBS_PATH`` (default ``sq_obs.jsonl``); ``SQ_OBS_AUDIT_STRICT=1``
 makes a flagged guarantee site raise. The files are read by
-``python -m sq_learn_tpu_torch.obs {audit,frontier,trace,storage}``, and
-by the JAX package's readers. :mod:`.storage` is the out-of-core plane's
-per-shard ledger; :mod:`.trace` renders a run as a Chrome trace
-(``SQ_OBS_TRACE``); ``SQ_OBS_ROTATE_BYTES`` rotates the sink.
+``python -m sq_learn_tpu_torch.obs
+{audit,frontier,trace,storage,report,budget,control}``, and by the JAX
+package's readers. :mod:`.storage` is the out-of-core plane's per-shard
+ledger; :mod:`.trace` renders a run as a Chrome trace
+(``SQ_OBS_TRACE``); ``SQ_OBS_ROTATE_BYTES`` rotates the sink. The
+serving plane's half: :mod:`.budget` (the per-tenant error-budget
+ledger), :mod:`.control` (the controller's decision history),
+:mod:`.probe` (the device-health probe) and :mod:`.report` (the whole
+run, for a person).
 
 Not ported: ``xla.py`` (XLA's per-compilation cost analysis) and
 ``watchdog.py`` (jit retrace counts) have no object in an eager torch
-port; the rest of the JAX package's ``obs`` (budget, control, fleet,
-report, regress, probe) comes with the planes whose records it reads
-(``ROADMAP.md`` §1).
+port; ``regress`` waits for the port's benchmark and ``fleet`` for the
+multi-GPU mesh (``ROADMAP.md`` §1).
 """
 
-from . import frontier, guarantees, ledger, schema, storage, trace
+from . import (budget, control, frontier, guarantees, ledger, probe,
+               report, schema, storage, trace)
 from .recorder import (NULL_SPAN, Recorder, counter_add, disable, enable,
                        enabled, flush, gauge, get_recorder, record_span,
                        snapshot, span)
@@ -40,6 +45,8 @@ ledger_record = ledger.record
 __all__ = [
     "NULL_SPAN",
     "Recorder",
+    "budget",
+    "control",
     "counter_add",
     "disable",
     "enable",
@@ -51,7 +58,9 @@ __all__ = [
     "guarantees",
     "ledger",
     "ledger_record",
+    "probe",
     "record_span",
+    "report",
     "schema",
     "snapshot",
     "span",

@@ -1,33 +1,40 @@
 """CLI: ``python -m sq_learn_tpu_torch.obs
-<audit|frontier|trace|storage> ...``.
+<audit|frontier|trace|storage|report|budget|control> ...``.
 
 - ``audit <jsonl> [...] [--json] [--confidence C]`` — Clopper–Pearson
   audit of a run's (ε, δ) guarantee records; exits 1 on any flagged site
   (:mod:`.guarantees`).
 - ``frontier <jsonl> [...] [--json]`` — the accuracy-vs-theoretical-
-  quantum-runtime table with its Pareto frontier (:mod:`.frontier`).
+  quantum-runtime table with its Pareto frontier, and the per-tenant
+  effective-(ε, δ) table (:mod:`.frontier`).
 - ``trace <jsonl> [...] [-o out.json]`` — the run as Chrome trace-event
   JSON, several files merged onto pid lanes (:mod:`.trace`).
 - ``storage <jsonl> [...] [--json] [--advise] [--top N]`` — the storage
   ledger: per-surface accounting and the per-shard heat × bytes table of
   the run's ``io`` records, with placement advice; exits 2 when there is
   no ``io`` record (:mod:`.storage`).
+- ``report <jsonl> [...] [--json]`` — the human view of a run: top spans
+  by self time, counters, the quantum ledger, the guarantee audit, the
+  frontier, the storage surfaces, serving SLOs, error budgets, effective
+  (ε, δ), controller decisions, faults and probes (:mod:`.report`).
+- ``budget <jsonl> [...] [--json]`` — the per-tenant error-budget table;
+  exits 1 when a tenant's multi-window burn alert fired, 2 when the
+  artifacts carry no budget record (:mod:`.budget`).
+- ``control <jsonl> [...] [--json]`` — the serving controller's decision
+  history; exits 2 when the artifacts carry no control record
+  (:mod:`.control`).
 
-The JAX package's other subcommands read records of planes the port does
-not have yet; each raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it.
+Two subcommands of the JAX package's CLI raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that brings them.
 """
 
 import sys
 
-#: subcommands of the JAX package's CLI that wait for a plane of the port
+#: subcommands of the JAX package's CLI that wait for a part of the port
 _LATER = {
-    "report": "ROADMAP.md §1 item 7, serving/ and its obs readers (report "
-              "reads the budget and control records)",
-    "regress": "ROADMAP.md §1 item 7, the rest of obs (regress bands the "
-               "JAX package's bench trajectory)",
-    "budget": "ROADMAP.md §1 item 7, serving/ and its obs readers",
-    "control": "ROADMAP.md §1 item 7, serving/ and its obs readers",
+    "regress": "ROADMAP.md §1, the port's benchmark (regress bands a bench "
+               "trajectory, which the port has only after its benchmark "
+               "PR)",
     "fleet": "ROADMAP.md §1 item 6, multi-GPU (the elastic fleet)",
 }
 
@@ -46,12 +53,18 @@ def main(argv=None):
         from .trace import main as run
     elif cmd == "storage":
         from .storage import main as run
+    elif cmd == "report":
+        from .report import main as run
+    elif cmd == "budget":
+        from .budget import main as run
+    elif cmd == "control":
+        from .control import main as run
     elif cmd in _LATER:
         raise NotImplementedError(
             f"'{cmd}' is not ported yet: {_LATER[cmd]}")
     else:
         print(f"unknown subcommand {cmd!r} (expected audit, frontier, "
-              "trace or storage)", file=sys.stderr)
+              "trace, storage, report, budget or control)", file=sys.stderr)
         return 2
     return run(rest)
 

@@ -13,15 +13,18 @@ the trade-off table with its Pareto frontier::
 A point is Pareto-optimal when no other point of the same sweep has both
 higher accuracy and lower theoretical quantum runtime.
 
-The JAX package's per-tenant ``effective_contracts`` table groups draws
-by serving tenant; it comes with ``serving/`` (``ROADMAP.md`` §1).
+:func:`effective_contracts` is the per-tenant table of the serving plane:
+what each tenant's live guarantee draws (the quantized routes' fold
+audits, ``serving.quant.*``) say it was actually served, next to what was
+declared.
 """
 
 import json
 
 from . import recorder
 
-__all__ = ["record_tradeoff", "collect", "pareto", "render", "main"]
+__all__ = ["record_tradeoff", "collect", "effective_contracts", "pareto",
+           "render", "render_effective", "main"]
 
 
 def record_tradeoff(sweep, point, *, accuracy, accuracy_metric=None,
@@ -92,6 +95,81 @@ def pareto(points, acc_key="accuracy", cost_key="q_runtime"):
     return front
 
 
+def effective_contracts(records):
+    """The per-tenant "effective (ε, δ)" table: ``guarantee`` records
+    grouped by their ``attrs.tenant`` (draws without one are skipped).
+    Returns ``{tenant: {sites, draws, violations, delta_declared,
+    delta_lower_bound, eps_declared, eps_effective, eps_max}}`` where
+    ``delta_declared`` is the largest declared failure probability (the
+    loosest contract), ``delta_lower_bound`` the Clopper–Pearson lower
+    bound on the realized failure rate, ``eps_declared`` the largest
+    declared tolerance, ``eps_effective`` the nearest-rank
+    (1 − δ_declared)-quantile of the realized errors and ``eps_max`` the
+    worst realized draw (``sq_learn_tpu/obs/frontier.py:107``)."""
+    import math
+
+    from .guarantees import clopper_pearson_lower
+
+    tenants = {}
+    for r in records:
+        if not isinstance(r, dict) or r.get("type") != "guarantee":
+            continue
+        tenant = (r.get("attrs") or {}).get("tenant")
+        if tenant is None:
+            continue
+        e = tenants.setdefault(str(tenant), {
+            "sites": set(), "draws": 0, "violations": 0,
+            "delta_declared": None, "eps_declared": None,
+            "_realized": []})
+        e["sites"].add(r.get("site"))
+        e["draws"] += 1
+        if r.get("violated"):
+            e["violations"] += 1
+        fp = r.get("fail_prob")
+        if isinstance(fp, (int, float)) and not isinstance(fp, bool):
+            if e["delta_declared"] is None or fp > e["delta_declared"]:
+                e["delta_declared"] = float(fp)
+        tol = r.get("tol")
+        if isinstance(tol, (int, float)) and not isinstance(tol, bool):
+            if e["eps_declared"] is None or tol > e["eps_declared"]:
+                e["eps_declared"] = float(tol)
+        rl = r.get("realized")
+        if isinstance(rl, (int, float)) and not isinstance(rl, bool):
+            e["_realized"].append(float(rl))
+    for e in tenants.values():
+        e["sites"] = sorted(s for s in e["sites"] if s is not None)
+        e["delta_lower_bound"] = clopper_pearson_lower(
+            e["violations"], e["draws"]) if e["draws"] else 0.0
+        realized = sorted(e.pop("_realized"))
+        e["eps_max"] = realized[-1] if realized else None
+        if realized:
+            q = 1.0 - (e["delta_declared"] or 0.0)
+            rank = min(len(realized), max(1, math.ceil(len(realized) * q)))
+            e["eps_effective"] = realized[rank - 1]
+        else:
+            e["eps_effective"] = None
+    return tenants
+
+
+def render_effective(tenants):
+    """Format an :func:`effective_contracts` table (one line per tenant:
+    declared against empirically served (ε, δ))."""
+    lines = []
+    if not tenants:
+        return "  (no tenant-attributed guarantee draws)"
+    for tenant in sorted(tenants):
+        e = tenants[tenant]
+        lines.append(
+            f"  {tenant:<12} {e['violations']:3d}/{e['draws']:<5d} over "
+            f"tol  eps_declared={_fmt(e['eps_declared'])} "
+            f"eps_effective={_fmt(e['eps_effective'])} "
+            f"eps_max={_fmt(e['eps_max'])}  "
+            f"delta_declared={_fmt(e['delta_declared'])} "
+            f"delta_lcb={_fmt(e['delta_lower_bound'])}  "
+            f"sites={','.join(e['sites'])}")
+    return "\n".join(lines)
+
+
 def _fmt(v):
     if v is None:
         return "-"
@@ -139,9 +217,11 @@ def render(sweeps):
 def main(argv):
     """``frontier <jsonl> [more.jsonl ...] [--json]`` — render the
     accuracy-vs-theoretical-runtime table (with its Pareto frontier) of
-    one or more obs JSONL artifacts. Exits 2 on no input and 1 when the
-    artifacts carry no tradeoff record (a frontier view of a run that
-    stated no trade-off is a broken expectation), 0 otherwise."""
+    one or more obs JSONL artifacts, and the per-tenant effective-(ε, δ)
+    table. Exits 2 on no input and 1 when the artifacts carry neither a
+    tradeoff record nor a tenant-attributed draw (a frontier view of a
+    run that stated no trade-off is a broken expectation), 0
+    otherwise."""
     import sys
 
     from ._files import load_jsonl
@@ -156,13 +236,16 @@ def main(argv):
     for p in paths:
         records.extend(load_jsonl(p))
     sweeps = collect(records)
+    effective = effective_contracts(records)
     if as_json:
         doc = {}
         for sweep, pts in sweeps.items():
             pts = sorted(pts, key=lambda p: p.get("point", 0.0))
             doc[sweep] = {"points": pts, "pareto": pareto(pts)}
-        print(json.dumps({"sweeps": doc}))
+        print(json.dumps({"sweeps": doc, "effective": effective}))
     else:
         print("== accuracy vs theoretical quantum runtime ==")
         print(render(sweeps))
-    return 0 if sweeps else 1
+        print("== effective (eps, delta) per tenant (live draws) ==")
+        print(render_effective(effective))
+    return 0 if sweeps or effective else 1

@@ -29,7 +29,7 @@ Record envelope: ``{"v": 11, "schema_version": 11, "ts": <unix seconds>,
 run's sink as a Chrome trace (:mod:`.trace`). The storage ledger
 (:mod:`.storage`) hangs off the recorder and flushes its ``io`` records
 at close. Left out, with their planes (``ROADMAP.md`` §1): the fleet
-envelope and the watchdog, XLA-cost, serving and elastic fields of
+envelope and the watchdog, XLA-cost and elastic fields of
 :func:`snapshot`.
 """
 
@@ -166,8 +166,10 @@ class Recorder:
 
     Public views: ``spans``, ``counters``, ``gauges``, ``gauge_events``,
     ``ledger_entries``, ``guarantee_records``, ``tradeoff_records``,
-    ``fault_events``, ``breaker_events`` and ``io_records`` — plain
-    Python containers, safe to read at any point in the run.
+    ``fault_events``, ``breaker_events``, ``io_records``,
+    ``slo_records``, ``budget_records``, ``alert_records``,
+    ``control_records`` and ``probe_events`` — plain Python containers,
+    safe to read at any point in the run.
     """
 
     def __init__(self, path=None):
@@ -181,6 +183,12 @@ class Recorder:
         self.fault_events = []
         self.breaker_events = []
         self.io_records = []
+        # the serving plane's records (serving/, obs.budget, obs.probe)
+        self.slo_records = []
+        self.budget_records = []
+        self.alert_records = []
+        self.control_records = []
+        self.probe_events = []
         # the storage ledger (obs.storage), attached at the first
         # instrumented shard read and flushed by close()
         self._storage = None
@@ -424,6 +432,29 @@ def snapshot():
         "codec_bytes_out": int(counters.get("oocore.codec_bytes_out", 0)),
         "io_records": len(rec.io_records),
         "storage_surfaces": surfaces_snapshot(rec),
+        # the serving plane: slo summaries, degraded batches, the result
+        # cache's traffic, warmed signatures and their dispatch hits, the
+        # bytes serving moved, budget alerts and controller decisions
+        "slo_records": len(rec.slo_records),
+        "serving_degraded": int(
+            counters.get("serving.degraded_batches", 0)),
+        "serving_failed_batches": int(
+            counters.get("serving.failed_batches", 0)),
+        "serve_cache_hits": int(counters.get("serving.cache_hits", 0)),
+        "serve_cache_misses": int(counters.get("serving.cache_misses", 0)),
+        "serve_cache_spills": int(counters.get("serving.cache_spills", 0)),
+        "serve_cache_disk_hits": int(
+            counters.get("serving.cache_disk_hits", 0)),
+        "aot_compiles": int(counters.get("serving.aot_compiles", 0)),
+        "aot_cache_hits": int(counters.get("serving.aot_cache_hits", 0)),
+        "aot_cache_misses": int(
+            counters.get("serving.aot_cache_misses", 0)),
+        "serving_transfer_bytes": int(
+            counters.get("serving.transfer_bytes", 0)),
+        "budget_records": len(rec.budget_records),
+        "budget_alerts": len(rec.alert_records),
+        "control_records": len(rec.control_records),
+        "probes": len(rec.probe_events),
     }
 
 

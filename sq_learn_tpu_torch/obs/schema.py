@@ -52,9 +52,42 @@ the prefetch and async-checkpoint counters), ``span`` records
 ``oocore.epoch``, ``oocore.assign_labels``, ``oocore.prefetch``) and read
 faults ``fault`` records.
 
-The JAX package's other types (watchdog, probe, xla_cost, regression,
-slo, budget, alert, control, elastic, clock) come with the planes that
-write them (``ROADMAP.md`` §1); until then a record of any of them is
+The serving plane (:mod:`sq_learn_tpu_torch.serving`) writes five more:
+
+=========  ==============================================================
+slo        site (str), requests (int ≥ 0), p50_ms / p99_ms / qps (number
+           ≥ 0), batch_occupancy (number in [0, 1]), degraded (int ≥ 0),
+           violated (bool) — one serving run's (or one tenant's, or one
+           flush window's) latency summary (:mod:`sq_learn_tpu_torch.
+           serving.slo`); optional batches (int), window_s (number ≥ 0),
+           transfer_bytes (int ≥ 0), targets (object: str → number),
+           tenant (str), stages (object: str → number ≥ 0, seconds),
+           attrs (object)
+budget     tenant (str), window_s (number > 0), slo_burn / stat_burn /
+           cp_lower_bound (number in [0, 1] | null), burn_rate (number
+           ≥ 0 | null), alerting (bool) — one tenant × rolling-window
+           error-budget evaluation (:mod:`.budget`); optional requests /
+           over_p50 / over_p99 / draws / draw_violations (int ≥ 0),
+           p50_ms / p99_ms / slo_burn_rate / stat_burn_rate (number ≥ 0),
+           fail_prob, targets (object: str → number), site (str),
+           seq (int ≥ 0)
+alert      tenant (str), kind (str), threshold (number ≥ 0), burn_rates
+           (object: str → number) — one tripped multi-window burn alert;
+           optional site (str), seq (int ≥ 0)
+control    tenant (str), action (str ∈ {plan, hold, relax, tighten,
+           degrade, recover}), seq (int ≥ 0), inputs (object), decision
+           (object) — one evaluation of the serving controller
+           (:mod:`sq_learn_tpu_torch.serving.control`); optional site
+           (str), level (int ≥ 0), predicted (object), realized (object |
+           null), attrs (object)
+probe      outcome (str ∈ {ok, timeout, error, cpu, skipped}), latency_s
+           (number ≥ 0), platform (str) — one device-health probe
+           (:mod:`.probe`); optional cached (bool)
+=========  ==============================================================
+
+The JAX package's other types (watchdog, xla_cost, regression, elastic,
+clock) come with the planes that write them or have no object in an
+eager torch port (``ROADMAP.md`` §1); a record of any of them is
 rejected, with an error that names its type.
 """
 
@@ -69,9 +102,17 @@ KNOWN_VERSIONS = set(range(1, SCHEMA_VERSION + 1))
 
 #: every record type the port writes, machine-readable
 RECORD_TYPES = ("meta", "span", "counter", "gauge", "ledger", "guarantee",
-                "tradeoff", "fault", "breaker", "io")
+                "tradeoff", "fault", "breaker", "io", "slo", "budget",
+                "alert", "control", "probe")
 
 _BREAKER_STATES = frozenset({"closed", "open", "half_open"})
+
+#: the serving controller's action vocabulary
+#: (``sq_learn_tpu/obs/schema.py:254``)
+_CONTROL_ACTIONS = frozenset({"plan", "hold", "relax", "tighten", "degrade",
+                              "recover"})
+
+_PROBE_OUTCOMES = frozenset({"ok", "timeout", "error", "cpu", "skipped"})
 
 
 def _check(cond, errors, msg):
@@ -226,6 +267,58 @@ def validate_record(rec):
             if field in rec:
                 _check(isinstance(rec[field], str), errors,
                        f"io.{field} str")
+    elif t == "slo":
+        _serving_slo(rec, errors)
+    elif t == "budget":
+        _serving_budget(rec, errors)
+    elif t == "alert":
+        _check(isinstance(rec.get("tenant"), str), errors,
+               "alert.tenant str")
+        _check(isinstance(rec.get("kind"), str), errors, "alert.kind str")
+        th = rec.get("threshold")
+        _check(_number(th) and th >= 0, errors,
+               "alert.threshold non-negative number")
+        obj = rec.get("burn_rates")
+        _check(isinstance(obj, dict) and all(
+            isinstance(k, str) and _number(vv) for k, vv in obj.items()),
+            errors, "alert.burn_rates object of str → number")
+        if "seq" in rec:
+            _check(_int(rec["seq"]) and rec["seq"] >= 0, errors,
+                   "alert.seq non-negative int")
+    elif t == "control":
+        _check(isinstance(rec.get("tenant"), str), errors,
+               "control.tenant str")
+        _check(rec.get("action") in _CONTROL_ACTIONS, errors,
+               f"control.action in {sorted(_CONTROL_ACTIONS)}")
+        _check(_int(rec.get("seq")) and rec.get("seq", -1) >= 0, errors,
+               "control.seq non-negative int")
+        for field in ("inputs", "decision"):
+            _check(isinstance(rec.get(field), dict), errors,
+                   f"control.{field} object")
+        if "level" in rec:
+            _check(_int(rec["level"]) and rec["level"] >= 0, errors,
+                   "control.level non-negative int")
+        if "predicted" in rec:
+            _check(isinstance(rec["predicted"], dict), errors,
+                   "control.predicted object")
+        if "realized" in rec:
+            _check(rec["realized"] is None
+                   or isinstance(rec["realized"], dict), errors,
+                   "control.realized object or null")
+        if "site" in rec:
+            _check(isinstance(rec["site"], str), errors,
+                   "control.site str")
+    elif t == "probe":
+        _check(rec.get("outcome") in _PROBE_OUTCOMES, errors,
+               f"probe.outcome in {sorted(_PROBE_OUTCOMES)}")
+        _check(isinstance(rec.get("latency_s"), _NUM)
+               and rec["latency_s"] >= 0, errors,
+               "probe.latency_s non-negative number")
+        _check(isinstance(rec.get("platform"), str), errors,
+               "probe.platform str")
+        if "cached" in rec:
+            _check(isinstance(rec["cached"], bool), errors,
+                   "probe.cached bool")
     else:
         errors.append(
             f"unknown record type {t!r} (the port writes "
@@ -234,6 +327,71 @@ def validate_record(rec):
         _check(isinstance(rec["attrs"], dict), errors,
                f"{t}.attrs object")
     return errors
+
+
+def _serving_slo(rec, errors):
+    _check(isinstance(rec.get("site"), str), errors, "slo.site str")
+    _check(_int(rec.get("requests")) and rec["requests"] >= 0, errors,
+           "slo.requests non-negative int")
+    for field in ("p50_ms", "p99_ms", "qps"):
+        _check(_number(rec.get(field)) and rec[field] >= 0, errors,
+               f"slo.{field} non-negative number")
+    occ = rec.get("batch_occupancy")
+    _check(_number(occ) and 0.0 <= occ <= 1.0, errors,
+           "slo.batch_occupancy number in [0, 1]")
+    _check(_int(rec.get("degraded")) and rec["degraded"] >= 0, errors,
+           "slo.degraded non-negative int")
+    _check(isinstance(rec.get("violated"), bool), errors, "slo.violated bool")
+    if "batches" in rec:
+        _check(_int(rec["batches"]), errors, "slo.batches int")
+    if "transfer_bytes" in rec:
+        _check(_int(rec["transfer_bytes"]) and rec["transfer_bytes"] >= 0,
+               errors, "slo.transfer_bytes non-negative int")
+    if "window_s" in rec:
+        _check(isinstance(rec["window_s"], _NUM) and rec["window_s"] >= 0,
+               errors, "slo.window_s non-negative number")
+    if "targets" in rec:
+        _check(_str_to_number(rec["targets"]), errors,
+               "slo.targets object of str → number")
+    if "tenant" in rec:
+        _check(isinstance(rec["tenant"], str), errors, "slo.tenant str")
+    if "stages" in rec:
+        obj = rec["stages"]
+        _check(isinstance(obj, dict) and all(
+            isinstance(k, str) and _number(vv) and vv >= 0
+            for k, vv in obj.items()), errors,
+            "slo.stages object of str → non-negative number")
+
+
+def _serving_budget(rec, errors):
+    _check(isinstance(rec.get("tenant"), str), errors, "budget.tenant str")
+    w = rec.get("window_s")
+    _check(_number(w) and w > 0, errors, "budget.window_s positive number")
+    for field in ("slo_burn", "stat_burn", "cp_lower_bound"):
+        v_ = rec.get(field, None)
+        _check(field in rec
+               and (v_ is None or (_number(v_) and 0.0 <= v_ <= 1.0)),
+               errors, f"budget.{field} number in [0, 1] or null")
+    br = rec.get("burn_rate", None)
+    _check("burn_rate" in rec and (br is None or (_number(br) and br >= 0)),
+           errors, "budget.burn_rate non-negative number or null")
+    _check(isinstance(rec.get("alerting"), bool), errors,
+           "budget.alerting bool")
+    for field in ("requests", "over_p50", "over_p99", "draws",
+                  "draw_violations"):
+        if rec.get(field) is not None:
+            _check(_int(rec[field]) and rec[field] >= 0, errors,
+                   f"budget.{field} non-negative int")
+    for field in ("p50_ms", "p99_ms", "slo_burn_rate", "stat_burn_rate"):
+        if rec.get(field) is not None:
+            _check(_number(rec[field]) and rec[field] >= 0, errors,
+                   f"budget.{field} non-negative number")
+    if "targets" in rec:
+        _check(_str_to_number(rec["targets"]), errors,
+               "budget.targets object of str → number")
+    if "seq" in rec:
+        _check(_int(rec["seq"]) and rec["seq"] >= 0, errors,
+               "budget.seq non-negative int")
 
 
 def validate_jsonl(path, max_errors=20):

@@ -19,9 +19,11 @@ tiering advisor (counterpart of ``sq_learn_tpu/obs/storage.py``).
   leave, with the bytes and wall clock it would change, from the same
   run's measured codec ratio and per-byte read, cold and decode times.
 
-The port records the ``oocore`` surface; the serving surfaces
-(``serve_cache``, ``compile_cache``) come with ``serving/``. The reader
-half reads every surface of an artifact, the JAX package's included.
+The port records the ``oocore`` surface and the serving result cache's
+disk tier (``serve_cache``: spills, disk hits, promotions, misses). The
+JAX package's ``compile_cache`` surface (XLA's persistent compile cache)
+has no object in an eager torch port. The reader half reads every
+surface of an artifact, the JAX package's included.
 
 CLI: ``python -m sq_learn_tpu_torch.obs storage <jsonl> [...] [--json]
 [--advise] [--top N]``; exits 2 when the artifacts hold no ``io``
@@ -251,14 +253,17 @@ def flush(reason="flush"):
 
 def surfaces_snapshot(rec):
     """The snapshot's per-surface traffic-vs-budget gauges: the ledger's
-    rollup of the ``oocore`` surface joined with the configured RAM
-    budget (a knob read; no directory scan on the snapshot path). The
-    serving surfaces come with ``serving/``."""
+    rollups of the ``oocore`` and ``serve_cache`` surfaces joined with
+    the configured RAM budget, disk-entry cap and spill directory (knob
+    reads; no directory scan on the snapshot path)."""
     led = getattr(rec, "_storage", None)
     agg = led.surfaces() if led is not None else {}
     oocore = dict(agg.get("oocore", {}))
     oocore["ram_budget_bytes"] = _knobs.get_int("SQ_OOC_RAM_BUDGET_BYTES")
-    return {"oocore": oocore}
+    serve = dict(agg.get("serve_cache", {}))
+    serve["disk_entry_cap"] = _knobs.get_int("SQ_SERVE_CACHE_DISK_ENTRIES")
+    serve["dir"] = _knobs.get_raw("SQ_SERVE_CACHE_DIR") or None
+    return {"oocore": oocore, "serve_cache": serve}
 
 
 # ---------------------------------------------------------------------------

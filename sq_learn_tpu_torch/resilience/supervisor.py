@@ -27,10 +27,11 @@ into an in-process CPU escape (it re-pins ``jax_platforms`` to the CPU),
 a fallback that hides the device. Here nothing moves work to the CPU:
 while the breaker is ``open``, a supervised put and ``preflight`` raise
 :class:`BreakerOpenError`, which names the site and the transition that
-opened it. The half-open probe is a private one (:func:`_probe_device`):
-a tiny op on the estimator's device, synchronized under
-``SQ_TILE_DEADLINE_S``; the JAX package's probe (``obs.probe``, with its
-cross-process cache) comes with ``serving/``.
+opened it. The half-open trial (:func:`_probe_device`) calls the
+device-health probe (:func:`sq_learn_tpu_torch.obs.probe.probe_device`)
+with ``force=True``, as the JAX breaker does: a fresh subprocess
+initializes CUDA on the device under ``SQ_TILE_DEADLINE_S``, and its
+outcome feeds this breaker.
 
 With no faults armed and the breaker closed, :func:`put` is one
 ``perf_counter`` pair around the raw put on success; failure handling is
@@ -253,36 +254,21 @@ breaker = CircuitBreaker()
 
 
 def _probe_device(device=None):
-    """Device-health probe for the half-open breaker: a tiny op on
-    ``device`` synchronized under ``SQ_TILE_DEADLINE_S``. Returns the
-    outcome (``ok``, ``cpu``, ``timeout`` or ``error``, or the one an armed
-    ``probe_timeout`` fault forces) after feeding it to :data:`breaker`."""
-    import torch
+    """The half-open breaker's trial: a forced (uncached) device-health
+    probe of ``device`` under ``SQ_TILE_DEADLINE_S``
+    (:func:`sq_learn_tpu_torch.obs.probe.probe_device`, which records it
+    and feeds the outcome to :data:`breaker`). An armed ``probe_timeout``
+    fault decides the trial on any device, the CPU included. Returns the
+    outcome: ``ok``, ``cpu``, ``timeout`` or ``error``."""
+    from ..obs import probe
 
+    platform = "cpu" if device is None else str(device)
     plan = _faults._active
-    outcome = plan.on_probe() if plan is not None else None
-    if outcome is None:
-        dev = torch.device("cpu" if device is None else device)
-        if dev.type != "cuda":
-            outcome = "cpu"
-        else:
-            result = {}
-
-            def run():
-                try:
-                    (torch.ones(1, device=dev) + 1).sum().item()
-                    torch.cuda.synchronize(dev)
-                    result["outcome"] = "ok"
-                except RuntimeError:
-                    result["outcome"] = "error"
-
-            worker = threading.Thread(target=run, daemon=True,
-                                      name="sq-breaker-probe")
-            worker.start()
-            worker.join(_deadline_s())
-            outcome = result.get("outcome", "timeout")
-    breaker.on_probe(outcome)
-    return outcome
+    forced = plan.on_probe() if plan is not None else None
+    if forced is not None:
+        return probe._record(forced, _deadline_s(), platform)["outcome"]
+    return probe.probe_device(timeout_s=_deadline_s(), platform=platform,
+                              force=True)["outcome"]
 
 
 def put(put_fn, tile, tile_index=0, site=None):

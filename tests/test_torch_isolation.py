@@ -1,10 +1,11 @@
 """The port stands alone: no JAX and nothing of ``sq_learn_tpu``.
 
 In a fresh interpreter where ``import jax`` and ``import sklearn`` fail,
-every module of ``sq_learn_tpu_torch``, ``chip_smoke.py``,
-``chip_profile.py`` and ``chip_variants.py`` import, the ``obs``
-package writes an artifact that its ``audit`` and ``frontier``
-subcommands read, and no ``sq_learn_tpu`` module gets loaded.
+every module of ``sq_learn_tpu_torch`` (the serving plane included),
+``chip_smoke.py``, ``chip_profile.py`` and ``chip_variants.py`` import,
+the ``obs`` package writes an artifact that its ``audit``, ``frontier``
+and ``report`` subcommands read, and no ``sq_learn_tpu`` module gets
+loaded.
 ``chip_smoke.py``
 itself fails, and prints no result, without a card or without the
 repository beside it.
@@ -45,6 +46,9 @@ with contextlib.redirect_stdout(io.StringIO()) as cli:
     assert obs_main(["audit", path]) == 0
     assert obs_main(["frontier", path]) == 0
 assert "probe" in cli.getvalue() and "flagged: none" in cli.getvalue()
+with contextlib.redirect_stdout(io.StringIO()) as cli:
+    assert obs_main(["report", path]) == 0
+assert "obs run report" in cli.getvalue()
 bad = sorted(m for m in sys.modules
              if m == "sq_learn_tpu" or m.startswith("sq_learn_tpu."))
 assert not bad, bad
@@ -83,6 +87,19 @@ def test_port_imports_without_jax_or_the_jax_package():
             "sq_learn_tpu_torch.obs.frontier",
             "sq_learn_tpu_torch.obs.schema",
             "sq_learn_tpu_torch.obs.__main__"} <= names
+    # the serving plane and obs's serving readers
+    assert {"sq_learn_tpu_torch.serving",
+            "sq_learn_tpu_torch.serving.aot",
+            "sq_learn_tpu_torch.serving.cache",
+            "sq_learn_tpu_torch.serving.control",
+            "sq_learn_tpu_torch.serving.dispatcher",
+            "sq_learn_tpu_torch.serving.quantize",
+            "sq_learn_tpu_torch.serving.registry",
+            "sq_learn_tpu_torch.serving.slo",
+            "sq_learn_tpu_torch.obs.budget",
+            "sq_learn_tpu_torch.obs.control",
+            "sq_learn_tpu_torch.obs.probe",
+            "sq_learn_tpu_torch.obs.report"} <= names
     # the experiment scaffolding and the remaining classical estimators
     assert {"sq_learn_tpu_torch.preprocessing", "sq_learn_tpu_torch.pipeline",
             "sq_learn_tpu_torch.feature_extraction",

@@ -200,6 +200,18 @@ def _write_artifact(path):
     for _ in range(2):  # SQ_BREAKER_K = 3 consecutive failures trip it
         breaker.record_failure("InjectedTransferError")
     breaker.reset()
+    # a serving run: a tenant with an impossible p99 (slo, budget and
+    # alert records at close), its controller plan, and one probe
+    from sq_learn_tpu_torch import serving
+    from sq_learn_tpu_torch.obs import probe
+
+    reg = serving.ModelRegistry(device="cpu")
+    reg.controller()
+    reg.register("t", est, quantize=None, slo_p99_ms=1e-6)
+    with serving.MicroBatchDispatcher(reg, background=False,
+                                      autotune=False) as d:
+        d.serve("t", "predict", X[:4])
+    probe.probe_device(platform="cpu")
     quantum, classical = est.quantum_runtime_model(*X.shape)
     for delta in (0.0, 0.5):
         obs.frontier.record_tradeoff(
@@ -230,8 +242,8 @@ def test_artifact_validates_under_both_schemas(tmp_path):
 
 def test_schema_rejects_types_the_port_does_not_write():
     base = {"v": 11, "schema_version": 11, "ts": 1.0}
-    errors = obs.schema.validate_record(dict(base, type="slo"))
-    assert len(errors) == 1 and "'slo'" in errors[0]
+    errors = obs.schema.validate_record(dict(base, type="watchdog"))
+    assert len(errors) == 1 and "'watchdog'" in errors[0]
     assert obs.schema.validate_record(dict(base, type="span"))
     assert "unknown schema version" in obs.schema.validate_record(
         {"v": 12, "schema_version": 12, "ts": 1.0, "type": "meta",
@@ -284,19 +296,20 @@ def test_cli_reads_an_artifact_without_torch(tmp_path):
 
 
 def test_cli_usage_and_later_subcommands(tmp_path, capsys):
-    """``trace`` and ``storage`` run now (their own tests are
-    ``tests/test_torch_obs_trace.py`` and ``tests/test_torch_obs_storage.py``);
-    the subcommands whose planes are still missing raise, naming their
-    ROADMAP item."""
+    """``trace``, ``storage``, ``report``, ``budget`` and ``control`` run
+    now (their own tests are ``tests/test_torch_obs_trace.py``,
+    ``tests/test_torch_obs_storage.py``, ``tests/test_torch_obs_report.py``
+    and ``tests/test_torch_obs_budget.py``); ``regress`` (the port's
+    benchmark) and ``fleet`` (multi-GPU) raise, naming their ROADMAP
+    item."""
     from sq_learn_tpu_torch.obs.__main__ import main
 
     assert main([]) == 2
     assert main(["nope"]) == 2
     assert guarantees.main([]) == 2 and obs.frontier.main([]) == 2
-    for cmd, item in (("report", "item 7, serving/"),
-                      ("regress", "item 7, the rest of obs"),
-                      ("budget", "item 7, serving/"),
-                      ("control", "item 7, serving/"),
+    for cmd in ("report", "budget", "control"):
+        assert main([cmd]) == 2  # usage: no artifact named
+    for cmd, item in (("regress", "the port's benchmark"),
                       ("fleet", "item 6")):
         with pytest.raises(NotImplementedError, match=item) as err:
             main([cmd, str(tmp_path)])
@@ -307,6 +320,9 @@ def test_cli_usage_and_later_subcommands(tmp_path, capsys):
     assert obs.frontier.main([str(empty)]) == 1  # no trade-off stated
     assert main(["storage", str(empty)]) == 2  # no io record
     assert main(["trace", str(empty), "-o", str(tmp_path / "t.json")]) == 0
+    assert main(["report", str(empty)]) == 0
+    assert main(["budget", str(empty)]) == 2  # no budget telemetry
+    assert main(["control", str(empty)]) == 2  # no control telemetry
     path = tmp_path / "run.jsonl"
     _write_artifact(path)
     capsys.readouterr()

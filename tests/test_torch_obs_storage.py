@@ -177,7 +177,8 @@ def test_snapshot_carries_the_oocore_surface_and_breaker(tmp_path):
     assert snap["io_records"] == len(rec.io_records) == 1
     assert snap["storage_surfaces"]["oocore"]["reads"] == 1
     assert "ram_budget_bytes" in snap["storage_surfaces"]["oocore"]
-    assert set(snap["storage_surfaces"]) == {"oocore"}
+    assert set(snap["storage_surfaces"]) == {"oocore", "serve_cache"}
+    assert snap["storage_surfaces"]["serve_cache"]["disk_entry_cap"] == 4096
     assert snap["breaker_state"] == "closed" and snap["faults_injected"] == 0
     # the serving surfaces' events, which the JAX package records, read
     led = storage.active()
