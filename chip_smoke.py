@@ -195,7 +195,33 @@ each of which fails the run:
    errors, ``python -m sq_learn_tpu_torch.obs report|budget|control``
    exit 0); a small tenant card == CPU. Its figures print on a
    ``serving:`` JSON line.
-7. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
+7. The mesh phase (``sq_learn_tpu_torch.parallel``) on
+   ``make_mesh(["cuda:0"] * 4)``, four logical shards of the card. First
+   both kernels at the shard shapes, held against their plain versions
+   and timed (the Lloyd step at 17 500 × 784, k=10, R=1, window 0 and
+   0.5; the search at 10 000 × 15 000 × 784, k=7); then, with the counts
+   at 0: the sharded k-means++ init's indices equal to the single-device
+   init's from the same generator; BASELINE #3's δ=0 fit (n_init=10, no
+   init subsample) on the mesh against the single-device fit (ARI 1.0,
+   inertia within MESH_INERTIA_RTOL; from an array init the labels and
+   ``n_iter`` equal too, the init one row of each class); the δ=0.5 δ-means fit on the mesh (ARI_FLOOR
+   against the classes and the single-device fit); QPCA(61) on the trial's
+   data (spectrum within SPECTRUM_RTOL of float64, the Gaussian
+   tomography of the top-k vectors and of the transform within δ); 7-NN
+   on 60 000 rows predicting 10 000 (the single-device lists, exactly one
+   ``argkmin_short`` launch per shard per search); TruncatedSVD(10) on the
+   covertype surrogate (within 3 × JAX_MESH_SVD_ERR of float64); the
+   streamed sharded Gram at STREAM_TILE_BYTES with one retried tile
+   (bit-equal to a clean pass); a one-process NCCL world, whose
+   ``global_mesh()`` δ=0 fit is bit-equal to the in-process 1-shard
+   mesh's; and, where more than one card is visible, the δ=0 fits and
+   the 7-NN search over every card, in this process and as a world of
+   one process per card over NCCL, bit-equal to as many shards on cuda:0.
+   Each fit prints its wall clock, its launches per shard and the mesh
+   over single-device ratio. The ``kernels`` line files the 4-shard
+   runs' launches under the mesh-shard shapes; every other run of the
+   phase joins only the kernels' totals.
+8. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
 import json
@@ -3662,6 +3688,500 @@ def serving_control_leg(models, X, Xcov, here):
     return out
 
 
+# -- the mesh phase ---------------------------------------------------------
+
+MESH_SHARDS = 4
+# the mesh's δ=0 fit against the single-device fit: the same labels, the
+# inertia summed in another order
+MESH_INERTIA_RTOL = 1e-4
+# TruncatedSVD(10, mesh=...) on the covertype surrogate: singular values
+# within 3× the JAX package's float32 error of its mesh route (the sharded
+# Gram route over 8 CPU devices) against float64 on the same data
+# (python tests/test_torch_parallel_pca.py)
+JAX_MESH_SVD_ERR = 3.896713329429239e-06
+
+
+def mesh_kernel_shapes(Xc, Xd, torch):
+    """Both kernels at the 4-shard mesh's shard shapes, held against
+    their plain versions and timed: the Lloyd step on a quarter of the
+    centered rows (17 500 × 784, k=10, R=1) at window 0 and 0.5, and the
+    search of the 10 000 queries against a quarter of the 60 000 training
+    rows (10 000 × 15 000 × 784, k=7). Returns their shape entries; the
+    phase fills in their launches."""
+    per = N // MESH_SHARDS
+    Xs = Xc[:per].contiguous()
+    operands = lloyd_operands(Xs, K, 1, torch)
+    cases = [("float32", Xs, None, 0.0, True),
+             ("float32", Xs, operands["gum"], WINDOW, True)]
+    report = hold_lloyd_cases(cases, operands, torch)
+    main = report[("float32", WINDOW)]
+    lloyd = {"shape": f"{per}x{M} k={K} R=1 (mesh shard)", "window": WINDOW,
+             "launches": None, "max_abs_err": max(main["err"].values()),
+             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "window_0_ms": report[("float32", 0.0)]["ms"],
+             "window_0_plain_ms": report[("float32", 0.0)]["plain_ms"]}
+    T = Xd[:N_TRAIN // MESH_SHARDS].contiguous()
+    Q = Xd[N_TRAIN:].contiguous()
+    knn = argkmin_fold_case(T, torch.sum(T * T, dim=1), Q, KNN_K, None,
+                            torch, path="the mesh phase")
+    knn["shape"] += " (mesh shard)"
+    return lloyd, knn
+
+
+def _timed(fn, torch, tally, shards):
+    """(fn's result, seconds, lloyd_step launches, argkmin launches) of
+    one run on ``shards`` shards (1 for a single-device run); the
+    launches are added to ``tally[shards]`` (None: a process of its
+    own, whose launches no entry counts)."""
+    from sq_learn_tpu_torch.ops.kernels import argkmin, lloyd_step
+
+    before = (lloyd_step.launches, argkmin.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    lloyd, knn = (lloyd_step.launches - before[0],
+                  argkmin.launches - before[1])
+    if tally is not None:
+        tally[shards][0] += lloyd
+        tally[shards][1] += knn
+    return out, time.perf_counter() - t0, lloyd, knn
+
+
+def class_init(X, y):
+    """An array init of one row of each class (the first): a start whose
+    centers lie in different clusters, so no boundary runs through a
+    cluster where summing in another order could move a row."""
+    import numpy as np
+
+    return X[[int(np.flatnonzero(y == c)[0]) for c in range(K)]]
+
+
+def mesh_qkmeans_case(X, y, est, mesh, tally, torch):
+    """q-means at BASELINE #3's shape on the mesh: the sharded init, the
+    δ=0 fits (k-means++ and an array init) against the single-device
+    ones, and the δ=0.5 δ-means fit against the classes and ``est`` (the
+    single-device δ-means fit)."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import QKMeans
+    from sq_learn_tpu_torch.parallel import kmeans_plusplus_sharded
+    from sq_learn_tpu_torch.parallel.init import kmeans_plusplus_batched
+    from sq_learn_tpu_torch.utils import as_generator
+
+    Xd = torch.from_numpy(X).to(CARD)
+    Xc = Xd - Xd.mean(dim=0)
+    xsq = torch.sum(Xc * Xc, dim=1)
+    c1, i1 = kmeans_plusplus_batched(as_generator(0, CARD), Xc, xsq, K,
+                                     n_restarts=10)
+    (cs, i_s), init_s, _, _ = _timed(lambda: kmeans_plusplus_sharded(
+        mesh, as_generator(0, CARD), Xc, xsq, K, n_restarts=10), torch,
+        tally, mesh.size)
+    check(bool(torch.equal(i1, i_s) and torch.equal(c1, cs)),
+          "the sharded k-means++ init's indices differ from the "
+          "single-device init's")
+    print(f"kmeans_plusplus_sharded on {MESH_SHARDS} shards, 10 restarts "
+          f"of {K} centers at {N}×{M}: {init_s:.4f} s, indices equal to "
+          f"the single-device init's from the same generator", flush=True)
+    del Xd, Xc, xsq
+    for what, kw in (("k-means++", dict(n_init=10, init_subsample=0)),
+                     ("array init", dict(init=class_init(X, y)))):
+        fits = {}
+        for name, m in (("single", None), ("mesh", mesh)):
+            fits[name] = _timed(lambda: QKMeans(
+                n_clusters=K, delta=0.0, random_state=0, mesh=m,
+                **kw).fit(X), torch, tally, 1 if m is None else m.size)
+        single, mesh_fit = fits["single"][0], fits["mesh"][0]
+        rel = abs(mesh_fit.inertia_ - single.inertia_) / single.inertia_
+        check(ari(single.labels_, mesh_fit.labels_) == 1.0
+              and rel <= MESH_INERTIA_RTOL,
+              f"δ=0 {what} fit on the mesh: ARI "
+              f"{ari(single.labels_, mesh_fit.labels_)} against the "
+              f"single-device fit, inertia off by {rel} (relative)")
+        if what == "array init":
+            check(np.array_equal(single.labels_, mesh_fit.labels_)
+                  and single.n_iter_ == mesh_fit.n_iter_,
+                  "δ=0 array-init fit on the mesh: labels or n_iter differ "
+                  "from the single-device fit")
+        launches = fits["mesh"][2]
+        check(launches > 0 and launches % MESH_SHARDS == 0,
+              f"δ=0 {what} mesh fit: {launches} lloyd_step launches")
+        print(f"QKMeans δ=0 {what} {N}×{M} on {MESH_SHARDS} shards: "
+              f"{fits['mesh'][1]:.4f} s against {fits['single'][1]:.4f} s "
+              f"on one device (ratio "
+              f"{fits['mesh'][1] / fits['single'][1]:.3f}), n_iter "
+              f"{mesh_fit.n_iter_} (single {single.n_iter_}), lloyd_step "
+              f"launches {launches // MESH_SHARDS} per shard (single "
+              f"{fits['single'][2]}), ARI 1.0 against the single-device "
+              f"fit, inertia within {rel} (relative)", flush=True)
+    delta_fit, wall, launches, _ = _timed(lambda: QKMeans(
+        n_clusters=K, n_init=10, delta=WINDOW, true_distance_estimate=False,
+        random_state=0, mesh=mesh).fit(X), torch, tally, mesh.size)
+    to_y, to_single = ari(y, delta_fit.labels_), ari(est.labels_,
+                                                     delta_fit.labels_)
+    check(min(to_y, to_single) >= ARI_FLOOR and launches > 0
+          and np.isfinite(delta_fit.condition_number_),
+          f"δ-means on the mesh: ARI {to_y} to the classes, {to_single} to "
+          f"the single-device fit (floor {ARI_FLOOR}), {launches} launches")
+    print(f"QKMeans δ={WINDOW} δ-means {N}×{M} on {MESH_SHARDS} shards: "
+          f"{wall:.4f} s, n_iter {delta_fit.n_iter_}, lloyd_step launches "
+          f"{launches // MESH_SHARDS} per shard, ARI {to_y} to the classes "
+          f"and {to_single} to the single-device fit, exact κ "
+          f"{delta_fit.condition_number_}", flush=True)
+
+
+def mesh_qpca_case(X, mesh, tally, torch):
+    """QPCA(61) with every top-k estimator on the mesh, on the trial's
+    data: the spectrum against float64, the Gaussian tomography of the
+    top-k vectors within δ, and the quantum transform (each shard draws
+    its rows' estimates) within δ of the projection."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import QPCA
+
+    fit_kw = dict(estimate_all=True, eps=QPCA_EPS, delta=QPCA_DELTA,
+                  theta_major=QPCA_THETA, true_tomography=False)
+    _, single_s, _, _ = _timed(lambda: QPCA(
+        n_components=QPCA_COMPONENTS, svd_solver="full",
+        random_state=0).fit(X, **fit_kw), torch, tally, 1)
+    pca, wall, _, _ = _timed(lambda: QPCA(
+        n_components=QPCA_COMPONENTS, svd_solver="full", random_state=0,
+        mesh=mesh).fit(X, **fit_kw), torch, tally, mesh.size)
+    X64 = torch.from_numpy(X).to(CARD).double()
+    X64 -= X64.mean(dim=0)
+    ev64 = torch.linalg.eigvalsh(X64.T @ X64).flip(0)[:QPCA_COMPONENTS]
+    ev64 = (ev64 / (N - 1)).cpu().numpy()
+    del X64
+    rel = float(np.max(np.abs(pca.explained_variance_ - ev64) / ev64))
+    check(pca.topk == QPCA_COMPONENTS and rel <= SPECTRUM_RTOL,
+          f"QPCA on the mesh: topk {pca.topk}, spectrum off float64 by "
+          f"{rel} (limit {SPECTRUM_RTOL})")
+    for side, est_v, true_v in (
+            ("right", pca.estimate_right_sv, pca.components_),
+            ("left", pca.estimate_left_sv, pca.left_sv)):
+        err = float(np.linalg.norm(est_v - true_v, axis=1).max())
+        check(err <= QPCA_DELTA, f"QPCA on the mesh: Gaussian tomography "
+                                 f"of the {side} vectors off by {err}")
+    proj = pca.transform(X, classic_transform=False)
+    out, t_s, _, _ = _timed(lambda: pca.transform(
+        X, classic_transform=False, quantum_representation=True,
+        epsilon_delta=QPCA_DELTA, psi=QPCA_DELTA, norm="None",
+        true_tomography=False), torch, tally, mesh.size)
+    Yq = out["quantum_representation_results"]
+    f_err = float(torch.linalg.norm(Yq - proj))
+    check(tuple(Yq.shape) == (N, QPCA_COMPONENTS) and Yq.is_cuda
+          and bool(torch.isfinite(Yq).all()) and 0.0 < f_err <= QPCA_DELTA,
+          f"QPCA on the mesh: the quantum transform's ‖Ŷ − Y‖_F {f_err} "
+          f"(δ = {QPCA_DELTA})")
+    print(f"QPCA(n_components={QPCA_COMPONENTS}) on {MESH_SHARDS} shards, "
+          f"every top-k estimator {N}×{M}: fit {wall:.4f} s against "
+          f"{single_s:.4f} s on one device (ratio {wall / single_s:.3f}); "
+          f"explained "
+          f"variance off float64 by {rel} (limit {SPECTRUM_RTOL}); muA "
+          f"{pca.muA} ({pca.norm_muA}, the exact sweep); quantum transform "
+          f"(sharded tomography) {t_s:.4f} s, ‖Ŷ − Y‖_F {f_err} ≤ δ = "
+          f"{QPCA_DELTA}", flush=True)
+
+
+def mesh_knn_case(X, y, mesh, tally, torch):
+    """7-NN fitted on 60 000 rows, predicting 10 000, on the mesh: one
+    ``argkmin_short`` launch per shard per search, the single-device
+    lists."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import KNeighborsClassifier
+    from sq_learn_tpu_torch.ops.kernels import argkmin_route
+
+    check(argkmin_route(KNN_K, torch.device(CARD)) == "short",
+          f"k={KNN_K} must take argkmin_short")
+    Xtr, ytr, Xte, yte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:], y[N_TRAIN:]
+    single = KNeighborsClassifier(n_neighbors=KNN_K).fit(Xtr, ytr)
+    (d_ref, i_ref), single_s, _, _ = _timed(lambda: single.kneighbors(Xte),
+                                            torch, tally, 1)
+    meshed = KNeighborsClassifier(n_neighbors=KNN_K, mesh=mesh).fit(Xtr, ytr)
+    pred, pred_s, _, launches = _timed(lambda: meshed.predict(Xte), torch,
+                                       tally, mesh.size)
+    check(launches == MESH_SHARDS,
+          f"a 7-NN predict on {MESH_SHARDS} shards launched argkmin "
+          f"{launches} times")
+    (d, i), knn_s, _, launches = _timed(lambda: meshed.kneighbors(Xte),
+                                        torch, tally, mesh.size)
+    check(launches == MESH_SHARDS and np.array_equal(i, i_ref)
+          and np.allclose(d, d_ref, rtol=1e-5, atol=1e-5),
+          f"7-NN on the mesh: {int((i != i_ref).sum())} indices differ from "
+          f"the single-device search ({launches} launches)")
+    acc = float(np.mean(pred == yte))
+    check(acc >= KNN_ACCURACY_FLOOR, f"7-NN on the mesh: accuracy {acc}")
+    print(f"KNeighborsClassifier({KNN_K}) on {MESH_SHARDS} shards, "
+          f"{N_TRAIN}×{M} → {N - N_TRAIN} queries: predict {pred_s:.4f} s, "
+          f"kneighbors {knn_s:.4f} s against {single_s:.4f} s on one device "
+          f"(ratio {knn_s / single_s:.3f}); argkmin_short launches 1 per "
+          f"shard per search; lists equal to the single-device search; "
+          f"accuracy {acc}", flush=True)
+
+
+def mesh_svd_case(Xcov, mesh, tally, torch):
+    """TruncatedSVD(10) on the covertype surrogate over the mesh (the
+    sharded Gram route) against a float64 spectrum made on the card."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.decomposition import TruncatedSVD
+
+    X64 = torch.from_numpy(Xcov).to(CARD).double()
+    s64 = torch.sqrt(torch.linalg.eigvalsh(X64.T @ X64).flip(0)[:SVD_K])
+    s64 = s64.cpu().numpy()
+    del X64
+    _, single_s, _, _ = _timed(lambda: TruncatedSVD(
+        n_components=SVD_K, algorithm="arpack").fit(Xcov), torch, tally, 1)
+    est, wall, _, _ = _timed(lambda: TruncatedSVD(
+        n_components=SVD_K, mesh=mesh).fit(Xcov), torch, tally, mesh.size)
+    err = float(np.max(np.abs(est.singular_values_ - s64) / s64))
+    comps = est.components_.astype(np.float64)
+    orth = float(np.abs(comps @ comps.T - np.eye(SVD_K)).max())
+    check(err <= 3 * JAX_MESH_SVD_ERR and orth <= ORTHONORMAL_ATOL,
+          f"TruncatedSVD on the mesh: singular values {err} off float64 "
+          f"(limit {3 * JAX_MESH_SVD_ERR}), components orthonormal within "
+          f"{orth}")
+    print(f"TruncatedSVD({SVD_K}) on {MESH_SHARDS} shards "
+          f"{COVTYPE_N}×{COVTYPE_M}: {wall:.4f} s against {single_s:.4f} s "
+          f"for the exact fit on one device (ratio {wall / single_s:.3f}), "
+          f"singular values within "
+          f"{err} of float64 (limit {3 * JAX_MESH_SVD_ERR}), components "
+          f"orthonormal within {orth}", flush=True)
+
+
+def mesh_stream_case(X, mesh, tally, torch):
+    """The streamed sharded Gram at STREAM_TILE_BYTES: a pass with one
+    retried tile bit-equal to a clean pass, both near the single-device
+    streamed Gram."""
+    from sq_learn_tpu_torch.parallel.streaming import \
+        streamed_centered_gram_sharded
+    from sq_learn_tpu_torch.resilience import faults
+    from sq_learn_tpu_torch.streaming import streamed_centered_gram
+
+    (mean, G, _), wall, _, _ = _timed(lambda: streamed_centered_gram_sharded(
+        mesh, X, max_bytes=STREAM_TILE_BYTES), torch, tally, mesh.size)
+    faults.arm("put_fail:tiles=3,times=1")
+    try:
+        mean_r, G_r, _ = streamed_centered_gram_sharded(
+            mesh, X, max_bytes=STREAM_TILE_BYTES)
+    finally:
+        plan = faults.disarm()
+    check(len(plan.events) == 1, f"the armed put_fail fired "
+                                 f"{len(plan.events)} times, not once")
+    check(bool(torch.equal(mean, mean_r) and torch.equal(G, G_r)),
+          "the streamed sharded Gram with a retried tile differs from a "
+          "clean pass")
+    (_, G1, _), single_s, _, _ = _timed(lambda: streamed_centered_gram(
+        X, max_bytes=STREAM_TILE_BYTES, device=CARD), torch, tally, 1)
+    rel = float((G - G1).abs().max() / G1.abs().max())
+    check(rel <= 1e-4, f"streamed sharded Gram off the single-device one by "
+                       f"{rel} (relative to its largest entry)")
+    print(f"streamed sharded Gram {N}×{M} on {MESH_SHARDS} shards at "
+          f"{STREAM_TILE_BYTES >> 20} MiB tiles: {wall:.4f} s against "
+          f"{single_s:.4f} s on one device (ratio {wall / single_s:.3f}); "
+          f"with tile 3's "
+          f"put failed once: bit-equal to the clean pass; within {rel} of "
+          f"the single-device streamed Gram", flush=True)
+
+
+def mesh_world_case(X, y, tally, torch):
+    """A one-process NCCL world over a TCP store on localhost: its
+    ``global_mesh()`` δ=0 fit bit-equal to the in-process 1-shard mesh's."""
+    import socket
+
+    import numpy as np
+
+    from sq_learn_tpu_torch.models import QKMeans
+    from sq_learn_tpu_torch.parallel import distributed as dist
+    from sq_learn_tpu_torch.parallel import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    init = class_init(X, y)
+    t0 = time.perf_counter()
+    dist.initialize(f"localhost:{port}", 1, 0, devices=[CARD])
+    try:
+        world_mesh = dist.global_mesh()
+        check(dist._WORLD["backend"] == "nccl" and world_mesh.size == 1,
+              f"the one-process world: backend {dist._WORLD['backend']}, "
+              f"{world_mesh.size} shards")
+        world, wall, launches, _ = _timed(lambda: QKMeans(
+            n_clusters=K, init=init, delta=0.0, mesh=world_mesh).fit(X),
+            torch, tally, world_mesh.size)
+    finally:
+        dist.shutdown()
+    init_s = time.perf_counter() - t0 - wall
+    local, _, _, _ = _timed(lambda: QKMeans(
+        n_clusters=K, init=init, delta=0.0, mesh=make_mesh([CARD])).fit(X),
+        torch, tally, 1)
+    check(np.array_equal(world.labels_, local.labels_)
+          and np.array_equal(world.cluster_centers_, local.cluster_centers_)
+          and world.inertia_ == local.inertia_
+          and world.n_iter_ == local.n_iter_ and launches > 0,
+          "the one-process NCCL world's fit differs from the in-process "
+          "1-shard mesh's")
+    print(f"one-process NCCL world (tcp://localhost:{port}): δ=0 fit on "
+          f"global_mesh() {wall:.4f} s, {launches} lloyd_step launches, "
+          f"bit-equal to the in-process 1-shard mesh; world set-up and "
+          f"teardown {init_s:.4f} s", flush=True)
+
+
+def cards_fits(X, y, mesh, tally, torch, warm=False):
+    """The δ=0 fits (an array init and k-means++ × 10) and the timed 7-NN
+    kneighbors of the 10 000 queries on ``mesh``: their labels, centers,
+    lists and wall clocks. ``warm`` runs a 100-query search first (a
+    process of its own loads the kernel there)."""
+    from sq_learn_tpu_torch.models import KNeighborsClassifier, QKMeans
+
+    out = {}
+    for name, kw in (("array", dict(init=class_init(X, y))),
+                     ("kpp", dict(n_init=10, init_subsample=0,
+                                  random_state=0))):
+        km, out[f"{name}_s"], _, _ = _timed(lambda: QKMeans(
+            n_clusters=K, delta=0.0, mesh=mesh, **kw).fit(X), torch, tally,
+            mesh.size)
+        out[f"{name}_labels"] = km.labels_
+        out[f"{name}_centers"] = km.cluster_centers_
+    knn = KNeighborsClassifier(n_neighbors=KNN_K, mesh=mesh).fit(
+        X[:N_TRAIN], y[:N_TRAIN])
+    if warm:
+        knn.kneighbors(X[N_TRAIN:N_TRAIN + 100])
+    (out["knn_d"], out["knn_idx"]), out["knn_s"], _, _ = _timed(
+        lambda: knn.kneighbors(X[N_TRAIN:]), torch, tally, mesh.size)
+    return out
+
+
+def world_worker(rank, world, port, outdir, here):
+    """One process of a ``world``-process NCCL world, one shard each on
+    ``cuda:<rank>``: :func:`cards_fits` on ``global_mesh()``, written to
+    ``<outdir>/world<rank>.npz``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, here)
+    import sq_learn_tpu_torch as sqt
+    from sq_learn_tpu_torch.datasets import synthetic_surrogate
+    from sq_learn_tpu_torch.parallel import distributed as dist
+
+    dev = f"cuda:{rank}"
+    torch.cuda.set_device(dev)
+    sqt.set_config(device=dev)
+    X, y = synthetic_surrogate(N, M, K, seed=784)
+    dist.initialize(f"localhost:{port}", world, rank, devices=[dev])
+    try:
+        out = cards_fits(X, y, dist.global_mesh(), None, torch, warm=True)
+    finally:
+        dist.shutdown()
+    np.savez(os.path.join(outdir, f"world{rank}.npz"), **out)
+    return 0
+
+
+def cards_world(count):
+    """:func:`world_worker` in ``count`` processes, one per card, over a
+    TCP store on localhost. Returns (each rank's results, seconds with
+    start-up)."""
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--world-worker", str(r), str(count), str(port), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(count)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        world_s = time.perf_counter() - t0
+        check(all(p.returncode == 0 for p in procs),
+              "a world worker failed:\n" + "\n".join(logs)[-4000:])
+        worlds = [dict(np.load(os.path.join(tmp, f"world{r}.npz")))
+                  for r in range(count)]
+    return worlds, world_s
+
+
+def mesh_cards_case(X, y, tally, torch):
+    """Where more than one card is visible: the δ=0 fits and the 7-NN
+    search over every card, in this process and as a world of one NCCL
+    process per card, bit-equal to as many shards on cuda:0."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.parallel import make_mesh
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"meshes run: {MESH_SHARDS} shards on {CARD}, 1 shard in a "
+              f"one-process world; one card visible, so no mesh over "
+              f"several cards", flush=True)
+        return
+    runs = {"cards": cards_fits(X, y, make_mesh(), tally, torch),
+            "one card": cards_fits(X, y, make_mesh([CARD] * count), tally,
+                                   torch)}
+    worlds, world_s = cards_world(count)
+    ref = runs["one card"]
+    for name, got in [("cards", runs["cards"])] + [
+            (f"world rank {r}", w) for r, w in enumerate(worlds)]:
+        for key in ("array_labels", "array_centers", "kpp_labels",
+                    "kpp_centers", "knn_idx", "knn_d"):
+            check(np.array_equal(got[key], ref[key]),
+                  f"{name}: {key} differs from {count} shards on {CARD}")
+    for key, what in (("array_s", "δ=0 fit, array init"),
+                      ("kpp_s", "δ=0 fit, k-means++ × 10"),
+                      ("knn_s", "7-NN kneighbors of 10 000 rows")):
+        print(f"{what} {N}×{M}: {count} cards in one process "
+              f"{runs['cards'][key]:.4f} s; {count} shards on {CARD} "
+              f"{ref[key]:.4f} s; a world of {count} processes over NCCL "
+              f"{max(float(w[key]) for w in worlds):.4f} s (slowest rank)",
+              flush=True)
+    print(f"meshes run: {MESH_SHARDS} shards on {CARD}, 1 shard in a "
+          f"one-process world, {count} cards in one process and a world of "
+          f"{count} NCCL processes ({world_s:.3f} s with start-up): labels, "
+          f"centers and neighbor lists bit-equal to {count} shards on "
+          f"{CARD}", flush=True)
+
+
+def mesh_phase(X, y, est, Xcov, torch):
+    """The mesh paths on ``make_mesh([CARD] * MESH_SHARDS)``. Returns the
+    phase's launches by shard count, ``{shards: [lloyd_step, argkmin]}``
+    (1: the single-device and 1-shard runs held against), every launch
+    of the phase counted once."""
+    import collections
+
+    from sq_learn_tpu_torch.ops.kernels import argkmin, lloyd_step
+    from sq_learn_tpu_torch.parallel import make_mesh
+
+    tally = collections.defaultdict(lambda: [0, 0])
+    mesh = make_mesh([CARD] * MESH_SHARDS)
+    mesh_qkmeans_case(X, y, est, mesh, tally, torch)
+    mesh_qpca_case(X, mesh, tally, torch)
+    mesh_knn_case(X, y, mesh, tally, torch)
+    mesh_svd_case(Xcov, mesh, tally, torch)
+    mesh_stream_case(X, mesh, tally, torch)
+    mesh_world_case(X, y, tally, torch)
+    mesh_cards_case(X, y, tally, torch)
+    counted = [sum(t[j] for t in tally.values()) for j in (0, 1)]
+    check(counted == [lloyd_step.launches, argkmin.launches],
+          f"the mesh phase's runs counted {counted} launches, the kernels "
+          f"{[lloyd_step.launches, argkmin.launches]}")
+    return dict(tally)
+
+
 def main():
     import numpy as np
     import torch
@@ -3976,6 +4496,30 @@ def main():
     print(f"serving phase: {serving['phase_s']:.3f} s", flush=True)
     print("serving: " + json.dumps(serving), flush=True)
 
+    # the mesh phase: both kernels at the shard shapes first, then the
+    # sharded paths with the counts set to 0; their launches join the
+    # kernels'
+    t_phase = time.perf_counter()
+    mesh_lloyd, mesh_knn = mesh_kernel_shapes(Xc, Xd, torch)
+    lloyd_step.launches = argkmin.launches = 0
+    tally = mesh_phase(X, y, est, Xcov, torch)
+    mesh_lloyd["launches"], mesh_knn["launches"] = tally[MESH_SHARDS]
+    check(mesh_lloyd["launches"] > 0 and mesh_knn["launches"] > 0,
+          f"the {MESH_SHARDS}-shard mesh runs launched lloyd_step "
+          f"{mesh_lloyd['launches']} and argkmin {mesh_knn['launches']} "
+          f"times")
+    # the single-device and 1-shard runs launch at the main shapes, and a
+    # mesh over a card count other than MESH_SHARDS at shapes with no
+    # entry: those join only the kernels' totals
+    entry["launches"] += lloyd_step.launches
+    knn_entry["launches"] += argkmin.launches
+    entry["shapes"].append(mesh_lloyd)
+    knn_entry["shapes"].append(mesh_knn)
+    print(f"mesh phase: {time.perf_counter() - t_phase:.3f} s; launches "
+          f"(lloyd_step, argkmin) by shard count: "
+          f"{ {n: tuple(t) for n, t in sorted(tally.items())} }",
+          flush=True)
+
     print(smi)
     print(json.dumps({"kernels": [entry, knn_entry]}))
     print(json.dumps({"ok": True, "device": {
@@ -3985,4 +4529,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--world-worker"]:
+        sys.exit(world_worker(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4], sys.argv[5],
+                              os.path.dirname(os.path.abspath(__file__))))
     sys.exit(main())

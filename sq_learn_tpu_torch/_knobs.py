@@ -6,8 +6,9 @@ accessors below, against a registry entry that carries the knob's name,
 kind, default, scope, a one-line doc and the file whose prose describes
 it. The registry holds the knobs of the planes the port has: ``obs``,
 the streaming engine, the transfer supervisor, the fault harness, the
-sketch engine, the out-of-core shard stores and the serving plane. The
-JAX package's other knobs (the elastic mesh, XLA's caches, among them
+sketch engine, the out-of-core shard stores, the serving plane and the
+multi-process world (torch.distributed's launcher variables). The JAX
+package's other knobs (the elastic mesh, XLA's caches, among them
 ``SQ_COMPILE_CACHE_DIR``: eager torch compiles nothing to persist) come
 with their planes or have no object here.
 
@@ -278,6 +279,20 @@ _ENTRIES = [
     _K("CUDA_HOME", "path", None, "external",
        "CUDA toolkit root whose bin/nvcc builds the kernels (then "
        "/usr/local/cuda, then PATH).", "sq_learn_tpu_torch/ops/_build.py"),
+    # torch.distributed's launcher variables (torchrun sets them): the
+    # counterparts of JAX_NUM_PROCESSES and jax.distributed's coordinator
+    _K("WORLD_SIZE", "int", None, "external",
+       "Number of processes of a multi-process world.",
+       "sq_learn_tpu_torch/parallel/distributed.py"),
+    _K("RANK", "int", None, "external",
+       "This process's index in the multi-process world.",
+       "sq_learn_tpu_torch/parallel/distributed.py"),
+    _K("MASTER_ADDR", "str", None, "external",
+       "Host of the world's TCP rendezvous store.",
+       "sq_learn_tpu_torch/parallel/distributed.py"),
+    _K("MASTER_PORT", "int", None, "external",
+       "Port of the world's TCP rendezvous store.",
+       "sq_learn_tpu_torch/parallel/distributed.py"),
 ]
 
 #: name → Knob

@@ -22,14 +22,20 @@ served it: the kernel (``argkmin_kernel``), its plain version
 (``shortlist``), the float64 search (``plain``) or the streamed search
 (``streamed-device``).
 
+``mesh`` (a :class:`~sq_learn_tpu_torch.parallel.mesh.Mesh`) shards the
+training rows once, at ``fit``, and every search runs
+:func:`~sq_learn_tpu_torch.parallel.neighbors.knn_indices_sharded` (the
+fused search per shard, engine ``"mesh"``), at exact precision: a
+``compute_dtype`` warns that it does not engage there.
+
 Not ported: ``use_pallas`` (the device of the data decides), the host fast
 path, the tiny-predict host routing and the memo of rejected kernels (the
-device a model was fitted on computes every search). ``mesh`` raises
-``NotImplementedError`` naming its item.
+device a model was fitted on computes every search).
 """
 
 import numbers
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -41,10 +47,9 @@ from ..base import (BaseEstimator, ClassifierMixin, check_is_fitted,
 from ..ops.kernels import argkmin
 from ..ops.linalg import (check_compute_dtype, is_reduced,
                           pairwise_sq_distances, row_norms)
+from ..parallel.mesh import check_mesh
 from ..streaming import stream_map_rows
 from ..utils.validation import check_X_y, host_ingest
-
-_MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
 
 #: distance-matrix entries one query block of :func:`knn_indices` may hold
 _BLOCK_ELEMENTS = 1 << 24
@@ -139,7 +144,8 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
     ``n_jobs`` are accepted for compatibility (the search is always the
     brute-force Euclidean one). ``device`` (None = the configured one,
     ``'cuda'`` by default) is where ``fit`` keeps the training rows and
-    where every search runs.
+    where every search runs; with ``mesh`` the training rows live on the
+    mesh's shards and the mesh's first device holds the queries.
     """
 
     def __init__(self, n_neighbors=5, *, weights="uniform",
@@ -157,17 +163,29 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
     def fit(self, X, y):
         """Keep the training rows and their squared norms on the device,
         and the encoded labels on the host."""
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH)
         check_compute_dtype(self.compute_dtype)
-        X, y = check_X_y(X, y, device=resolve_device(self.device))
+        X, y = check_X_y(X, y, device=self._device())
         self.classes_, y_enc = np.unique(y, return_inverse=True)
         self.X_fit_ = X
         self.y_fit_ = y_enc.ravel().astype(np.int32)
         self.n_samples_fit_ = X.shape[0]
         self.n_features_in_ = X.shape[1]
         self._x_sq_fit = row_norms(X, squared=True)
+        if self.mesh is not None:
+            # the corpus goes to its shards once, here; a refit rebuilds
+            from ..parallel.neighbors import shard_train_rows
+
+            self._mesh_state = shard_train_rows(self.mesh, X)
+        elif hasattr(self, "_mesh_state"):
+            del self._mesh_state
         return self
+
+    def _device(self):
+        """Where the training rows live: the mesh's first device under a
+        mesh, else the estimator's device."""
+        if check_mesh(self.mesh) is not None:
+            return resolve_device(self.mesh.lead)
+        return resolve_device(self.device)
 
     def _search(self, X, k):
         """(idx, d2) on the device of the training rows: the fused search
@@ -188,13 +206,32 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
         """((idx, d2), engine): the engine that served the search. Host
         queries above the tile cap stream (``"streamed-device"``): each
         tile is searched on the device as a resident query set is, and
-        only its (rows, k) lists are kept."""
+        only its (rows, k) lists are kept. Under a mesh the train-sharded
+        search serves every query (``"mesh"``)."""
+        if self.mesh is not None:
+            return self._mesh_search(X, k), "mesh"
         if not isinstance(X, torch.Tensor):
             return stream_map_rows(
                 X, lambda tile: self._device_search(tile, k)[0],
                 device=self._train_rows().device,
                 validate=True), "streamed-device"
         return self._device_search(X, k)
+
+    def _mesh_search(self, X, k):
+        """(idx, d2) of the train-sharded search; the shards are placed at
+        fit, or here, once, for a model restored from a checkpoint."""
+        from ..parallel.neighbors import knn_indices_sharded, \
+            shard_train_rows
+
+        if self.compute_dtype is not None:
+            warnings.warn(
+                "compute_dtype engages only the single-device search; the "
+                "mesh path runs exact precision.", RuntimeWarning)
+        if not hasattr(self, "_mesh_state"):
+            self._mesh_state = shard_train_rows(self.mesh,
+                                                self._train_rows())
+        return knn_indices_sharded(self.mesh, None, X, k,
+                                   presharded=self._mesh_state)
 
     def _device_search(self, X, k):
         """((idx, d2), engine) of queries resident on the device."""
@@ -214,7 +251,7 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
         private cache is not saved): both are placed here, once."""
         if not isinstance(self.X_fit_, torch.Tensor):
             self.X_fit_ = torch.as_tensor(np.asarray(self.X_fit_),
-                                          device=resolve_device(self.device))
+                                          device=self._device())
         if getattr(self, "_x_sq_fit", None) is None:
             self._x_sq_fit = row_norms(self.X_fit_, squared=True)
         return self.X_fit_
@@ -236,10 +273,11 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
     def _query(self, X):
         """Validated queries: a tensor on the training rows' device, or,
         for host queries above the tile cap, the host array the search
-        streams (its values are checked on the device, tile by tile)."""
+        streams (its values are checked on the device, tile by tile); not
+        under a mesh, whose search takes them whole."""
         check_is_fitted(self, "n_samples_fit_")
         Xh, over_cap = host_ingest(X)
-        if over_cap:
+        if over_cap and self.mesh is None:
             return check_n_features(self, Xh)
         return check_n_features(
             self, self._validated_X(X, self._train_rows().device))

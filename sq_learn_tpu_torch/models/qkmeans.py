@@ -46,8 +46,17 @@ staged through pinned memory and its values checked there), and
 ``ingest_`` records the route; ``predict`` of such data walks it in tiles
 too. float16 and data that is not float32 run the Lloyd step as plain
 torch ops, as the JAX package runs them off its kernel, and
-``algorithm='elkan'`` warns and runs the Lloyd route. ``mesh`` raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+``algorithm='elkan'`` warns and runs the Lloyd route.
+
+``mesh`` (a :class:`~sq_learn_tpu_torch.parallel.mesh.Mesh`) runs the fit
+data-parallel, as the JAX package's mesh route does: the pre-fit
+statistics on the mesh's first device (exact, no sketch), every
+restart's k-means++ init from
+:func:`~sq_learn_tpu_torch.parallel.init.kmeans_plusplus_sharded` (the
+uniforms the single-device init draws; no init subsample), then the
+restarts one by one through
+:func:`~sq_learn_tpu_torch.parallel.lloyd.lloyd_single_sharded`, the best
+by inertia kept. Host data is not streamed under a mesh.
 """
 
 import functools
@@ -69,7 +78,11 @@ from ..ops.quantum.estimation import inner_product_estimates, ipe_matrix
 from ..ops.quantum.noise import gaussian_estimate
 from ..ops.quantum.norms import _mu_grid
 from ..ops.quantum.tomography import real_tomography
-from ..parallel.init import kmeans_plusplus_batched, resolve_init_subsample
+from ..parallel.init import (kmeans_plusplus_batched,
+                             kmeans_plusplus_sharded, resolve_init_subsample)
+from ..parallel.lloyd import lloyd_single_sharded
+from ..parallel.mesh import (ShardedRows, check_mesh, pad_to_multiple,
+                             shard_rows)
 from ..sketch.engine import (AUDIT_ELEMS, SKETCH_SEED, audit_sketch,
                              exact_bundle, fetch_components,
                              finalize_components, record_sketch_obs,
@@ -104,8 +117,6 @@ def _stop_rule_read_due(step):
 #: guarantee, and the JAX package measured equal estimate errors at
 #: W ∈ {16, 32, 64} with the E-step 4× cheaper at 16
 IPE_WINDOW = 16
-
-_MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
 
 def _on_device(X, device):
     """``X`` as a tensor on ``device``: host data of a streamed fit is
@@ -226,6 +237,13 @@ def pick_labels(generator, d2, window, d2_min=None):
         dim=-1).to(torch.int32)
 
 
+def _row_shards(parts, X):
+    """Per-shard row results (rows along the last dimension) as
+    :class:`~sq_learn_tpu_torch.parallel.mesh.ShardedRows` over ``X``'s
+    mesh and true row count."""
+    return ShardedRows(parts, X.n, X.mesh, dim=-1)
+
+
 def _cluster_partials(X, weights, labels, k):
     """Weighted per-cluster sums and counts via a one-hot product."""
     onehot = (labels[..., None] == torch.arange(k, device=X.device)).to(
@@ -233,7 +251,8 @@ def _cluster_partials(X, weights, labels, k):
     return onehot.transpose(-1, -2) @ X, torch.sum(onehot, dim=-2)
 
 
-def relocate_empty_clusters(X, weights, labels, min_d2, sums, counts):
+def relocate_empty_clusters(X, weights, labels, min_d2, sums, counts,
+                            mesh=None):
     """Reassign empty clusters to the samples farthest from their assigned
     centers (reference ``_relocate_empty_clusters_dense``): the i-th empty
     cluster's partials become the i-th farthest sample, and the donor
@@ -244,20 +263,38 @@ def relocate_empty_clusters(X, weights, labels, min_d2, sums, counts):
     The farthest samples are ranked by a stable descending sort, whose
     ties go to the lowest index as ``lax.top_k``'s do (``torch.topk``
     documents no order on ties). The donor update is a one-hot product,
-    so it is deterministic on the card.
+    so it is deterministic on the card. Zero-weight rows (padding) are
+    never chosen.
+
+    With ``mesh``, X and weights are sharded rows and labels and min_d2
+    their per-shard results (:func:`e_step`'s); ``sums``/``counts`` are
+    already summed. Each shard ranks its own rows, at most min(k, its row
+    count) of them, the candidates are gathered in shard order and ranked
+    again, stably: ties still go to the lowest global row, so the sharded
+    relocation picks what the single-device one picks.
     """
     if sums.ndim == 2:
-        out = relocate_empty_clusters(X, weights, labels[None], min_d2[None],
-                                      sums[None], counts[None])
+        out = relocate_empty_clusters(
+            X, weights, _batched(labels), _batched(min_d2), sums[None],
+            counts[None], mesh=mesh)
         return out[0][0], out[1][0]
     R, k, m = sums.shape
-    score = torch.where(weights > 0, min_d2,
-                        torch.full_like(min_d2, -torch.inf))
-    kk = min(k, score.shape[-1])
-    idx = torch.sort(score, dim=-1, descending=True,
-                     stable=True).indices[:, :kk]            # (R, kk)
-    cand_X, cand_w = X[idx], weights[idx]
-    cand_l = torch.gather(labels.to(torch.int64), 1, idx)
+    if mesh is None:
+        cand = _relocation_candidates(X, weights, labels, min_d2, k)
+    else:
+        parts = [_relocation_candidates(x, w, lab, md2, k) for x, w, lab, md2
+                 in zip(X.shards, weights.shards, labels.shards,
+                        min_d2.shards)]
+        score, cand_X, cand_w, cand_l = (
+            mesh.gather([p[j] for p in parts], dim=1) for j in range(4))
+        kk = min(k, score.shape[1])
+        order = torch.sort(score, dim=-1, descending=True,
+                           stable=True).indices[:, :kk]
+        cand = (None, torch.gather(cand_X, 1, order[..., None].expand(
+            R, kk, m)), torch.gather(cand_w, 1, order),
+            torch.gather(cand_l, 1, order))
+    _, cand_X, cand_w, cand_l = cand
+    kk = cand_w.shape[1]
     empty = counts <= 0
     rank = torch.cumsum(empty.to(torch.int64), dim=-1) - 1
     # an empty cluster beyond the candidate pool keeps its old center
@@ -268,7 +305,7 @@ def relocate_empty_clusters(X, weights, labels, min_d2, sums, counts):
     pt_w = torch.where(served, torch.gather(cand_w, 1, rank),
                        torch.zeros_like(counts))
     pt_l = torch.gather(cand_l, 1, rank)
-    donor = (pt_l[..., None] == torch.arange(k, device=X.device)).to(
+    donor = (pt_l[..., None] == torch.arange(k, device=sums.device)).to(
         sums.dtype)                                          # (R, src, dst)
     moved = pt_w[..., None] * pt_X
     sums = sums - donor.transpose(1, 2) @ moved
@@ -276,6 +313,27 @@ def relocate_empty_clusters(X, weights, labels, min_d2, sums, counts):
     sums = torch.where(served[..., None], moved, sums)
     counts = torch.where(served, pt_w, counts)
     return sums, counts
+
+
+def _batched(rows):
+    """Per-row results with a leading restart dimension of 1 (sharded
+    ones shard by shard)."""
+    if isinstance(rows, torch.Tensor):
+        return rows[None]
+    return rows.map(lambda r: r[None])
+
+
+def _relocation_candidates(X, weights, labels, min_d2, k):
+    """(scores, rows, weights, labels) of the min(k, n) samples of X
+    farthest from their centers, per restart: (R, kk) each, the rows
+    (R, kk, m); zero-weight rows score −inf."""
+    score = torch.where(weights > 0, min_d2,
+                        torch.full_like(min_d2, -torch.inf))
+    kk = min(k, score.shape[-1])
+    vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    idx = idx[:, :kk]                                        # (R, kk)
+    return (vals[:, :kk], X[idx], weights[idx],
+            torch.gather(labels.to(torch.int64), 1, idx))
 
 
 def m_step(generator, X, weights, labels, old_centers, *, delta=0.0,
@@ -338,7 +396,8 @@ def _kernel_dtype(X, compute_dtype):
 def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
                  delta=0.0, mode="classic", max_iter=300, tol=1e-4,
                  patience=None, intermediate_error=False,
-                 true_tomography=True, ipe_q=5, compute_dtype=None):
+                 true_tomography=True, ipe_q=5, compute_dtype=None,
+                 mesh=None):
     """Full q-means runs of a batch of restarts (reference
     ``_kmeans_single_lloyd``, ``_dmeans.py:534-671``).
 
@@ -359,19 +418,50 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
     through :func:`center_tomography` at δ/2; a frozen restart's centers
     stay bit-equal.
 
+    With ``mesh``, X, weights and x_sq_norms are :class:`~sq_learn_tpu_torch.
+    parallel.mesh.ShardedRows` (padding rows of weight 0): each shard runs
+    the step on its rows — the kernel per shard, on its device's stream —
+    with Gumbel and IPE draws from a generator of its own
+    (:meth:`Mesh.generators`, derived from ``generator``), the partial
+    sums, counts and inertia are summed in shard order on the mesh's first
+    device, where the centers, the stop rule and the tomography of the
+    centers (from ``generator``) live, and the relocation ranks the
+    shards' candidates together (:func:`relocate_empty_clusters`).
+
     Returns (labels (R, n), inertia (R,), centers (R, k, m), n_iter (R,),
     history) with history ``{"inertia", "center_shift"}`` (R, max_iter)
-    traces, NaN beyond each restart's ``n_iter``.
+    traces, NaN beyond each restart's ``n_iter``; with ``mesh`` the labels
+    are sharded (rows along their last dimension).
     """
     if mode not in LloydMode:
         raise ValueError(f"mode must be one of {LloydMode}, got {mode!r}")
     kernel_dtype = None if mode == "ipe" else _kernel_dtype(X, compute_dtype)
-    Xk = None if kernel_dtype is None else X.to(kernel_dtype)
     estep = functools.partial(e_step, delta=delta, mode=mode, ipe_q=ipe_q,
                               compute_dtype=compute_dtype)
     window = float(delta) if mode == "delta" else 0.0
-    dev = X.device
-    n = X.shape[0]
+    if mesh is None:
+        shards = [(X, weights, x_sq_norms)]
+        gens = [generator]
+        dev = X.device
+
+        def reduce(parts):
+            return parts[0]
+
+        def spread(t):
+            return [t]
+
+        def rows_out(parts):
+            return parts[0]
+    else:
+        shards = list(zip(X.shards, weights.shards, x_sq_norms.shards))
+        gens = mesh.generators(generator)
+        dev = mesh.lead
+        reduce, spread = mesh.psum, mesh.broadcast
+
+        def rows_out(parts):
+            return _row_shards(parts, X)
+    Xk = [None if kernel_dtype is None else x.to(kernel_dtype)
+          for x, _, _ in shards]
     R, k, _ = centers_init.shape
     centers = centers_init.to(X.dtype)
     it = torch.zeros(R, dtype=torch.int64, device=dev)
@@ -391,22 +481,34 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
             keep = keep & (it - best_it <= patience)
         return keep
 
+    def evaluate(c):
+        """(labels per shard, inertia) of every shard's E-step at c."""
+        outs = [estep(g, x, w, cs, xs) for (x, w, xs), g, cs
+                in zip(shards, gens, spread(c))]
+        return [o[0] for o in outs], reduce([o[1] for o in outs])
+
     active = running()
     for step in range(max_iter):
         if _stop_rule_read_due(step) and not bool(active.any()):
             break
-        if Xk is None:
-            labels, inertia, min_d2 = estep(generator, X, weights, centers,
-                                            x_sq_norms)
-            sums, counts = _cluster_partials(X, weights, labels, k)
-        else:
-            noise = (gumbel((R, n, k), generator, dev) if window > 0
-                     else None)
-            labels, min_d2, sums, counts, inertia = lloyd_step(
-                Xk, weights, x_sq_norms, centers, gumbel=noise,
-                window=window, active=active)
-        sums, counts = relocate_empty_clusters(X, weights, labels, min_d2,
-                                               sums, counts)
+        outs = []
+        for (x, w, xs), xk, g, cs, act in zip(shards, Xk, gens,
+                                               spread(centers),
+                                               spread(active)):
+            if xk is None:
+                labels, inertia, min_d2 = estep(g, x, w, cs, xs)
+                sums, counts = _cluster_partials(x, w, labels, k)
+            else:
+                noise = (gumbel((R, x.shape[0], k), g, x.device)
+                         if window > 0 else None)
+                labels, min_d2, sums, counts, inertia = lloyd_step(
+                    xk, w, xs, cs, gumbel=noise, window=window, active=act)
+            outs.append((labels, min_d2, sums, counts, inertia))
+        sums, counts, inertia = (reduce([o[j] for o in outs])
+                                 for j in (2, 3, 4))
+        sums, counts = relocate_empty_clusters(
+            X, weights, rows_out([o[0] for o in outs]),
+            rows_out([o[1] for o in outs]), sums, counts, mesh=mesh)
         new_centers = _update_centers(sums, counts, centers)
         if intermediate_error and delta > 0:
             new_centers = center_tomography(generator, new_centers, delta / 2,
@@ -426,12 +528,11 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
         active = running()
     # the final post-update centers may beat every evaluated iterate
     # (classical convergence); re-evaluate both, return a consistent triple
-    labels_l, inertia_l, _ = estep(generator, X, weights, centers,
-                                   x_sq_norms)
-    labels_b, inertia_b, _ = estep(generator, X, weights, best_centers,
-                                   x_sq_norms)
+    labels_l, inertia_l = evaluate(centers)
+    labels_b, inertia_b = evaluate(best_centers)
     last_wins = inertia_l < inertia_b
-    labels = torch.where(last_wins[:, None], labels_l, labels_b)
+    labels = rows_out([torch.where(lw[:, None], a, b) for lw, a, b in
+                       zip(spread(last_wins), labels_l, labels_b)])
     inertia = torch.where(last_wins, inertia_l, inertia_b)
     out_centers = torch.where(last_wins[:, None, None], centers, best_centers)
     history = {"inertia": inertia_tr, "center_shift": shift_tr}
@@ -614,12 +715,14 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         return "ipe" if self.true_distance_estimate else "delta"
 
     def _check_ported(self, dtype, mode):
-        """Raise NotImplementedError on what this slice does not cover
-        (``mesh``), and warn where a setting does not engage."""
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH)
+        """Check ``mesh``, and warn where a setting does not engage."""
+        check_mesh(self.mesh)
         if self.algorithm == "elkan":
-            if mode == "classic":
+            if mode == "classic" and self.mesh is not None:
+                warnings.warn(
+                    "algorithm='elkan' runs on the single-host native path; "
+                    "with a mesh the Lloyd kernel is used.", RuntimeWarning)
+            elif mode == "classic":
                 # the JAX package's accelerator resolution; its pruned
                 # Elkan engine is a native host engine, not ported
                 warnings.warn(
@@ -673,7 +776,7 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
     def fit(self, X, y=None, sample_weight=None):
         """Compute q-means clustering (reference ``qMeans_.fit``,
         ``_dmeans.py:1211-1325``) on the estimator's device."""
-        device = resolve_device(self.device)
+        device = self._fit_device()
         # host input above the tile cap streams (the JAX package's staged
         # route, streamed_prestats): it is checked on the host, assembled
         # on the card tile by tile and its values checked there
@@ -692,6 +795,14 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         self._ledger_fit_entry(X)
         self._audit_fit_entry(X, seed, centers)
         return self
+
+    def _fit_device(self):
+        """Where a fit computes: the mesh's first device under a mesh,
+        else the estimator's device."""
+        if self.mesh is not None:
+            check_mesh(self.mesh)
+            return resolve_device(self.mesh.lead)
+        return resolve_device(self.device)
 
     def _fit_impl(self, X, sample_weight, device):
         """The fit body proper; returns the seed of the fit's generator and
@@ -730,8 +841,9 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         generator = as_generator(self.random_state, device)
         seed = generator.initial_seed()
         delta_stat = sketch_delta_stat()
+        # the mesh route keeps the exact statistics, as the JAX package's
         rows = (resolve_sketch_rows(*X.shape, self.sketch)
-                if quantum and delta_stat > 0 else 0)
+                if quantum and delta_stat > 0 and self.mesh is None else 0)
         sk_idx = None
         if rows:
             # the row sample's own generator, seeded apart from the fit's
@@ -756,25 +868,32 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         # the JAX package runs both steps under jit: nothing inside them
         # records a guarantee draw
         with _obs.guarantees.no_audit():
-            with _obs.span("qkmeans.fused_init", n_init=n_init,
-                           subsample=sub or None) as sp:
-                stats, centers0 = fused_init(
-                    generator, X, w, n_init=n_init, init=init,
-                    n_clusters=self.n_clusters, quantum=quantum,
-                    mu_grid=mu_grid, init_subsample=sub,
-                    sketch_idx=sk_idx, stats=stats)
-                sp.sync(centers0)
-            with _obs.span("qkmeans.fused_fit", mode=mode):
-                out = fused_fit(
-                    generator, stats, w, centers0, float(self.tol),
-                    delta=delta, mode=mode, max_iter=self.max_iter,
-                    patience=self._resolved_patience(mode),
-                    intermediate_error=self.intermediate_error,
-                    true_tomography=self.true_tomography, ipe_q=self.ipe_q,
-                    compute_dtype=self._checked_compute_dtype())
-                # the fit's fetch, after every step was queued
-                sketch = out.pop("sketch", None)
+            if self.mesh is not None:
+                out = self._fit_sharded(generator, X, w, init, n_init=n_init,
+                                        quantum=quantum, mu_grid=mu_grid,
+                                        delta=delta, mode=mode)
+                sketch = None
                 host = {name: t.cpu().numpy() for name, t in out.items()}
+            else:
+                with _obs.span("qkmeans.fused_init", n_init=n_init,
+                               subsample=sub or None) as sp:
+                    stats, centers0 = fused_init(
+                        generator, X, w, n_init=n_init, init=init,
+                        n_clusters=self.n_clusters, quantum=quantum,
+                        mu_grid=mu_grid, init_subsample=sub,
+                        sketch_idx=sk_idx, stats=stats)
+                    sp.sync(centers0)
+                with _obs.span("qkmeans.fused_fit", mode=mode):
+                    out = fused_fit(
+                        generator, stats, w, centers0, float(self.tol),
+                        delta=delta, mode=mode, max_iter=self.max_iter,
+                        patience=self._resolved_patience(mode),
+                        intermediate_error=self.intermediate_error,
+                        true_tomography=self.true_tomography, ipe_q=self.ipe_q,
+                        compute_dtype=self._checked_compute_dtype())
+                    # the fit's fetch, after every step was queued
+                    sketch = out.pop("sketch", None)
+                    host = {name: t.cpu().numpy() for name, t in out.items()}
         n_iter = int(host["n_iter"])
         self._set_fit_results(host["labels"].astype(np.int32),
                               host["centers"].astype(np.float32),
@@ -806,6 +925,54 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                 print(f"Iteration {i}, inertia {v:.3f}.")
             print(f"init done, inertia {self.inertia_:.3f}")
         return seed, out["centers"]
+
+    def _fit_sharded(self, generator, X, w, init, *, n_init, quantum,
+                     mu_grid, delta, mode):
+        """The mesh route (the JAX package's restart loop over
+        ``lloyd_single_sharded``): the statistics on the mesh's first
+        device, every restart's start centers (k-means++ from the sharded
+        init), the centered rows sharded once, then each restart's Lloyd
+        run over the mesh, the lowest inertia kept (the first on a tie).
+        Returns the device results :meth:`_fit_impl` fetches."""
+        mesh = self.mesh
+        stats = fit_prestats(X, quantum=quantum, mu_grid=mu_grid)
+        Xc, xsq = stats["Xc"], stats["xsq"]
+        with _obs.span("qkmeans.init", sharded=True, n_init=n_init) as sp:
+            if isinstance(init, torch.Tensor):
+                centers0 = (init.to(stats["mean"]) - stats["mean"])[None]
+            elif isinstance(init, str) and init == "k-means++":
+                centers0, _ = kmeans_plusplus_sharded(
+                    mesh, generator, Xc, xsq, self.n_clusters,
+                    n_restarts=n_init, weights=w)
+            else:
+                centers0 = _restart_inits(
+                    generator, Xc, w, xsq, n_init=n_init, init=init,
+                    n_clusters=self.n_clusters)
+            sp.sync(centers0)
+        tol = (float(self.tol) * stats["var_mean"] if self.tol > 0
+               else torch.zeros_like(stats["var_mean"]))
+        sharded = shard_rows(mesh, *(pad_to_multiple(a, mesh.size)[0]
+                                     for a in (Xc, w, xsq)), n=X.shape[0])
+        best = None
+        for centers in centers0:
+            run = lloyd_single_sharded(
+                mesh, generator, sharded[0], sharded[1], centers,
+                sharded[2], delta=delta, mode=mode, max_iter=self.max_iter,
+                tol=tol, patience=self._resolved_patience(mode),
+                intermediate_error=self.intermediate_error,
+                true_tomography=self.true_tomography, ipe_q=self.ipe_q,
+                compute_dtype=self._checked_compute_dtype())
+            if best is None or float(run[1]) < float(best[1]):
+                best = run
+        labels, inertia, centers, n_iter, history = best
+        out = {"labels": labels.to_tensor(), "inertia": inertia,
+               "centers": centers + stats["mean"], "n_iter": n_iter,
+               "inertia_trace": history["inertia"],
+               "shift_trace": history["center_shift"]}
+        for name in ("eta", "frob", "sigma_min", "mu_vals"):
+            if name in stats:
+                out[name] = stats[name]
+        return out
 
     def _ledger_fit_entry(self, X):
         """Feed the quantum-runtime ledger after a fit: the theoretical

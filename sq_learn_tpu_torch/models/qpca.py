@@ -58,9 +58,17 @@ becomes 'full', ``ingest='monolithic'`` raises, and a fit off that route
 (a QADRA estimator, whose μ(A) needs the resident centered matrix, or
 ``n_samples < 8·n_features``) raises ``ValueError``.
 
-Not ported: ``mesh`` (ROADMAP.md §1 item 6) raises
-``NotImplementedError``; the tiny-fit host routing is not ported at all
-(a fit computes on the device it was given).
+``mesh`` (a :class:`~sq_learn_tpu_torch.parallel.mesh.Mesh`) runs the
+fit data-parallel, as in the JAX package: it forces ``svd_solver='full'``
+(any other explicit solver raises); host data takes
+:func:`~sq_learn_tpu_torch.parallel.pca.centered_svd_sharded`, the
+streamed ingest :func:`~sq_learn_tpu_torch.parallel.streaming.
+streamed_centered_svd_topk_sharded`, μ(A) the exact sweep over the
+sharded centered rows, and the quantum transform
+:func:`~sq_learn_tpu_torch.parallel.pca.tomography_sharded`; a store with
+a mesh raises ``ValueError``. ``compute_dtype`` does not engage under a
+mesh. The tiny-fit host routing is not ported (a fit computes on the
+device it was given).
 """
 
 import math
@@ -80,14 +88,13 @@ from ..ops.quantum import (QuantumState, amplitude_estimation,
                            consistent_phase_estimation, estimate_wald,
                            tomography)
 from ..ops.quantum.norms import _search_grid
+from ..parallel.mesh import ShardedRows, check_mesh
 from ..sketch import engine as _sketch
 from ..streaming import is_row_source, streamed_centered_svd_topk
 from ..utils.plotting import plot_runtime_surfaces
 from ..utils.random import as_generator
 from ..utils.validation import (check_array, host_ingest,
                                 validation_scope)
-
-_MESH = ("mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU")
 
 # ---------------------------------------------------------------------------
 # Functional core
@@ -277,7 +284,8 @@ class QPCA(TransformerMixin, BaseEstimator):
     ``max(4096, 2·m)`` rows when the centered matrix is ≥4× larger and
     tall, and ``muA`` is the certified upper bound. ``ingest`` is 'auto',
     'monolithic' or 'streamed' (the module docstring says which fits
-    stream); ``mesh`` raises.
+    stream); ``mesh`` runs the fit data-parallel (the module docstring
+    says how).
     """
 
     def __init__(self, n_components=None, *, copy=True, whiten=False,
@@ -371,7 +379,7 @@ class QPCA(TransformerMixin, BaseEstimator):
             if hasattr(self, attr):
                 delattr(self, attr)
 
-        device = resolve_device(self.device)
+        device = self._device()
         # host input is checked on the host first: a streamed fit never
         # uploads X whole, so its values are checked tile by tile (a
         # store's too: its manifest and per-read CRCs check its bytes)
@@ -394,9 +402,13 @@ class QPCA(TransformerMixin, BaseEstimator):
         return self
 
     def _check_ported(self, X):
-        """Raise NotImplementedError on what the port does not cover."""
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH)
+        """Check ``mesh``, ``ingest`` and ``compute_dtype``; a store with
+        a mesh raises, as in the JAX package."""
+        check_mesh(self.mesh)
+        if self.mesh is not None and is_row_source(X):
+            raise ValueError(
+                "store-backed qPCA fits are single-device (the sharded "
+                "streamed route takes host arrays)")
         if self.ingest not in ("auto", "monolithic", "streamed"):
             raise ValueError(
                 f"ingest must be 'auto', 'monolithic' or 'streamed', got "
@@ -438,6 +450,14 @@ class QPCA(TransformerMixin, BaseEstimator):
             raise ValueError(
                 f"quantum estimators require svd_solver='full' (or 'auto'); "
                 f"got svd_solver={solver!r} with quantum fit kwargs set")
+        if self.mesh is not None:
+            # the truncated path is single-device: dropping the mesh would
+            # hand the large inputs a mesh targets to one device
+            if self.svd_solver not in ("auto", "full"):
+                raise ValueError(
+                    f"mesh requires svd_solver='full' (or 'auto'); got "
+                    f"svd_solver={self.svd_solver!r}")
+            solver = "full"
         self._fit_svd_solver = solver
         return n_components, solver
 
@@ -475,7 +495,8 @@ class QPCA(TransformerMixin, BaseEstimator):
             and isinstance(n_components, numbers.Integral)
             and n_components > 0
             and Xh is not None
-            and self._partial_u_route(n_components, *shape))
+            and (self._partial_u_route(n_components, *shape)
+                 if self.mesh is None else shape[0] >= shape[1]))
         if self.ingest == "streamed":
             if not structural:
                 warnings.warn(
@@ -530,6 +551,9 @@ class QPCA(TransformerMixin, BaseEstimator):
                 use_classical_components=use_classical_components)
 
     def _device(self):
+        """The fit's device: the mesh's first under a mesh."""
+        if self.mesh is not None:
+            return resolve_device(check_mesh(self.mesh).lead)
         return resolve_device(self.device)
 
     def _next_key(self):
@@ -544,8 +568,10 @@ class QPCA(TransformerMixin, BaseEstimator):
         return gen
 
     def _partial_u_route(self, n_components, n_samples, n_features):
-        """True when the fit takes the partial-U Gram route."""
-        return (isinstance(n_components, numbers.Integral)
+        """True when the fit takes the partial-U Gram route (never under
+        a mesh)."""
+        return (self.mesh is None
+                and isinstance(n_components, numbers.Integral)
                 and 0 < n_components and n_samples >= 8 * n_features)
 
     def _need_mu(self):
@@ -575,7 +601,22 @@ class QPCA(TransformerMixin, BaseEstimator):
                 f">= 1, was of type={type(n_components)!r}")
 
         cd = check_compute_dtype(self.compute_dtype)
-        if self.ingest_ == "streamed":
+        if self.mesh is not None:
+            from ..parallel.pca import centered_svd_sharded
+            from ..parallel.streaming import \
+                streamed_centered_svd_topk_sharded
+
+            if self.ingest_ == "streamed":
+                # tiles split over the mesh, partial Grams summed in shard
+                # order: X is never resident
+                from ..resilience import breaker
+
+                breaker.preflight("qpca.fit", self._generator.device)
+                mean, U, S, Vt = streamed_centered_svd_topk_sharded(
+                    self.mesh, X, int(n_components), validate=True)
+            else:
+                mean, U, S, Vt = centered_svd_sharded(self.mesh, X)
+        elif self.ingest_ == "streamed":
             # the same route, built tile by tile: the m×m Gram and the
             # column mean accumulate on the card while the next tile
             # uploads; X is never resident there. A tripped breaker gets
@@ -643,6 +684,9 @@ class QPCA(TransformerMixin, BaseEstimator):
         self.frob_norm = float(np.sqrt((S_np**2).sum()))
         # left singular vectors, row-wise; only the kept columns transfer.
         # The extractions below read both blocks where they already are
+        if isinstance(U, ShardedRows):
+            # only the kept columns leave their shards
+            U = U.map(lambda u: u[:, :n_components]).to_tensor()
         left = U[:, :n_components].T
         self.left_sv = left.cpu().numpy()
         self._fit_rows = (Vt[:n_components], left)
@@ -654,7 +698,15 @@ class QPCA(TransformerMixin, BaseEstimator):
     def _fit_estimators(self, X, mean):
         """μ(A) and the quantum estimators ``fit`` asked for, on the
         fitted spectrum."""
-        if self._need_mu():
+        if self._need_mu() and self.mesh is not None:
+            # the exact sweep over the sharded centered rows (padding rows
+            # exactly zero), as the JAX package's mesh route takes it
+            from ..parallel.pca import best_mu_sharded, centered_sharded
+
+            self.norm_muA, self.muA = best_mu_sharded(
+                centered_sharded(self.mesh, X, mean), 0.0, 1.0, 0.1)
+            self.sketch_info_ = None
+        elif self._need_mu():
             # the sketched μ route over the grid of the historical
             # best_mu(Xc, 0.0, step=0.1) call; muA is the certified upper
             # bound (never above ‖A‖_F). Computed on every fit, never
@@ -1138,8 +1190,16 @@ class QPCA(TransformerMixin, BaseEstimator):
         ``compute_quantum_representation``, ``_qPCA.py:859-880``)."""
         if type == "est_representation":
             return self.compute_error(X, epsilon_delta, true_tomography)
-        Y = tomography(self._next_key(), X, psi,
-                       true_tomography=true_tomography)
+        if self.mesh is not None:
+            # each shard draws the estimates of its own rows
+            from ..parallel.pca import tomography_sharded
+
+            Y = tomography_sharded(self.mesh, self._next_key(), X, psi,
+                                   true_tomography=true_tomography
+                                   ).to_tensor()
+        else:
+            Y = tomography(self._next_key(), X, psi,
+                           true_tomography=true_tomography)
         if type == "q_state":
             f_norm = torch.linalg.norm(Y)
             row_norms_ = torch.linalg.norm(Y, dim=1) / f_norm

@@ -15,6 +15,13 @@ streams X in tiles under ``ingest='streamed'``, or under 'auto' when X is
 larger than the tile cap (:func:`~sq_learn_tpu_torch.streaming.
 streamed_randomized_svd`: the range finder and power iterations as tiled
 passes, X never resident on the card); ``ingest_`` records the route.
+
+``mesh`` (a :class:`~sq_learn_tpu_torch.parallel.mesh.Mesh`) has one
+engine, as in the JAX package: the sample-sharded Gram-route SVD of
+:func:`~sq_learn_tpu_torch.parallel.pca.uncentered_svd_sharded`, with the
+data on the mesh's first device (not streamed). Neither algorithm names
+that route, so an explicit ``'arpack'`` warns: the Gram route squares the
+condition number, and float32 trailing components lose accuracy.
 """
 
 import time
@@ -28,11 +35,10 @@ from .._config import resolve_device
 from ..base import (BaseEstimator, TransformerMixin, check_is_fitted,
                     check_n_features)
 from ..ops.linalg import randomized_svd, svd_flip_v, thin_svd
+from ..parallel.mesh import check_mesh
 from ..streaming import streamed_randomized_svd
 from ..utils.random import as_generator
 from ..utils.validation import host_ingest
-
-_MESH = "mesh is not ported yet: ROADMAP.md §1 item 6, multi-GPU"
 
 
 class TruncatedSVD(TransformerMixin, BaseEstimator):
@@ -40,7 +46,8 @@ class TruncatedSVD(TransformerMixin, BaseEstimator):
 
     Parameters are the JAX ``TruncatedSVD``'s, plus ``device`` (None = the
     configured one). ``ingest`` is 'auto', 'monolithic' or 'streamed' (the
-    module docstring says which fits stream); ``mesh`` raises.
+    module docstring says which fits stream); ``mesh`` runs the sharded
+    Gram route.
     """
 
     def __init__(self, n_components=2, *, algorithm="randomized", n_iter=5,
@@ -60,8 +67,7 @@ class TruncatedSVD(TransformerMixin, BaseEstimator):
         return self
 
     def fit_transform(self, X, y=None):
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH)
+        check_mesh(self.mesh)
         if self.ingest not in ("auto", "monolithic", "streamed"):
             raise ValueError(
                 f"ingest must be 'auto', 'monolithic' or 'streamed', got "
@@ -70,7 +76,8 @@ class TruncatedSVD(TransformerMixin, BaseEstimator):
             raise ValueError(
                 f"algorithm must be 'randomized' or 'arpack', got "
                 f"{self.algorithm!r}")
-        device = resolve_device(self.device)
+        device = resolve_device(self.device if self.mesh is None
+                                else self.mesh.lead)
         # host input is checked on the host first: a streamed fit never
         # uploads X whole, so its values are checked tile by tile
         Xh, over_cap = host_ingest(X)
@@ -105,7 +112,7 @@ class TruncatedSVD(TransformerMixin, BaseEstimator):
         the card; ``over_cap`` from :func:`host_ingest`). 'streamed' on another route warns and ingests
         monolithically, on the same device; 'auto' streams above the tile
         cap (the JAX package's rule)."""
-        if self.ingest == "monolithic":
+        if self.ingest == "monolithic" or self.mesh is not None:
             return False
         structural = self.algorithm == "randomized" and Xh is not None
         if self.ingest == "streamed":
@@ -143,7 +150,20 @@ class TruncatedSVD(TransformerMixin, BaseEstimator):
 
     def _fit_transform_impl(self, X, k):
         n_features = X.shape[1]
-        if self.algorithm == "randomized":
+        if self.mesh is not None:
+            from ..parallel.pca import uncentered_svd_sharded
+
+            if self.algorithm == "arpack":
+                warnings.warn(
+                    "algorithm='arpack' requests the exact thin SVD, but "
+                    "mesh= dispatches to the sample-sharded Gram route "
+                    "(condition number squared; float32 trailing "
+                    "components are less accurate).", RuntimeWarning)
+            U, S, Vt = uncentered_svd_sharded(self.mesh, X)
+            # only the kept columns leave their shards
+            U = U.map(lambda u: u[:, :k]).to_tensor()
+            S, Vt = S[:k], Vt[:k]
+        elif self.algorithm == "randomized":
             U, S, Vt = randomized_svd(as_generator(self.random_state,
                                                    X.device),
                                       X, k, n_iter=self.n_iter)

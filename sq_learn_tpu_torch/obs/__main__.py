@@ -35,7 +35,8 @@ _LATER = {
     "regress": "ROADMAP.md §1, the port's benchmark (regress bands a bench "
                "trajectory, which the port has only after its benchmark "
                "PR)",
-    "fleet": "ROADMAP.md §1 item 6, multi-GPU (the elastic fleet)",
+    "fleet": "ROADMAP.md §1 item 6b, the elastic world (the fleet "
+             "timeline reads its records)",
 }
 
 

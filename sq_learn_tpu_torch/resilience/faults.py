@@ -52,7 +52,7 @@ Kinds and their params (every param optional unless noted):
     (:meth:`~FaultPlan.corrupt_read`). ``tiles=`` selects shards.
 ``host_fail``, ``host_stall``
     The elastic-mesh kinds (:meth:`FaultPlan.host_event`); no caller until
-    the mesh (item 6).
+    the elastic world (item 6b).
 
 Example: ``SQ_FAULTS="put_fail:tiles=2,times=1;probe_timeout:n=2"``.
 

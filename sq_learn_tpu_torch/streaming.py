@@ -53,9 +53,10 @@ CRC-checked shard reads) through the store's bounded readahead view
 resumed pass never reads the shards before its cursor. A store-backed
 fold's checkpoint is keyed on the store's content-complete fingerprint.
 
-Not ported: the mesh variant (``parallel/streaming.py``, ROADMAP.md §1
-item 6); the per-kernel compile budgets and XLA cost records (an eager
-program compiles nothing).
+The mesh variant, each tile's rows split over a mesh's shards, is
+:mod:`sq_learn_tpu_torch.parallel.streaming`. Not ported: the per-kernel
+compile budgets and XLA cost records (an eager program compiles
+nothing).
 """
 
 import functools

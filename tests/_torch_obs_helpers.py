@@ -19,7 +19,8 @@ JAX_ONLY_SPANS = {
     "qkmeans.native_init": "the native host engines are not ported",
     "qkmeans.native_lloyd": "the native host engines are not ported",
     "qkmeans.prestats": "the host engine's prestats (native route only)",
-    "qkmeans.init": "the staged (non-fused) fit route is not ported",
+    "qkmeans.init": ("the staged (non-fused) fit route is ported only "
+                     "under a mesh, whose parity case holds it"),
     "xla.capture": "XLA's cost analysis has no torch counterpart",
 }
 

@@ -106,6 +106,10 @@ def test_port_imports_without_jax_or_the_jax_package():
             "sq_learn_tpu_torch.utils.murmurhash",
             "sq_learn_tpu_torch.models.minibatch",
             "sq_learn_tpu_torch.models.truncated_svd"} <= names
+    # the mesh plane and the multi-process world
+    assert {f"sq_learn_tpu_torch.parallel.{name}" for name in (
+        "mesh", "init", "lloyd", "pca", "neighbors", "streaming",
+        "distributed")} <= names
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,9 +1,10 @@
 """The port's knob registry (``sq_learn_tpu_torch._knobs``) against the JAX
 package's, on the CPU: every knob the port registers has the JAX
-registry's kind and default (``CUDA_HOME`` aside, which the port alone
-reads), the accessors read the environment as the JAX ones do, the
-module and ``obs`` import without torch, and no module of the port reads
-the environment around the registry.
+registry's kind and default (``CUDA_HOME`` and torch.distributed's
+launcher variables aside, which the port alone reads), the accessors
+read the environment as the JAX ones do, the module and ``obs`` import
+without torch, and no module of the port reads the environment around
+the registry.
 """
 
 import os
@@ -17,7 +18,9 @@ from sq_learn_tpu import _knobs as jknobs
 from sq_learn_tpu_torch import _knobs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_ONLY = {"CUDA_HOME"}
+#: the port alone reads these: the CUDA toolkit, and torch.distributed's
+#: launcher variables (the JAX package reads JAX_NUM_PROCESSES instead)
+PORT_ONLY = {"CUDA_HOME", "WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"}
 
 
 @pytest.mark.parametrize("name", sorted(set(_knobs.REGISTRY) - PORT_ONLY))
@@ -36,7 +39,12 @@ def test_registry_holds_the_planes_the_port_has():
             "SQ_STREAM_MIN_BUCKET_ROWS", "SQ_STREAM_CKPT_DIR",
             "SQ_STREAM_CKPT_EVERY", "SQ_TRANSFER_CHUNK_BYTES"} <= names
     assert _knobs.get_int("SQ_TRANSFER_CHUNK_BYTES") == 128 * 2 ** 20
-    assert [k.name for k in _knobs.iter_knobs()][-1] == "CUDA_HOME"
+    assert [k.name for k in _knobs.iter_knobs()
+            if k.scope == "external"] == ["CUDA_HOME", "MASTER_ADDR",
+                                          "MASTER_PORT", "RANK",
+                                          "WORLD_SIZE"]
+    assert all(_knobs.knob(name).anchor.endswith("distributed.py")
+               for name in PORT_ONLY - {"CUDA_HOME"})
 
 
 @pytest.mark.parametrize("name,raw", [

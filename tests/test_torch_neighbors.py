@@ -231,13 +231,23 @@ def test_check_k_errors_match_jax(blobs, k, match):
 
 
 def test_not_ported_modes_raise(blobs):
-    """``mesh`` raises naming its item. float64 data was ported since
-    (item 7): a float64 fit searches in plain float64 ops, off the kernel,
-    ranking by max(‖q‖²+‖t‖²−2·q·t, 0) with ties to the lowest index, as
-    the JAX package's XLA search does."""
+    """Both modes of this test's old subject were ported since. ``mesh``
+    (item 6a): a mesh that is not a ``Mesh`` raises TypeError, and a CPU
+    mesh's train-sharded search gives the single-device lists
+    (``tests/test_torch_parallel_neighbors.py`` holds it in full).
+    float64 data (item 7): a float64 fit searches in plain float64 ops,
+    off the kernel, ranking by max(‖q‖²+‖t‖²−2·q·t, 0) with ties to the
+    lowest index, as the JAX package's XLA search does."""
+    from sq_learn_tpu_torch.parallel import make_mesh
+
     Xtr, ytr, Xte = blobs
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="make_mesh"):
         KNeighborsClassifier(mesh=object()).fit(Xtr, ytr)
+    meshed = KNeighborsClassifier(n_neighbors=5,
+                                  mesh=make_mesh(["cpu"] * 3)).fit(Xtr, ytr)
+    single = KNeighborsClassifier(n_neighbors=5).fit(Xtr, ytr)
+    np.testing.assert_array_equal(meshed.kneighbors(Xte)[1],
+                                  single.kneighbors(Xte)[1])
     with config_context(default_dtype="float64"):
         wide = KNeighborsClassifier(n_neighbors=5).fit(Xtr, ytr)
         assert wide.X_fit_.dtype == torch.float64

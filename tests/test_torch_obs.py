@@ -310,7 +310,7 @@ def test_cli_usage_and_later_subcommands(tmp_path, capsys):
     for cmd in ("report", "budget", "control"):
         assert main([cmd]) == 2  # usage: no artifact named
     for cmd, item in (("regress", "the port's benchmark"),
-                      ("fleet", "item 6")):
+                      ("fleet", "item 6b")):
         with pytest.raises(NotImplementedError, match=item) as err:
             main([cmd, str(tmp_path)])
         assert "ROADMAP.md" in str(err.value)

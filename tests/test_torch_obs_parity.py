@@ -253,6 +253,61 @@ def test_minibatch_fit_and_partial_fit(lowrank, ipe, monkeypatch):
     assert prec.guarantee_records == []
 
 
+@pytest.mark.parametrize("route", ["qkmeans_delta", "qkmeans_classic",
+                                   "qpca", "knn", "truncated_svd"])
+def test_mesh_routes(lowrank, blobs, route, mesh8, monkeypatch):
+    """Every mesh route records the JAX package's mesh route: the same
+    guarantee sites, ledger steps and span names (``qkmeans.init`` of the
+    restart loop and the sharded spans among them), each sharded span
+    with the JAX package's attributes (``n_devices`` …)."""
+    from sq_learn_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(["cpu"] * 8)
+    X, y = lowrank
+    Xb, _ = blobs
+    qkw = dict(n_clusters=5, n_init=2, random_state=0)
+    qpca_fit = dict(estimate_all=True, eps=0.1, delta=0.1, theta_major=0.5)
+    jax_fn, port_fn = {
+        "qkmeans_delta": (
+            lambda: JaxQKMeans(delta=0.5, true_distance_estimate=False,
+                               mesh=mesh8, **qkw).fit(Xb),
+            lambda: QKMeans(delta=0.5, true_distance_estimate=False,
+                            mesh=mesh, **qkw).fit(Xb)),
+        "qkmeans_classic": (
+            lambda: JaxQKMeans(delta=0.0, mesh=mesh8, **qkw).fit(Xb),
+            lambda: QKMeans(delta=0.0, mesh=mesh, **qkw).fit(Xb)),
+        "qpca": (
+            lambda: JaxQPCA(n_components=4, mesh=mesh8,
+                            random_state=0).fit(X, **qpca_fit),
+            lambda: QPCA(n_components=4, mesh=mesh,
+                         random_state=0).fit(X, **qpca_fit)),
+        "knn": (
+            lambda: JaxKNN(n_neighbors=5, mesh=mesh8).fit(
+                X[:300], y[:300]).predict(X[300:]),
+            lambda: KNeighborsClassifier(n_neighbors=5, mesh=mesh).fit(
+                X[:300], y[:300]).predict(X[300:])),
+        "truncated_svd": (
+            lambda: JaxTruncatedSVD(5, mesh=mesh8).fit(X),
+            lambda: TruncatedSVD(5, mesh=mesh).fit(X)),
+    }[route]
+    jrec, prec = record_both(jax_fn, port_fn, monkeypatch)
+    assert_same_sites(jrec, prec, tol_rtol={"qpca.sv_estimate": 1e-4},
+                      drawn_tol=("tomography.true",))
+    assert_same_steps(jrec, prec, rtol=1e-4)
+    assert span_names(prec) == (span_names(jrec) - {"xla.capture"}) | (
+        span_names(prec) & set(PORT_ONLY_SPANS))
+    sharded = {s["name"] for s in prec.spans
+               if s["name"].startswith("parallel.")}
+    assert sharded
+    for name in sharded:
+        (pa,) = {tuple(sorted(s["attrs"].items())) for s in prec.spans
+                 if s["name"] == name}
+        ja = {tuple(sorted(s["attrs"].items())) for s in jrec.spans
+              if s["name"] == name}
+        assert pa in ja, (name, pa, ja)
+    assert_draws_within_contract(prec)
+
+
 def test_left_out_span_names_carry_their_reasons():
     assert set(JAX_ONLY_SPANS).isdisjoint(PORT_ONLY_SPANS)
     assert {"qkmeans.native_init", "qkmeans.native_lloyd",

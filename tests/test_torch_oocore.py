@@ -784,8 +784,11 @@ class TestEstimatorSurfaces:
             os.path.join(store.path, "..", "short"), X_TALL[:100])
         with pytest.raises(ValueError, match="partial-U Gram route"):
             QPCA(n_components=3, random_state=0).fit(short)  # n < 8·m
-        with pytest.raises(NotImplementedError, match="item 6"):
-            QPCA(n_components=3, mesh=object()).fit(store)
+        # a store with a mesh: the JAX package's ValueError (item 6a)
+        from sq_learn_tpu_torch.parallel import make_mesh
+
+        with pytest.raises(ValueError, match="single-device"):
+            QPCA(n_components=3, mesh=make_mesh(["cpu"] * 2)).fit(store)
 
 
 # -- a real SIGKILL -----------------------------------------------------------

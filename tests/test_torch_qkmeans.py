@@ -407,8 +407,24 @@ def test_unported_modes_raise_naming_the_roadmap(kw, match):
     E-step and tomography of the centers were ported since: those cases
     now fit, with finite centers and the runtime-model statistics. So were
     ``algorithm='elkan'`` and ``compute_dtype='float16'`` (item 7): elkan
-    warns and fits the Lloyd route, float16 fits in plain torch ops."""
+    warns and fits the Lloyd route, float16 fits in plain torch ops. And
+    so was ``mesh`` (item 6a): a mesh that is not a ``Mesh`` raises
+    TypeError, and a fit on a CPU mesh from an array init is the
+    single-device fit (``tests/test_torch_parallel.py`` holds it against
+    the JAX package's mesh fit)."""
     X = _data(n=64)
+    if "mesh" in kw:
+        from sq_learn_tpu_torch.parallel import make_mesh
+
+        with pytest.raises(TypeError, match="make_mesh"):
+            QKMeans(n_clusters=3, **kw).fit(X)
+        init = X[:3]
+        meshed = QKMeans(n_clusters=3, init=init, delta=0.0,
+                         mesh=make_mesh(["cpu"] * 2)).fit(X)
+        single = QKMeans(n_clusters=3, init=init, delta=0.0).fit(X)
+        np.testing.assert_array_equal(meshed.labels_, single.labels_)
+        assert meshed.n_iter_ == single.n_iter_
+        return
     if match in ("IPE", "tomography"):
         est = QKMeans(n_clusters=3, random_state=0, **kw).fit(X)
         assert np.isfinite(est.cluster_centers_).all() and est.n_iter_ >= 1
@@ -420,10 +436,6 @@ def test_unported_modes_raise_naming_the_roadmap(kw, match):
                           else "classic"):
             est = QKMeans(n_clusters=3, random_state=0, **kw).fit(X)
         assert np.isfinite(est.cluster_centers_).all() and est.n_iter_ >= 1
-        return
-    with pytest.raises(NotImplementedError, match=match) as err:
-        QKMeans(n_clusters=3, **kw).fit(X)
-    assert "ROADMAP.md" in str(err.value)
 
 
 def test_sketch_auto_at_scale_raises_sketch_zero_runs():

@@ -368,9 +368,12 @@ class _Store:
 ])
 def test_unported_options_raise_naming_the_roadmap(data, kw, fit_input,
                                                    item):
-    """``mesh`` raises naming its ROADMAP item. ``ingest='streamed'``, the
-    reduced compute dtypes and store-backed ingest were ported since (item
-    7): on this short input (not tall enough for the partial-U route)
+    """Every option of this test's old subject was ported since. ``mesh``
+    (item 6a): a mesh that is not a ``Mesh`` raises TypeError, and a CPU
+    mesh fits the single-device spectrum (``tests/test_torch_parallel_
+    pca.py`` holds it against the JAX package's mesh fit).
+    ``ingest='streamed'``, the reduced compute dtypes and store-backed
+    ingest (item 7): on this short input (not tall enough for the partial-U route)
     'streamed' warns and ingests monolithically, a compute dtype warns
     that it did not engage, and a 10-row store, which has no resident
     form, raises the JAX package's ValueError, while a tall store fits on
@@ -399,9 +402,15 @@ def test_unported_options_raise_naming_the_roadmap(data, kw, fit_input,
         np.testing.assert_array_equal(pca.singular_values_,
                                       ref.singular_values_)
         return
-    with pytest.raises(NotImplementedError, match=item) as err:
+    from sq_learn_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(TypeError, match="make_mesh"):
         QPCA(n_components=3, **kw).fit(X)
-    assert "ROADMAP.md" in str(err.value)
+    meshed = QPCA(n_components=3, mesh=make_mesh(["cpu"] * 4)).fit(X)
+    ref = QPCA(n_components=3, svd_solver="full").fit(X)
+    assert meshed._fit_svd_solver == "full"
+    np.testing.assert_allclose(meshed.singular_values_,
+                               ref.singular_values_, rtol=1e-4)
 
 
 def test_runtime_model_and_truncated_svd_raise_naming_the_roadmap(data):

@@ -127,8 +127,16 @@ def test_truncated_svd_from_numpy_transforms_as_jax():
 
 def test_unported_options_raise_and_bad_ones_are_rejected():
     X = _low_rank()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # mesh was ported since (item 6a): a mesh that is not a Mesh raises
+    # TypeError; a CPU mesh runs the sharded Gram route
+    with pytest.raises(TypeError, match="make_mesh"):
         TruncatedSVD(mesh=object()).fit(X)
+    from sq_learn_tpu_torch.parallel import make_mesh
+
+    meshed = TruncatedSVD(mesh=make_mesh(["cpu"] * 4)).fit(X)
+    exact = TruncatedSVD(algorithm="arpack").fit(X)
+    np.testing.assert_allclose(meshed.singular_values_,
+                               exact.singular_values_, rtol=1e-4)
     # ingest='streamed' was ported since (item 7): it fits, tile by tile
     est = TruncatedSVD(ingest="streamed", random_state=0).fit(X)
     assert est.ingest_ == "streamed" and np.isfinite(
