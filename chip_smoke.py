@@ -221,7 +221,27 @@ each of which fails the run:
    over single-device ratio. The ``kernels`` line files the 4-shard
    runs' launches under the mesh-shard shapes; every other run of the
    phase joins only the kernels' totals.
-8. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
+8. The elastic phase (``sq_learn_tpu_torch.parallel.elastic``,
+   ``obs.fleet``) over a shard store of
+   ``synthetic_surrogate(100_000, 784, 10, seed=784)`` (38 shards): the
+   window-synchronous q-means fold (k=10, 2 epochs, windows of 4, seed
+   0). First the Lloyd kernel at the certification's shard shape (4 × 5,
+   k=3, R=1, δ=0.4) against its plain version, timed; then
+   ``shard_partial`` on the card against its CPU run on three shards
+   (counts and labels equal, sums and inertia within
+   ELASTIC_PARTIAL_RTOL); ``elastic_fit_local`` on the card at 1, 2 and
+   3 hosts and with ELASTIC_FAULT (3 → 2 hosts): the same state bit for
+   bit; a real 2-worker ``ElasticCoordinator`` fit and a 3-worker one
+   with worker 1 SIGKILLed after the first commit (generation 1 of
+   members [0, 2], a ``host_fail`` record with ``detect_s``): both
+   bit-equal to the simulator, every shard folded twice; ``python -m
+   sq_learn_tpu_torch.obs fleet`` over the killed run's shards (exit 0,
+   one run id, a monotone merge, every committed window once, generation
+   1's critical path, the killed worker's flushed progress, every shard
+   valid). The workers' certification launches of the Lloyd kernel,
+   reported by each worker, join the ``kernels`` line. Its figures print
+   on an ``elastic:`` JSON line.
+9. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
 import json
@@ -4182,6 +4202,332 @@ def mesh_phase(X, y, est, Xcov, torch):
     return dict(tally)
 
 
+# -- the elastic phase -------------------------------------------------------
+# The window-synchronous q-means fold over S2 (store_from_array of
+# synthetic_surrogate(100 000, 784, 10, seed=784): 313.6 MB, 38 shards of
+# 2 675 rows at the default 8 MiB): k=10, 2 epochs, windows of 4 shards
+# (10 a pass, 20 in all), seed 0. Worker 1 of the 3-worker world is
+# SIGKILLed once the first window is committed.
+ELASTIC_K, ELASTIC_EPOCHS, ELASTIC_WINDOW, ELASTIC_SEED = 10, 2, 4, 0
+ELASTIC_WINDOWS = ELASTIC_EPOCHS * -(-ooc_shards(OOC_S2_N) // ELASTIC_WINDOW)
+# shards held card against CPU: the first, a middle one, the ragged last
+ELASTIC_SHARDS = (0, 19, ooc_shards(OOC_S2_N) - 1)
+# a shard's float64 sums and inertia, card against CPU: another summation
+# order over ≤ 2 675 rows of 784 (both float64, so ~1e-15 apart)
+ELASTIC_PARTIAL_RTOL = 1e-12
+ELASTIC_KILL = (1, ELASTIC_WINDOW)
+ELASTIC_FAULT = "host_fail:window=5,host=1,times=1"
+ELASTIC_TIMEOUT_S = 300
+# the fleet's clock offsets on one host (true offset 0): bounded by the
+# coordinator's 50 ms progress poll and the 0.5 s heartbeat cadence
+ELASTIC_CLOCK_SKEW_S = 0.5
+
+
+def elastic_partial_case(store, torch):
+    """``shard_partial`` on the card against its CPU run on three shards:
+    counts and labels equal, sums and inertia within ELASTIC_PARTIAL_RTOL;
+    one shard's partial timed on the card. Returns (ms, plain CPU ms)."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.parallel import elastic
+
+    C = elastic.init_centers(store, ELASTIC_K, ELASTIC_SEED)
+    worst = 0.0
+    for s in ELASTIC_SHARDS:
+        rows = store.read_shard(s)
+        card = elastic.shard_partial(C, rows, device=CARD,
+                                     return_labels=True)
+        cpu = elastic.shard_partial(C, rows, device="cpu",
+                                    return_labels=True)
+        check(np.array_equal(card[0], cpu[0])
+              and np.array_equal(card[3], cpu[3]),
+              f"elastic: shard {s}'s partial counts or labels differ card "
+              f"against CPU")
+        rel = max(float(np.max(np.abs(card[1] - cpu[1]))
+                        / np.max(np.abs(cpu[1]))),
+                  abs(card[2] - cpu[2]) / abs(cpu[2]))
+        check(rel <= ELASTIC_PARTIAL_RTOL,
+              f"elastic: shard {s}'s partial sums/inertia off the CPU run "
+              f"by {rel} (limit {ELASTIC_PARTIAL_RTOL})")
+        worst = max(worst, rel)
+    rows = store.read_shard(ELASTIC_SHARDS[0])
+    ms = time_ms(lambda: elastic.shard_partial(C, rows, device=CARD))
+    t0 = time.perf_counter()
+    elastic.shard_partial(C, rows, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    print(f"elastic shard_partial ({rows.shape[0]}×{rows.shape[1]}, "
+          f"k={ELASTIC_K}, float64) on shards {ELASTIC_SHARDS}: card == CPU "
+          f"(counts, labels), sums and inertia within {worst} (limit "
+          f"{ELASTIC_PARTIAL_RTOL}); {ms:.4f} ms per shard on the card "
+          f"(with its upload and read-back), {cpu_ms:.1f} ms on the CPU",
+          flush=True)
+    return ms, cpu_ms
+
+
+def _same_fold(a, b):
+    import numpy as np
+
+    return (all(np.array_equal(a[key], b[key])
+                for key in ("centers", "counts", "folds"))
+            and a["inertia"] == b["inertia"])
+
+
+def elastic_sim_case(store):
+    """``elastic_fit_local`` on the card at 1, 2 and 3 hosts, then with
+    ELASTIC_FAULT (3 → 2): the same state, bit for bit. Returns the
+    reference state and the 1-host fit's milliseconds per window."""
+    from sq_learn_tpu_torch.parallel import elastic
+    from sq_learn_tpu_torch.resilience import faults
+
+    kw = dict(seed=ELASTIC_SEED, epochs=ELASTIC_EPOCHS,
+              window=ELASTIC_WINDOW, device=CARD)
+    runs, walls = {}, {}
+    for n in (1, 2, 3):
+        t0 = time.perf_counter()
+        runs[n] = elastic.elastic_fit_local(store, ELASTIC_K, n_hosts=n,
+                                            **kw)
+        walls[n] = time.perf_counter() - t0
+    faults.arm(ELASTIC_FAULT)
+    try:
+        t0 = time.perf_counter()
+        shrunk = elastic.elastic_fit_local(store, ELASTIC_K, n_hosts=3,
+                                           **kw)
+        walls["fault"] = time.perf_counter() - t0
+    finally:
+        faults.disarm()
+    ref = runs[1]
+    check(all(_same_fold(runs[n], ref) for n in (2, 3)),
+          "elastic: the simulator's state depends on the host count")
+    check((shrunk["generation"], shrunk["n_hosts"], shrunk["shrinks"])
+          == (1, 2, 1) and _same_fold(shrunk, ref),
+          f"elastic: the simulator with {ELASTIC_FAULT} ended at generation "
+          f"{shrunk['generation']} on {shrunk['n_hosts']} hosts, or its state "
+          f"differs from the uninterrupted fit's")
+    check(bool((ref["folds"] == ELASTIC_EPOCHS).all()),
+          f"elastic: folds {ref['folds']}")
+    ms_window = walls[1] / ELASTIC_WINDOWS * 1e3
+    print(f"elastic_fit_local on {CARD}, {ELASTIC_WINDOWS} windows: 1, 2, 3 "
+          f"hosts {walls[1]:.3f}, {walls[2]:.3f}, {walls[3]:.3f} s, bit-equal; "
+          f"{ELASTIC_FAULT} (3 → 2 hosts, generation 1) {walls['fault']:.3f} "
+          f"s, bit-equal; {ms_window:.2f} ms per window; inertia "
+          f"{ref['inertia']}", flush=True)
+    return ref, ms_window
+
+
+def elastic_window_ms(run_dir, worker="0"):
+    """Median milliseconds between one worker's consecutive ``window``
+    records (the store exchange, the fold and the commit included)."""
+    from sq_learn_tpu_torch.parallel import elastic
+
+    ts = sorted(r["ts"] for r in elastic.collect_elastic_records(run_dir)
+                if r["_worker"] == worker and r["event"] == "window")
+    gaps = [b - a for a, b in zip(ts, ts[1:])]
+    return statistics.median(gaps) * 1e3 if gaps else None
+
+
+def elastic_world_case(S2, ref, tmp):
+    """The real worlds: 2 workers uninterrupted, then 3 with worker 1
+    SIGKILLed after the first commit; both results bit-equal to the
+    simulator's. Returns the two runs' results and figures."""
+    from sq_learn_tpu_torch.parallel import elastic
+
+    out = {}
+    for name, n, kill in (("two", 2, None), ("killed", 3, ELASTIC_KILL)):
+        coord = elastic.ElasticCoordinator(
+            os.path.join(tmp, f"run_{name}"), S2.path, n_workers=n,
+            n_clusters=ELASTIC_K, seed=ELASTIC_SEED, epochs=ELASTIC_EPOCHS,
+            window=ELASTIC_WINDOW, kill=kill)
+        t0, launched = time.perf_counter(), time.time()
+        try:
+            got = coord.run(timeout_s=ELASTIC_TIMEOUT_S)
+        except Exception:
+            for i in range(n):
+                log = os.path.join(coord.run_dir, f"worker{i}.log")
+                if os.path.exists(log):
+                    with open(log) as fh:
+                        print(f"--- worker {i} log\n{fh.read()[-3000:]}",
+                              flush=True)
+            raise
+        got["wall_s"] = time.perf_counter() - t0
+        got["run_dir"] = coord.run_dir
+        # the workers' start-up: launch to the last generation-0 world_up
+        # (the process, torch, CUDA, the store, the gloo group and the
+        # certification), on this host's one clock
+        got["start_s"] = max(
+            r["ts"] for r in elastic.collect_elastic_records(coord.run_dir)
+            if r["event"] == "world_up" and r["generation"] == 0) - launched
+        check(_same_fold(got, ref),
+              f"elastic: the {n}-worker world's result differs from the "
+              f"simulator's")
+        check(bool((got["folds"] == ELASTIC_EPOCHS).all()),
+              f"elastic: the {n}-worker world's folds {got['folds']}")
+        check(got["launches"]["lloyd_step"] > 0,
+              f"elastic: the {n}-worker world's certification launched "
+              f"lloyd_step {got['launches']['lloyd_step']} times")
+        out[name] = got
+    two, killed = out["two"], out["killed"]
+    check((two["generation"], two["n_hosts"], two["shrinks"]) == (0, 2, 0)
+          and all(rc == 0 for rc in two["exit_codes"].values()),
+          f"elastic: the 2-worker world ended at generation "
+          f"{two['generation']} with exit codes {two['exit_codes']}")
+    with open(os.path.join(killed["run_dir"], "manifest.g1.json")) as fh:
+        members = json.load(fh)["members"]
+    check((killed["generation"], killed["n_hosts"]) == (1, 2)
+          and members == [0, 2] and killed["killed"] == [1]
+          and killed["exit_codes"][1] == -9,
+          f"elastic: the killed world ended at generation "
+          f"{killed['generation']} on {killed['n_hosts']} hosts (members "
+          f"{members}, exit codes {killed['exit_codes']})")
+    records = elastic.collect_elastic_records(killed["run_dir"])
+    fails = [r for r in records if r["event"] == "host_fail"
+             and r.get("failed_host") == 1]
+    check(fails and all(r.get("detect_s", 0) > 0 for r in fails),
+          "elastic: no worker recorded host 1's failure with detect_s")
+    ups = [r for r in records if r["event"] == "world_up"
+           and r["generation"] == 1]
+    check({r["_worker"] for r in ups} == {"0", "2"},
+          f"elastic: generation 1 came up on {[r['_worker'] for r in ups]}")
+    killed["detect_s"] = max(r["detect_s"] for r in fails)
+    killed["shrink_s"] = max(r.get("shrink_s", 0.0) for r in ups)
+    for got in (two, killed):
+        got["ms_per_window"] = elastic_window_ms(got["run_dir"])
+    print(f"elastic worlds: 2 workers {two['wall_s']:.3f} s (start-up "
+          f"{two['start_s']:.3f} s), generation 0, bit-equal to the "
+          f"simulator; 3 workers (start-up {killed['start_s']:.3f} s) with "
+          f"worker 1 SIGKILLed "
+          f"at cursor {ELASTIC_KILL[1]}: {killed['wall_s']:.3f} s, "
+          f"generation 1 of members {members}, detection "
+          f"{killed['detect_s']:.3f} s, abort → world up "
+          f"{killed['shrink_s']:.3f} s, bit-equal to the simulator with "
+          f"every shard folded {ELASTIC_EPOCHS} times; ms per window "
+          f"{two['ms_per_window']:.2f} (2 workers), "
+          f"{killed['ms_per_window']:.2f} (worker 0 of the killed world); "
+          f"workers' lloyd_step launches {two['launches']['lloyd_step']} "
+          f"and {killed['launches']['lloyd_step']}", flush=True)
+    return two, killed
+
+
+def elastic_fleet_case(run_dir, here):
+    """``python -m sq_learn_tpu_torch.obs fleet`` over the killed world's
+    shards: exit 0, one run id over the coordinator and the three
+    workers, a monotone merged ``ts_fleet``, every committed window once,
+    generation 1's critical path, the killed worker's fold progress, and
+    every shard valid under the port's schema. Returns the summary."""
+    from sq_learn_tpu_torch import _knobs
+    from sq_learn_tpu_torch.obs import schema
+    from sq_learn_tpu_torch.obs._files import load_jsonl
+
+    merged = os.path.join(run_dir, "merged.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sq_learn_tpu_torch.obs", "fleet", run_dir,
+         "--json", "--merged", merged], cwd=here, capture_output=True,
+        text=True, timeout=120, env=_knobs.environ(PYTHONPATH=here))
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"elastic: obs fleet exited {proc.returncode}: {proc.stderr}")
+    summary = json.loads(proc.stdout)
+    check(len(summary["run_ids"]) == 1
+          and summary["hosts"] == ["coord", "w0", "w1", "w2"],
+          f"elastic: fleet run ids {summary['run_ids']} over hosts "
+          f"{summary['hosts']}")
+    ts = [r["ts_fleet"] for r in load_jsonl(merged)]
+    check(ts == sorted(ts), "elastic: the merged ts_fleet is not monotone")
+    # every process runs on this host, on one clock: the estimated
+    # offsets must come out near 0 (the poll and heartbeat delays)
+    skew = max(abs(o) for o in summary["clock_offsets_s"].values())
+    check(skew <= ELASTIC_CLOCK_SKEW_S,
+          f"elastic: clock offsets {summary['clock_offsets_s']} on one host")
+    rc = summary["reconciliation"]
+    check(rc["ok"] and rc["windows"] == rc["committed"] == ELASTIC_WINDOWS,
+          f"elastic: commit reconciliation {rc}")
+    path = [p for p in summary["critical_path"] if p["generation"] == 1]
+    check(len(path) == 1 and all(
+        path[0][key] is not None
+        for key in ("detect_s", "shrink_s", "reinit_s", "resume_s")),
+        f"elastic: generation 1's critical path {path}")
+    w1 = summary["rollups"]["w1"]["by_type"]
+    victim = [r for r in load_jsonl(os.path.join(run_dir, "obs.w1.jsonl"))
+              if r.get("type") == "elastic" and r.get("event") == "window"]
+    check(victim, f"elastic: the killed worker's shard holds no window "
+                  f"record ({w1})")
+    for name in sorted(os.listdir(run_dir)):
+        if name.startswith("obs.") and name.endswith(".jsonl"):
+            errors = schema.validate_jsonl(os.path.join(run_dir, name))[
+                "errors"]
+            check(errors == [], f"elastic: {name}: {errors[:3]}")
+    print(f"obs fleet over {summary['hosts']} ({summary['records']} records, "
+          f"one run id, {cli_s:.3f} s): ledger OK, {rc['windows']} windows "
+          f"committed once each; clock offsets within {skew:.6f} s of "
+          f"the coordinator's; the killed worker's shard folded "
+          f"{len(victim)} windows before its last flush; generation 1's "
+          f"path {path[0]}", flush=True)
+    return summary
+
+
+def elastic_cert_entry(torch):
+    """The Lloyd kernel at the certification's shard shape (4 rows × 5 of
+    worker 0 in the 2-worker world, k=3, R=1, δ=0.4), held against its
+    plain version and timed. Returns its shape entry."""
+    import numpy as np
+
+    rng = np.random.default_rng((ELASTIC_SEED, 0, 0xCE27))
+    X = rng.normal(size=(8, 5)).astype(np.float32)
+    Xs = torch.from_numpy(X[:4]).to(CARD)
+    operands = lloyd_operands(Xs, 3, 1, torch)
+    report = hold_lloyd_cases([("float32", Xs, operands["gum"], 0.4, True)],
+                              operands, torch)
+    main = report[("float32", 0.4)]
+    return {"shape": "4x5 k=3 R=1 (elastic certification shard)",
+            "window": 0.4, "launches": None,
+            "max_abs_err": max(main["err"].values()), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"]}
+
+
+def elastic_phase(here, torch):
+    """The elastic phase (``sq_learn_tpu_torch.parallel.elastic``,
+    ``obs.fleet``) in a temporary directory. Returns the ``elastic:``
+    line's figures and the workers' Lloyd launches."""
+    import shutil
+    import tempfile
+
+    from sq_learn_tpu_torch import oocore
+    from sq_learn_tpu_torch.datasets import synthetic_surrogate
+
+    tmp = tempfile.mkdtemp(prefix="sq-elastic-")
+    try:
+        X2, _ = synthetic_surrogate(OOC_S2_N, OOC_M, OOC_K, seed=OOC_SEED)
+        S2 = oocore.store_from_array(os.path.join(tmp, "s2"), X2)
+        del X2
+        check(S2.n_shards == ooc_shards(OOC_S2_N),
+              f"elastic: S2 has {S2.n_shards} shards")
+        partial_ms, partial_cpu_ms = elastic_partial_case(S2, torch)
+        ref, sim_ms = elastic_sim_case(S2)
+        two, killed = elastic_world_case(S2, ref, tmp)
+        summary = elastic_fleet_case(killed["run_dir"], here)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = (two["launches"]["lloyd_step"]
+                + killed["launches"]["lloyd_step"])
+    return {"shards": S2.n_shards, "windows": ELASTIC_WINDOWS,
+            "clock_offsets_s": summary["clock_offsets_s"],
+            "two_worker_fit_s": two["wall_s"],
+            "killed_fit_s": killed["wall_s"],
+            "two_worker_start_s": two["start_s"],
+            "killed_start_s": killed["start_s"],
+            "detect_s": killed["detect_s"], "shrink_s": killed["shrink_s"],
+            "critical_path": [p for p in summary["critical_path"]
+                              if p["generation"] == 1][0],
+            "ms_per_window": two["ms_per_window"],
+            "ms_per_window_killed": killed["ms_per_window"],
+            "sim_ms_per_window": sim_ms, "partial_ms": partial_ms,
+            "partial_cpu_ms": partial_cpu_ms,
+            "worker_lloyd_launches": launches,
+            "worker_argkmin_launches": (two["launches"]["argkmin"]
+                                        + killed["launches"]["argkmin"])}
+
+
 def main():
     import numpy as np
     import torch
@@ -4519,6 +4865,26 @@ def main():
           f"(lloyd_step, argkmin) by shard count: "
           f"{ {n: tuple(t) for n, t in sorted(tally.items())} }",
           flush=True)
+
+    # the elastic phase: the fold's partials run in plain torch and the
+    # workers' certification launches the Lloyd kernel in their own
+    # processes, which report their counts; they join the kernel's
+    lloyd_step.launches = argkmin.launches = 0
+    t_phase = time.perf_counter()
+    cert_entry = elastic_cert_entry(torch)
+    lloyd_step.launches = argkmin.launches = 0
+    elastic = elastic_phase(here, torch)
+    check(lloyd_step.launches == argkmin.launches == 0
+          and elastic["worker_argkmin_launches"] == 0,
+          f"the elastic phase launched lloyd_step {lloyd_step.launches} and "
+          f"argkmin {argkmin.launches} times in this process, argkmin "
+          f"{elastic['worker_argkmin_launches']} times in its workers")
+    cert_entry["launches"] = elastic["worker_lloyd_launches"]
+    entry["launches"] += elastic["worker_lloyd_launches"]
+    entry["shapes"].append(cert_entry)
+    elastic["phase_s"] = time.perf_counter() - t_phase
+    print(f"elastic phase: {elastic['phase_s']:.3f} s", flush=True)
+    print("elastic: " + json.dumps(elastic), flush=True)
 
     print(smi)
     print(json.dumps({"kernels": [entry, knn_entry]}))

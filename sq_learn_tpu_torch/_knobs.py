@@ -4,13 +4,13 @@
 Every environment read of ``sq_learn_tpu_torch`` goes through the typed
 accessors below, against a registry entry that carries the knob's name,
 kind, default, scope, a one-line doc and the file whose prose describes
-it. The registry holds the knobs of the planes the port has: ``obs``,
-the streaming engine, the transfer supervisor, the fault harness, the
-sketch engine, the out-of-core shard stores, the serving plane and the
-multi-process world (torch.distributed's launcher variables). The JAX
-package's other knobs (the elastic mesh, XLA's caches, among them
-``SQ_COMPILE_CACHE_DIR``: eager torch compiles nothing to persist) come
-with their planes or have no object here.
+it. The registry holds the knobs of the planes the port has: ``obs`` (its
+fleet envelope included), the streaming engine, the transfer supervisor,
+the fault harness, the sketch engine, the out-of-core shard stores, the
+serving plane, the multi-process world (torch.distributed's launcher
+variables) and the elastic world. The JAX package's other knobs (XLA's
+caches, among them ``SQ_COMPILE_CACHE_DIR``: eager torch compiles nothing
+to persist) have no object here.
 
 Runtime contract, as in the JAX package:
 
@@ -21,6 +21,8 @@ Runtime contract, as in the JAX package:
   enabled unless set to ``"0"``.
 - This module imports only the standard library: ``obs`` reads through it
   in processes that never load torch.
+- :func:`environ` is the one way to hand the environment to a child
+  process (the elastic coordinator's workers).
 """
 
 import os
@@ -29,6 +31,7 @@ __all__ = [
     "Knob",
     "REGISTRY",
     "UnknownKnobError",
+    "environ",
     "get_bool",
     "get_float",
     "get_int",
@@ -95,6 +98,21 @@ _ENTRIES = [
     _K("SQ_OBS_ROTATE_BYTES", "int", 0, "lib",
        "Rotate the JSONL sink to gzipped <path>.<n>.gz segments at this "
        "many written bytes (0 = off).", "sq_learn_tpu_torch/obs/recorder.py"),
+    _K("SQ_OBS_FLEET_RUN_ID", "str", None, "lib",
+       "Coordinator-minted fleet run id; when set every record carries "
+       "the fleet envelope (run_id/host/pid/gen).",
+       "sq_learn_tpu_torch/obs/recorder.py"),
+    _K("SQ_OBS_FLEET_HOST", "str", None, "lib",
+       "Stable per-process host label in the fleet envelope (default "
+       "pid<pid>).", "sq_learn_tpu_torch/obs/recorder.py"),
+    _K("SQ_OBS_FLEET_DIR", "path", None, "lib",
+       "Fleet shard directory: with SQ_OBS=1 and SQ_OBS_PATH unset the "
+       "sink lands at <dir>/obs.<host>.jsonl.",
+       "sq_learn_tpu_torch/obs/recorder.py"),
+    _K("SQ_OBS_FLEET_CLOCK_SAMPLES", "int", 64, "lib",
+       "Max clock samples recorded per peer per generation from the "
+       "store's heartbeat exchanges.",
+       "sq_learn_tpu_torch/parallel/elastic.py"),
     _K("SQ_OBS_STRICT", "flag", False, "lib",
        "With the serving kernels' budgets pinned, a dispatch of a "
        "signature that was never warmed raises.",
@@ -197,6 +215,23 @@ _ENTRIES = [
     _K("SQ_OOC_ASYNC_CKPT", "flag", True, "lib",
        "Async mid-epoch fit snapshots (0 = synchronous writes).",
        "sq_learn_tpu_torch/oocore/fit.py"),
+    # -- the elastic world -------------------------------------------------
+    _K("SQ_ELASTIC_HEARTBEAT_S", "float", 0.5, "lib",
+       "Lease-supervisor heartbeat publish cadence (store keys, per "
+       "worker).", "sq_learn_tpu_torch/parallel/elastic.py"),
+    _K("SQ_ELASTIC_LEASE_S", "float", 3.0, "lib",
+       "Lease length: a peer silent for one lease is declared dead.",
+       "sq_learn_tpu_torch/parallel/elastic.py"),
+    _K("SQ_ELASTIC_MAX_SHRINKS", "int", 1, "lib",
+       "Host-failure budget: shrinks tolerated before the fit aborts.",
+       "sq_learn_tpu_torch/parallel/elastic.py"),
+    _K("SQ_ELASTIC_WINDOW", "int", 4, "lib",
+       "Commit-window width in visit-order positions (atomic fold+commit "
+       "unit).", "sq_learn_tpu_torch/parallel/elastic.py"),
+    _K("SQ_ELASTIC_PORT", "int", 0, "lib",
+       "TCP store port of generation 0; generation G binds this + G "
+       "(0 = pick a free port per generation).",
+       "sq_learn_tpu_torch/parallel/elastic.py"),
     # -- serving plane ------------------------------------------------------
     _K("SQ_SERVE_MAX_WAIT_MS", "float", 2.0, "lib",
        "Micro-batch coalescing window.",
@@ -376,6 +411,18 @@ def setdefault(name, value):
     """``os.environ.setdefault`` for a registered knob."""
     knob(name)
     return os.environ.setdefault(name, str(value))
+
+
+def environ(**overrides):
+    """A copy of this process's environment for a child process, with
+    ``overrides`` applied (a None value removes the variable)."""
+    env = dict(os.environ)
+    for name, value in overrides.items():
+        if value is None:
+            env.pop(name, None)
+        else:
+            env[name] = str(value)
+    return env
 
 
 def snapshot(names):

@@ -1,5 +1,5 @@
 """CLI: ``python -m sq_learn_tpu_torch.obs
-<audit|frontier|trace|storage|report|budget|control> ...``.
+<audit|frontier|trace|storage|report|budget|control|fleet> ...``.
 
 - ``audit <jsonl> [...] [--json] [--confidence C]`` — Clopper–Pearson
   audit of a run's (ε, δ) guarantee records; exits 1 on any flagged site
@@ -23,9 +23,15 @@
 - ``control <jsonl> [...] [--json]`` — the serving controller's decision
   history; exits 2 when the artifacts carry no control record
   (:mod:`.control`).
+- ``fleet <run_dir | shard.jsonl ...> [--json] [-o trace.json]
+  [--merged merged.jsonl]`` — an elastic run's per-process shards merged
+  into one clock-aligned timeline: per-host rollups, each generation's
+  detect → shrink → re-init → resume path and the commit-ledger
+  reconciliation; exits 1 when the ledger disagrees with itself, 2 when
+  there is no shard (:mod:`.fleet`).
 
-Two subcommands of the JAX package's CLI raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that brings them.
+The JAX package's ``regress`` raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings it.
 """
 
 import sys
@@ -35,8 +41,6 @@ _LATER = {
     "regress": "ROADMAP.md §1, the port's benchmark (regress bands a bench "
                "trajectory, which the port has only after its benchmark "
                "PR)",
-    "fleet": "ROADMAP.md §1 item 6b, the elastic world (the fleet "
-             "timeline reads its records)",
 }
 
 
@@ -60,12 +64,15 @@ def main(argv=None):
         from .budget import main as run
     elif cmd == "control":
         from .control import main as run
+    elif cmd == "fleet":
+        from .fleet import main as run
     elif cmd in _LATER:
         raise NotImplementedError(
             f"'{cmd}' is not ported yet: {_LATER[cmd]}")
     else:
         print(f"unknown subcommand {cmd!r} (expected audit, frontier, "
-              "trace, storage, report, budget or control)", file=sys.stderr)
+              "trace, storage, report, budget, control or fleet)",
+              file=sys.stderr)
         return 2
     return run(rest)
 

@@ -28,9 +28,16 @@ Record envelope: ``{"v": 11, "schema_version": 11, "ts": <unix seconds>,
 ``<path>.<n>.gz`` segments, and ``SQ_OBS_TRACE=<path>`` renders a closed
 run's sink as a Chrome trace (:mod:`.trace`). The storage ledger
 (:mod:`.storage`) hangs off the recorder and flushes its ``io`` records
-at close. Left out, with their planes (``ROADMAP.md`` §1): the fleet
-envelope and the watchdog, XLA-cost and elastic fields of
-:func:`snapshot`.
+at close.
+
+The fleet envelope: with a fleet run id (``SQ_OBS_FLEET_RUN_ID``, or
+``run_id=`` for a private recorder, or :func:`set_fleet` later) every
+record carries ``"fleet": {"run_id", "host", "pid", "gen"}``, so the
+shards of the elastic world's processes merge into one timeline
+(:mod:`.fleet`); :func:`set_generation` stamps the live generation.
+``SQ_OBS_FLEET_DIR`` puts an ``SQ_OBS=1`` run's sink at
+``<dir>/obs.<host>.jsonl``. The watchdog and XLA-cost fields of the JAX
+package's :func:`snapshot` have no object in an eager torch port.
 """
 
 import json
@@ -168,11 +175,27 @@ class Recorder:
     ``ledger_entries``, ``guarantee_records``, ``tradeoff_records``,
     ``fault_events``, ``breaker_events``, ``io_records``,
     ``slo_records``, ``budget_records``, ``alert_records``,
-    ``control_records`` and ``probe_events`` — plain Python containers,
-    safe to read at any point in the run.
+    ``control_records``, ``probe_events`` and ``elastic_records`` — plain
+    Python containers, safe to read at any point in the run.
+
+    ``run_id``/``host`` give a private recorder its fleet identity (the
+    elastic coordinator's); otherwise ``SQ_OBS_FLEET_RUN_ID`` and
+    ``SQ_OBS_FLEET_HOST`` do. Without a run id no record carries the
+    envelope.
     """
 
-    def __init__(self, path=None):
+    def __init__(self, path=None, run_id=None, host=None):
+        rid = (run_id if run_id is not None
+               else _knobs.get_str("SQ_OBS_FLEET_RUN_ID", ""))
+        if rid:
+            self.fleet_run_id = str(rid)
+            self.fleet_host = str(
+                host or _knobs.get_str("SQ_OBS_FLEET_HOST", "")
+                or f"pid{os.getpid()}")
+        else:
+            self.fleet_run_id = None
+            self.fleet_host = str(host) if host else None
+        self.fleet_generation = None
         self.spans = []
         self.counters = {}
         self.gauges = {}
@@ -189,6 +212,8 @@ class Recorder:
         self.alert_records = []
         self.control_records = []
         self.probe_events = []
+        # the elastic world's transitions (parallel/elastic.py)
+        self.elastic_records = []
         # the storage ledger (obs.storage), attached at the first
         # instrumented shard read and flushed by close()
         self._storage = None
@@ -216,6 +241,8 @@ class Recorder:
         rec.setdefault("v", SCHEMA_VERSION)
         rec.setdefault("schema_version", SCHEMA_VERSION)
         rec.setdefault("ts", round(time.time(), 3))
+        if self.fleet_run_id is not None and "fleet" not in rec:
+            rec["fleet"] = self._envelope()
         with _lock:
             if kind is not None:
                 getattr(self, kind).append(rec)
@@ -230,6 +257,10 @@ class Recorder:
                     if (self._rotate_bytes
                             and self._sink_bytes >= self._rotate_bytes):
                         self._rotate_locked()
+
+    def _envelope(self):
+        return {"run_id": self.fleet_run_id, "host": self.fleet_host,
+                "pid": os.getpid(), "gen": self.fleet_generation}
 
     def _rotate_locked(self):
         """Gzip the live sink to the next ``<path>.<n>.gz`` segment and
@@ -246,11 +277,13 @@ class Recorder:
             with open(self.path, "rb") as src, gzip.open(seg, "wb") as dst:
                 shutil.copyfileobj(src, dst)
             self._sink = open(self.path, "w", buffering=1)
-            line = json.dumps({
-                "type": "meta", "pid": os.getpid(), "schema": SCHEMA_VERSION,
-                "segment": self._segments, "v": SCHEMA_VERSION,
-                "schema_version": SCHEMA_VERSION,
-                "ts": round(time.time(), 3)}) + "\n"
+            meta = {"type": "meta", "pid": os.getpid(),
+                    "schema": SCHEMA_VERSION, "segment": self._segments,
+                    "v": SCHEMA_VERSION, "schema_version": SCHEMA_VERSION,
+                    "ts": round(time.time(), 3)}
+            if self.fleet_run_id is not None:
+                meta["fleet"] = self._envelope()
+            line = json.dumps(meta) + "\n"
             self._sink.write(line)
             self._sink_bytes = len(line)
         except OSError:
@@ -263,7 +296,10 @@ class Recorder:
 
     def flush(self, fsync=True):
         """Flush the JSONL sink to the OS and, with ``fsync`` (the
-        default), to disk. Returns True when a sink was flushed."""
+        default), to disk, so that a SIGKILL right after loses at most
+        the line being written: elastic workers call it at every commit
+        window and before ``os._exit``. Returns True when a sink was
+        flushed."""
         with _lock:
             sink = self._sink
             if sink is None:
@@ -345,6 +381,38 @@ def flush(fsync=True):
     if rec is None:
         return False
     return rec.flush(fsync=fsync)
+
+
+def set_fleet(run_id=None, host=None):
+    """Adopt (or override) the active recorder's fleet identity: every
+    later record carries the envelope. A world member that joined
+    through ``distributed.initialize(..., elastic=True)`` adopts the
+    world's run id this way. Returns the recorder, or None when
+    disabled."""
+    rec = _active
+    if rec is None:
+        return None
+    with _lock:
+        if run_id:
+            rec.fleet_run_id = str(run_id)
+        if host:
+            rec.fleet_host = str(host)
+        if rec.fleet_run_id is not None and rec.fleet_host is None:
+            rec.fleet_host = f"pid{os.getpid()}"
+    return rec
+
+
+def set_generation(generation):
+    """Stamp the live elastic generation into the active recorder's
+    envelope (workers at every world join, the in-process simulator at
+    every shrink); None clears it. No-op when disabled."""
+    rec = _active
+    if rec is None:
+        return None
+    with _lock:
+        rec.fleet_generation = (None if generation is None
+                                else int(generation))
+    return rec
 
 
 def span(name, sync=None, **attrs):
@@ -455,12 +523,34 @@ def snapshot():
         "budget_alerts": len(rec.alert_records),
         "control_records": len(rec.control_records),
         "probes": len(rec.probe_events),
+        # the elastic world: transitions recorded, host failures
+        # declared and the highest generation reached
+        "elastic_records": len(rec.elastic_records),
+        "elastic_host_failures": sum(
+            1 for e in rec.elastic_records
+            if e.get("event") == "host_fail"),
+        "elastic_generation": max(
+            (int(e["generation"]) for e in rec.elastic_records
+             if isinstance(e.get("generation"), int)), default=None),
     }
 
 
 def _default_path():
-    """Sink path of the run that ``SQ_OBS=1`` enables."""
-    return _knobs.get_raw("SQ_OBS_PATH") or DEFAULT_PATH
+    """Sink path of the run that ``SQ_OBS=1`` enables: ``SQ_OBS_PATH``;
+    else, with ``SQ_OBS_FLEET_DIR``, ``<dir>/obs.<host>.jsonl``."""
+    path = _knobs.get_raw("SQ_OBS_PATH")
+    if path:
+        return path
+    fleet_dir = _knobs.get_str("SQ_OBS_FLEET_DIR", "")
+    if fleet_dir:
+        host = (_knobs.get_str("SQ_OBS_FLEET_HOST", "")
+                or f"pid{os.getpid()}")
+        try:
+            os.makedirs(fleet_dir, exist_ok=True)
+            return os.path.join(fleet_dir, f"obs.{host}.jsonl")
+        except OSError:
+            pass  # an unwritable fleet directory: the default path
+    return DEFAULT_PATH
 
 
 # SQ_OBS=1 enables at first import, sink at SQ_OBS_PATH; the atexit

@@ -85,10 +85,33 @@ probe      outcome (str ∈ {ok, timeout, error, cpu, skipped}), latency_s
            (:mod:`.probe`); optional cached (bool)
 =========  ==============================================================
 
-The JAX package's other types (watchdog, xla_cost, regression, elastic,
-clock) come with the planes that write them or have no object in an
-eager torch port (``ROADMAP.md`` §1); a record of any of them is
-rejected, with an error that names its type.
+The elastic world (:mod:`sq_learn_tpu_torch.parallel.elastic`) writes two
+more:
+
+=========  ==============================================================
+elastic    event (str ∈ {world_up, resume, host_fail, host_stall, shrink,
+           commit_refused, stale_exit, done, window, commit}), generation
+           (int ≥ 0), n_hosts (int ≥ 0) — one transition of the world;
+           optional host / failed_host / cursor / window /
+           manifest_generation (int), detect_s / shrink_s / stall_s
+           (number ≥ 0), attrs (object). ``window`` is one host's folded
+           commit window, ``commit`` node 0's committed one (exactly one
+           per window over the whole fleet)
+clock      peer (str), sent_ts (number), recv_ts (number) — one clock
+           sample carried by an exchange the world makes anyway
+           (heartbeat, manifest, progress): the peer's clock when it
+           published and the local clock when it was read; optional
+           generation (int ≥ 0), via (str)
+=========  ==============================================================
+
+Any record may carry the ``fleet`` envelope, an object of run_id (str),
+host (str), pid (int) and gen (int ≥ 0 | null), validated whenever
+present.
+
+The JAX package's other types (watchdog, xla_cost, regression) have no
+object in an eager torch port or wait for the port's benchmark
+(``ROADMAP.md`` §1); a record of any of them is rejected, with an error
+that names its type.
 """
 
 import json
@@ -103,7 +126,7 @@ KNOWN_VERSIONS = set(range(1, SCHEMA_VERSION + 1))
 #: every record type the port writes, machine-readable
 RECORD_TYPES = ("meta", "span", "counter", "gauge", "ledger", "guarantee",
                 "tradeoff", "fault", "breaker", "io", "slo", "budget",
-                "alert", "control", "probe")
+                "alert", "control", "probe", "elastic", "clock")
 
 _BREAKER_STATES = frozenset({"closed", "open", "half_open"})
 
@@ -113,6 +136,12 @@ _CONTROL_ACTIONS = frozenset({"plan", "hold", "relax", "tighten", "degrade",
                               "recover"})
 
 _PROBE_OUTCOMES = frozenset({"ok", "timeout", "error", "cpu", "skipped"})
+
+#: the elastic world's event vocabulary
+#: (``sq_learn_tpu/obs/schema.py:199``)
+_ELASTIC_EVENTS = frozenset({"world_up", "resume", "host_fail",
+                             "host_stall", "shrink", "commit_refused",
+                             "stale_exit", "done", "window", "commit"})
 
 
 def _check(cond, errors, msg):
@@ -319,6 +348,17 @@ def validate_record(rec):
         if "cached" in rec:
             _check(isinstance(rec["cached"], bool), errors,
                    "probe.cached bool")
+    elif t == "elastic":
+        _elastic(rec, errors)
+    elif t == "clock":
+        _check(isinstance(rec.get("peer"), str), errors, "clock.peer str")
+        for field in ("sent_ts", "recv_ts"):
+            _check(_number(rec.get(field)), errors, f"clock.{field} number")
+        if "generation" in rec:
+            _check(_int(rec["generation"]) and rec["generation"] >= 0,
+                   errors, "clock.generation non-negative int")
+        if "via" in rec:
+            _check(isinstance(rec["via"], str), errors, "clock.via str")
     else:
         errors.append(
             f"unknown record type {t!r} (the port writes "
@@ -326,7 +366,37 @@ def validate_record(rec):
     if "attrs" in rec and t != "span":
         _check(isinstance(rec["attrs"], dict), errors,
                f"{t}.attrs object")
+    if "fleet" in rec:
+        _fleet(rec["fleet"], errors)
     return errors
+
+
+def _elastic(rec, errors):
+    _check(rec.get("event") in _ELASTIC_EVENTS, errors,
+           f"elastic.event in {sorted(_ELASTIC_EVENTS)}")
+    for field in ("generation", "n_hosts"):
+        _check(_int(rec.get(field)) and rec[field] >= 0, errors,
+               f"elastic.{field} non-negative int")
+    for field in ("host", "failed_host", "cursor", "window",
+                  "manifest_generation"):
+        if field in rec:
+            _check(_int(rec[field]), errors, f"elastic.{field} int")
+    for field in ("detect_s", "shrink_s", "stall_s"):
+        if field in rec:
+            _check(_number(rec[field]) and rec[field] >= 0, errors,
+                   f"elastic.{field} non-negative number")
+
+
+def _fleet(fl, errors):
+    if not isinstance(fl, dict):
+        errors.append("fleet envelope must be an object")
+        return
+    _check(isinstance(fl.get("run_id"), str), errors, "fleet.run_id str")
+    _check(isinstance(fl.get("host"), str), errors, "fleet.host str")
+    _check(_int(fl.get("pid")), errors, "fleet.pid int")
+    g = fl.get("gen", None)
+    _check(g is None or (_int(g) and g >= 0), errors,
+           "fleet.gen non-negative int or null")
 
 
 def _serving_slo(rec, errors):

@@ -1,7 +1,9 @@
 """Data-parallel meshes: row sharding, the fixed-order collectives, the
 sharded Lloyd loop, k-means++ init, Gram SVD, tomography, k-NN search and
 streamed Gram, and the multi-process world (counterpart of
-``sq_learn_tpu/parallel``)."""
+``sq_learn_tpu/parallel``). The elastic world is
+``sq_learn_tpu_torch.parallel.elastic``, imported by name: its names are
+not re-exported here, as the JAX package's are not."""
 
 from . import distributed, streaming
 from .init import kmeans_plusplus_sharded

@@ -51,8 +51,11 @@ Kinds and their params (every param optional unless noted):
     flips bytes of the read payload, which the manifest CRC catches
     (:meth:`~FaultPlan.corrupt_read`). ``tiles=`` selects shards.
 ``host_fail``, ``host_stall``
-    The elastic-mesh kinds (:meth:`FaultPlan.host_event`); no caller until
-    the elastic world (item 6b).
+    The elastic world's kinds (:meth:`FaultPlan.host_event`), asked at
+    every fold-window boundary by :mod:`sq_learn_tpu_torch.parallel.
+    elastic`: ``tiles=`` (or ``window=``) selects windows, ``host=H`` the
+    worker; a fail makes a worker ``os._exit`` (the simulator drops the
+    host and shrinks), a stall sleeps ``s`` seconds.
 
 Example: ``SQ_FAULTS="put_fail:tiles=2,times=1;probe_timeout:n=2"``.
 

@@ -96,8 +96,10 @@ def test_initialize_rules_without_a_world(monkeypatch):
     assert dist.generation() is None
     assert dist.process_info() == (0, 1, 1)
     assert dist.host_shard_bounds(37) == (0, 37, 37)
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    # the elastic world needs every coordinate and the generation
+    with pytest.raises(ValueError, match="elastic initialize"):
         dist.initialize("localhost:1", 2, 0, elastic=True)
+    assert dist.world_client() is None
     for name in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(name, raising=False)
     with pytest.raises(ValueError, match="WORLD_SIZE"):
@@ -105,6 +107,39 @@ def test_initialize_rules_without_a_world(monkeypatch):
     with pytest.raises(RuntimeError, match="initialize"):
         dist.global_mesh()
     dist.shutdown()  # no world: a no-op
+
+
+def test_elastic_initialize_defaults_to_the_card(monkeypatch):
+    """An elastic member given no ``devices`` takes the configured device:
+    under the default config ``cuda:<process_id % cards>``, never a CPU
+    mesh; without CUDA it raises before it touches the store. The CPU only
+    when the caller passes it or configures it."""
+    store = dist.start_coordinator_service("127.0.0.1:0")
+    address = f"127.0.0.1:{store.port}"
+    with config_context(device="cuda"):
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                dist.initialize(address, 2, 1, generation=0, elastic=True)
+            assert dist.generation() is None
+            assert not store.check(["elastic/generation"])
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        assert dist.elastic_device(3) == torch.device("cuda:1")
+        assert dist.elastic_device(3, "cuda:0") == torch.device("cuda:0")
+        assert dist.elastic_device(3, "cpu") == torch.device("cpu")
+    # (configured device, devices=, the member's device)
+    for config, devices, want in [("cuda", None, "cuda:1"),
+                                  ("cuda", ["cpu"], "cpu"),
+                                  ("cpu", None, "cpu")]:
+        with config_context(device=config):
+            dist.initialize(address, 2, 1, generation=0, elastic=True,
+                            devices=devices)
+        try:
+            assert dist._WORLD["devices"] == [torch.device(want)]
+            assert dist.process_info() == (1, 2, 1)
+        finally:
+            dist.shutdown(barrier=False)
+        assert dist.generation() is None
 
 
 def test_a_one_process_world_from_the_environment(monkeypatch):

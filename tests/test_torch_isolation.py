@@ -1,7 +1,8 @@
 """The port stands alone: no JAX and nothing of ``sq_learn_tpu``.
 
 In a fresh interpreter where ``import jax`` and ``import sklearn`` fail,
-every module of ``sq_learn_tpu_torch`` (the serving plane included),
+every module of ``sq_learn_tpu_torch`` (the serving plane and the elastic
+world included),
 ``chip_smoke.py``, ``chip_profile.py`` and ``chip_variants.py`` import,
 the ``obs`` package writes an artifact that its ``audit``, ``frontier``
 and ``report`` subcommands read, and no ``sq_learn_tpu`` module gets
@@ -106,10 +107,11 @@ def test_port_imports_without_jax_or_the_jax_package():
             "sq_learn_tpu_torch.utils.murmurhash",
             "sq_learn_tpu_torch.models.minibatch",
             "sq_learn_tpu_torch.models.truncated_svd"} <= names
-    # the mesh plane and the multi-process world
+    # the mesh plane, the multi-process world and the elastic world
     assert {f"sq_learn_tpu_torch.parallel.{name}" for name in (
         "mesh", "init", "lloyd", "pca", "neighbors", "streaming",
-        "distributed")} <= names
+        "distributed", "elastic")} <= names
+    assert "sq_learn_tpu_torch.obs.fleet" in names
 
 
 def test_chip_smoke_fails_without_a_card():

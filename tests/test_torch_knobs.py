@@ -38,6 +38,11 @@ def test_registry_holds_the_planes_the_port_has():
             "SQ_BREAKER_COOLDOWN_S", "SQ_STREAM_TILE_BYTES",
             "SQ_STREAM_MIN_BUCKET_ROWS", "SQ_STREAM_CKPT_DIR",
             "SQ_STREAM_CKPT_EVERY", "SQ_TRANSFER_CHUNK_BYTES"} <= names
+    # the elastic world's knobs and obs's fleet envelope
+    assert {"SQ_ELASTIC_HEARTBEAT_S", "SQ_ELASTIC_LEASE_S",
+            "SQ_ELASTIC_MAX_SHRINKS", "SQ_ELASTIC_WINDOW", "SQ_ELASTIC_PORT",
+            "SQ_OBS_FLEET_RUN_ID", "SQ_OBS_FLEET_HOST", "SQ_OBS_FLEET_DIR",
+            "SQ_OBS_FLEET_CLOCK_SAMPLES"} <= names
     assert _knobs.get_int("SQ_TRANSFER_CHUNK_BYTES") == 128 * 2 ** 20
     assert [k.name for k in _knobs.iter_knobs()
             if k.scope == "external"] == ["CUDA_HOME", "MASTER_ADDR",
@@ -104,3 +109,18 @@ def test_the_port_reads_the_environment_only_through_the_registry():
                 if raw.search(fh.read()):
                     offenders.append(os.path.relpath(path, REPO))
     assert offenders == []
+
+
+def test_environ_copies_for_a_child(monkeypatch):
+    """``environ`` hands a child process a copy of the environment with
+    overrides (None removes a variable) and leaves this one alone."""
+    monkeypatch.setenv("SQ_ELASTIC_LEASE_S", "10")
+    monkeypatch.setenv("SQ_OBS_FLEET_HOST", "w9")
+    monkeypatch.delenv("SQ_ELASTIC_WINDOW", raising=False)
+    env = _knobs.environ(SQ_OBS_FLEET_HOST=None, SQ_ELASTIC_WINDOW=8)
+    assert env["SQ_ELASTIC_LEASE_S"] == "10"
+    assert env["SQ_ELASTIC_WINDOW"] == "8"
+    assert "SQ_OBS_FLEET_HOST" not in env
+    assert os.environ["SQ_OBS_FLEET_HOST"] == "w9"
+    assert _knobs.get_float("SQ_ELASTIC_LEASE_S") == 10.0
+    assert "SQ_ELASTIC_WINDOW" not in os.environ

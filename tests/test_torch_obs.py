@@ -212,6 +212,19 @@ def _write_artifact(path):
                                       autotune=False) as d:
         d.serve("t", "predict", X[:4])
     probe.probe_device(platform="cpu")
+    # the elastic world's records: the simulator's transitions across a
+    # shrink, and one clock sample
+    from sq_learn_tpu_torch.oocore import ArraySource
+    from sq_learn_tpu_torch.parallel import elastic
+
+    faults.arm("host_fail:window=1,host=0,times=1")
+    try:
+        elastic.elastic_fit_local(ArraySource(X, shard_rows=64), 3,
+                                  n_hosts=2, seed=0, window=2,
+                                  device="cpu")
+    finally:
+        faults.disarm()
+    elastic._emit_clock("w1", 100.0, 100.25, 0, "hb")
     quantum, classical = est.quantum_runtime_model(*X.shape)
     for delta in (0.0, 0.5):
         obs.frontier.record_tradeoff(
@@ -296,24 +309,23 @@ def test_cli_reads_an_artifact_without_torch(tmp_path):
 
 
 def test_cli_usage_and_later_subcommands(tmp_path, capsys):
-    """``trace``, ``storage``, ``report``, ``budget`` and ``control`` run
-    now (their own tests are ``tests/test_torch_obs_trace.py``,
-    ``tests/test_torch_obs_storage.py``, ``tests/test_torch_obs_report.py``
-    and ``tests/test_torch_obs_budget.py``); ``regress`` (the port's
-    benchmark) and ``fleet`` (multi-GPU) raise, naming their ROADMAP
-    item."""
+    """``trace``, ``storage``, ``report``, ``budget``, ``control`` and
+    ``fleet`` run now (their own tests are ``tests/test_torch_obs_trace.py``,
+    ``tests/test_torch_obs_storage.py``, ``tests/test_torch_obs_report.py``,
+    ``tests/test_torch_obs_budget.py`` and ``tests/test_torch_obs_fleet.py``);
+    ``regress`` (the port's benchmark) raises, naming its ROADMAP item."""
     from sq_learn_tpu_torch.obs.__main__ import main
 
     assert main([]) == 2
     assert main(["nope"]) == 2
     assert guarantees.main([]) == 2 and obs.frontier.main([]) == 2
-    for cmd in ("report", "budget", "control"):
+    for cmd in ("report", "budget", "control", "fleet"):
         assert main([cmd]) == 2  # usage: no artifact named
-    for cmd, item in (("regress", "the port's benchmark"),
-                      ("fleet", "item 6b")):
-        with pytest.raises(NotImplementedError, match=item) as err:
-            main([cmd, str(tmp_path)])
-        assert "ROADMAP.md" in str(err.value)
+    assert main(["fleet", str(tmp_path)]) == 2  # no obs shard there
+    with pytest.raises(NotImplementedError,
+                       match="the port's benchmark") as err:
+        main(["regress", str(tmp_path)])
+    assert "ROADMAP.md" in str(err.value)
     empty = tmp_path / "empty.jsonl"
     obs.enable(str(empty))
     obs.disable()
