@@ -33,6 +33,7 @@ _EXPORTS = {
                 "TruncatedSVD", "k_means"),
     ".pipeline": ("Pipeline", "make_pipeline"),
     ".utils.checkpoint": ("load_estimator", "save_estimator"),
+    ".utils._show_versions": ("show_versions",),
 }
 _ORIGIN = {name: module for module, names in _EXPORTS.items()
            for name in names}

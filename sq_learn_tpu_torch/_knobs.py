@@ -5,10 +5,10 @@ Every environment read of ``sq_learn_tpu_torch`` goes through the typed
 accessors below, against a registry entry that carries the knob's name,
 kind, default, scope, a one-line doc and the file whose prose describes
 it. The registry holds the knobs of the planes the port has: ``obs`` (its
-fleet envelope included), the streaming engine, the transfer supervisor,
-the fault harness, the sketch engine, the out-of-core shard stores, the
-serving plane, the multi-process world (torch.distributed's launcher
-variables) and the elastic world. The JAX package's other knobs (XLA's
+fleet envelope included), the MFU accounting of ``utils/profiling``, the
+streaming engine, the transfer supervisor, the fault harness, the sketch
+engine, the out-of-core shard stores, the serving plane, the multi-process
+world (torch.distributed's launcher variables) and the elastic world. The JAX package's other knobs (XLA's
 caches, among them ``SQ_COMPILE_CACHE_DIR``: eager torch compiles nothing
 to persist) have no object here.
 
@@ -132,6 +132,15 @@ _ENTRIES = [
     _K("SQ_PROBE_CACHE", "path", None, "lib",
        "Cross-process probe-cache file (default: sq_probe_cache.json in "
        "the temp dir).", "sq_learn_tpu_torch/obs/probe.py"),
+    # -- profiling ----------------------------------------------------------
+    _K("SQ_CPU_PEAK_FLOPS", "float", None, "lib",
+       "Host peak-FLOPs override for MFU accounting.",
+       "sq_learn_tpu_torch/utils/profiling.py"),
+    _K("SQ_GPU_PEAK_FLOPS", "float", None, "lib",
+       "Card fp32 peak-FLOPs override for MFU accounting (the rate "
+       "outside the tensor cores; the other math kinds keep the H100 "
+       "table's).",
+       "sq_learn_tpu_torch/utils/profiling.py"),
     # -- resilience ---------------------------------------------------------
     _K("SQ_FAULTS", "spec", None, "lib",
        "Deterministic fault-injection schedule (armed at import).",

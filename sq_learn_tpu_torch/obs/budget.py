@@ -142,8 +142,11 @@ class BudgetLedger:
     pass explicit ``ts``/``now`` for determinism.
     """
 
-    # tenant state and the emit counter are only written under
-    # ``self._lock``; ``_state``/``_prune`` run with it held
+    #: lock-discipline contract (sqcheck, ``sq_learn_tpu/obs/budget.py``'s
+    #: map): the tenant table and the emit counter are only written under
+    #: ``self._lock``; ``_state``/``_prune`` run with the lock held.
+    _GUARDED_BY = {"_lock": ("_tenants", "_emit_seq")}
+    _ASSUMES_LOCK = ("_state", "_prune")
 
     def __init__(self, window_seconds=None, threshold=None,
                  site="serving.dispatcher"):

@@ -464,9 +464,10 @@ def gauge(name, value, **attrs):
 def snapshot():
     """One-dict summary of the run: spans, ledger entries, the guarantee
     audit's draws, violations and flagged sites, trade-off points, the
-    sketch's counters, faults injected and the breaker's state, and the
-    out-of-core plane's transfer, prefetch and codec counters with the
-    storage ledger's per-surface rollup. None when disabled."""
+    sketch's counters, faults injected and the breaker's state, the
+    measured MFU, and the out-of-core plane's transfer, prefetch and codec
+    counters with the storage ledger's per-surface rollup. None when
+    disabled."""
     rec = _active
     if rec is None:
         return None
@@ -478,6 +479,7 @@ def snapshot():
         site for site, a in audit(rec.guarantee_records).items()
         if a["flagged"])
     counters = rec.counters
+    mfu_gauge = rec.gauges.get("profiling.mfu")
     return {
         "spans": len(rec.spans),
         "ledger_entries": len(rec.ledger_entries),
@@ -492,6 +494,10 @@ def snapshot():
         "faults_injected": len(rec.fault_events),
         "breaker_state": breaker.state(),
         "breaker_trips": int(breaker.trips),
+        # the run's measured MFU gauge (utils.profiling.mfu), None until
+        # something priced one
+        "measured_mfu": (round(float(mfu_gauge), 6)
+                         if isinstance(mfu_gauge, (int, float)) else None),
         "prefetch_hits": int(counters.get("oocore.prefetch_hits", 0)),
         "prefetch_stalls": int(counters.get("oocore.prefetch_stalls", 0)),
         "prefetch_stall_s": round(float(

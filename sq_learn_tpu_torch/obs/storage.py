@@ -75,6 +75,10 @@ class StorageLedger:
     Thread-safe: shard reads land from prefetch worker threads.
     """
 
+    #: lock-discipline contract (sqcheck, ``sq_learn_tpu/obs/storage.py``'s
+    #: map): shared state is only written under ``self._lock``.
+    _GUARDED_BY = {"_lock": ("_entries", "_dirty", "_flushes")}
+
     def __init__(self, rec):
         self._rec = rec
         self._lock = threading.Lock()

@@ -76,6 +76,13 @@ class ShardPrefetcher:
     residency for the RAM budget (default: two of the largest shards).
     """
 
+    #: lock-discipline contract (sqcheck, ``sq_learn_tpu/oocore/
+    #: prefetch.py``'s map): worker/consumer state is only written under
+    #: ``self._cond``.
+    _GUARDED_BY = {"_cond": ("_results", "_claimed", "_consumed", "_held",
+                             "_closed", "_hits", "_stalls", "_occupancy",
+                             "_stall_s")}
+
     def __init__(self, source, order, *, depth=None, threads=None,
                  resident_bytes=None):
         self.source = source

@@ -131,6 +131,13 @@ class CircuitBreaker:
     testable without sleeping.
     """
 
+    #: lock-discipline contract (sqcheck, ``sq_learn_tpu/resilience/
+    #: supervisor.py``'s map): these attributes are only written under
+    #: ``self._lock``; ``_transition`` runs with the lock held.
+    _GUARDED_BY = {"_lock": ("_state", "_consecutive", "_opened_at",
+                             "trips", "transitions")}
+    _ASSUMES_LOCK = ("_transition",)
+
     def __init__(self, clock=time.monotonic):
         self._clock = clock
         self._state = CLOSED

@@ -14,7 +14,8 @@ over the same product the JAX package walks:
   fixed param shapes, in its one transfer dtype. :func:`warm_model` walks
   kernel set × :func:`bucket_ladder` × :func:`serve_dtypes` and runs each
   signature once, eagerly, on the model's device (zeros of the
-  signature's shapes), synchronized.
+  signature's shapes), synchronized. ``SQ_SERVE_AOT=0`` (or
+  ``warm(aot=False)`` on the registry) skips the walk.
 - **Dispatches look up the warmed signature.** :func:`lookup` resolves a
   dispatch to its warmed kernel, keyed by device and the exact
   ``(kernel, ((shape, dtype), ...))`` signature of

@@ -190,8 +190,11 @@ class Controller:
     every ``None`` falls back to its ``SQ_SERVE_AUTOTUNE_*`` knob.
     """
 
-    # tenant state is only written under ``self._lock``; ``_state`` runs
-    # with it held
+    #: lock-discipline contract (sqcheck, ``sq_learn_tpu/serving/
+    #: control.py``'s map): tenant state is only written under
+    #: ``self._lock``; ``_state`` assumes the lock is held.
+    _GUARDED_BY = {"_lock": ("_tenants",)}
+    _ASSUMES_LOCK = ("_state",)
 
     def __init__(self, registry, *, burn=None, relax=None, patience=None,
                  cap=None, margin=None, site="serving.control"):

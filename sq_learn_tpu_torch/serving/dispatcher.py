@@ -206,6 +206,11 @@ class _BufferPool:
     the double-buffered worker holds at most two batches in flight, plus
     a concurrent flush."""
 
+    #: lock-discipline contract (sqcheck, ``sq_learn_tpu/serving/
+    #: dispatcher.py``'s map): the free lists are shared between the
+    #: worker thread and flushing callers.
+    _GUARDED_BY = {"_lock": ("_free",)}
+
     def __init__(self, pinned, per_key=4):
         self._lock = threading.Lock()
         self._free = {}
@@ -287,6 +292,15 @@ class MicroBatchDispatcher:
     is released and the futures resolve (each response is the very
     object its future returns): an audit hook that replays batches.
     """
+
+    #: lock-discipline contract (sqcheck, ``sq_learn_tpu/serving/
+    #: dispatcher.py``'s map, less ``_sites_seen``, which the port does not
+    #: keep): queue and batching state shared with the worker thread is
+    #: only written under ``self._cond`` (``*_locked`` helpers assume the
+    #: lock is held).
+    _GUARDED_BY = {"_cond": ("_queue", "_by_key", "_key_rows",
+                             "_pending_count", "_stopping", "_batch_seq",
+                             "_aot_hits", "_aot_misses", "_megabatches")}
 
     def __init__(self, registry, *, max_wait_ms=None, max_batch_rows=None,
                  min_bucket_rows=None, slo_p50_ms=None, slo_p99_ms=None,

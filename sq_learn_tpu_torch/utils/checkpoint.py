@@ -318,6 +318,12 @@ class AsyncStreamCheckpointer:
       re-raised on the next :meth:`submit`/:meth:`close`.
     """
 
+    #: lock-discipline contract (sqcheck, ``sq_learn_tpu/utils/
+    #: checkpoint.py``'s map): writer/caller shared state is only written
+    #: under ``self._cond``.
+    _GUARDED_BY = {"_cond": ("_pending", "_writing", "_error", "_stop",
+                             "writes", "dropped")}
+
     def __init__(self, path):
         self.path = str(path)
         self.writes = 0

@@ -1,7 +1,8 @@
 """The port's knob registry (``sq_learn_tpu_torch._knobs``) against the JAX
 package's, on the CPU: every knob the port registers has the JAX
-registry's kind and default (``CUDA_HOME`` and torch.distributed's
-launcher variables aside, which the port alone reads), the accessors
+registry's kind and default (``CUDA_HOME``, torch.distributed's
+launcher variables and ``SQ_GPU_PEAK_FLOPS`` aside, which the port alone
+reads), the accessors
 read the environment as the JAX ones do, the module and ``obs`` import
 without torch, and no module of the port reads the environment around
 the registry.
@@ -18,9 +19,11 @@ from sq_learn_tpu import _knobs as jknobs
 from sq_learn_tpu_torch import _knobs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the port alone reads these: the CUDA toolkit, and torch.distributed's
+#: the port alone reads these: the CUDA toolkit, torch.distributed's
 #: launcher variables (the JAX package reads JAX_NUM_PROCESSES instead)
-PORT_ONLY = {"CUDA_HOME", "WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"}
+#: and the card's peak override (the JAX package's is SQ_TPU_PEAK_FLOPS)
+PORT_ONLY = {"CUDA_HOME", "WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT",
+             "SQ_GPU_PEAK_FLOPS"}
 
 
 @pytest.mark.parametrize("name", sorted(set(_knobs.REGISTRY) - PORT_ONLY))
@@ -49,7 +52,7 @@ def test_registry_holds_the_planes_the_port_has():
                                           "MASTER_PORT", "RANK",
                                           "WORLD_SIZE"]
     assert all(_knobs.knob(name).anchor.endswith("distributed.py")
-               for name in PORT_ONLY - {"CUDA_HOME"})
+               for name in PORT_ONLY - {"CUDA_HOME", "SQ_GPU_PEAK_FLOPS"})
 
 
 @pytest.mark.parametrize("name,raw", [
@@ -97,18 +100,27 @@ def test_knobs_and_obs_import_without_torch():
 
 
 def test_the_port_reads_the_environment_only_through_the_registry():
+    # the static checker (analysis/) names these calls to find them, so
+    # the text search skips it; the checker's own knob-registry rule,
+    # which parses every module, must find no raw read anywhere
+    from sq_learn_tpu_torch.analysis import get_rules, run
+
     raw = re.compile(r"os\.environ|os\.getenv")
     offenders = []
     root = os.path.join(REPO, "sq_learn_tpu_torch")
+    checker = os.path.join(root, "analysis")
     for dirpath, _, files in os.walk(root):
         for name in files:
             path = os.path.join(dirpath, name)
-            if not name.endswith(".py") or path.endswith("_knobs.py"):
+            if (not name.endswith(".py") or path.endswith("_knobs.py")
+                    or path.startswith(checker + os.sep)):
                 continue
             with open(path) as fh:
                 if raw.search(fh.read()):
                     offenders.append(os.path.relpath(path, REPO))
     assert offenders == []
+    findings, errors = run([root], get_rules(["knob-registry"]), root=REPO)
+    assert errors == [] and findings == [], [str(f) for f in findings]
 
 
 def test_environ_copies_for_a_child(monkeypatch):
