@@ -257,7 +257,29 @@ each of which fails the run:
    valid). The workers' certification launches of the Lloyd kernel,
    reported by each worker, join the ``kernels`` line. Its figures print
    on an ``elastic:`` JSON line.
-9. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
+9. The digits phase, BASELINE #1 (``BASELINE.md`` row 1, ``bench.py``'s
+   headline fit), under DIGITS_PHASE_S seconds: sklearn's digits (1797 ×
+   64) through the port's ``load_digits`` (its own copy of the data:
+   shape, dtypes, labels 0–9, ``X.sum()`` == DIGITS_X_SUM); the Lloyd
+   kernel at 1797 × 64, k=10, R=10 (an unaligned row count) against its
+   plain version at window 0 and 0.5, as in phase 2, and timed; then,
+   with the counts at 0, ``QKMeans(n_clusters=10, n_init=10,
+   max_iter=300, delta=0.5, true_distance_estimate=False,
+   random_state=0)``: one warm-up fit with obs on, DIGITS_FITS timed fits
+   (``fit_s`` their minimum; the same labels; Lloyd launches in each), one
+   more with obs on for the record; δ=0 from the classes' means on the
+   card against the CPU (labels and ``n_iter_`` equal, inertia within
+   DIGITS_INERTIA_RTOL); the δ=0.5 fits of seeds 0–2 against the δ=0 fit
+   of seed 0 (median ARI ≥ DIGITS_ARI_FLOOR, median inertia ratio ≤
+   DIGITS_INERTIA_CEIL); ``obs.regress.selftest(device="cuda")`` (the
+   clean rerun green with ``peak_hbm_bytes`` measured, the doubled upload
+   red on transfer bytes and peak memory) and ``python -m
+   sq_learn_tpu_torch.obs regress`` on the phase's record against a temp
+   root holding the warm-up's (exit 0, no red). The phase's Lloyd
+   launches join the ``kernels`` line under the digits shape; its
+   figures print on a ``digits:`` JSON line. It runs after every other
+   main path and before the profiling phase's fit.
+10. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
 import json
@@ -1702,25 +1724,27 @@ def cicids_standardized(torch):
     return Xs, y, scale_s
 
 
-def lloyd_shape_phase(Xs, torch):
-    """The Lloyd kernel at the δ-sweep's shape (50 000 × 78, k=6, R=10;
-    rows of 312 bytes take the kernel's unaligned staging) against its
-    plain version on the standardized CICIDS surrogate ``Xs``: window 0,
-    and 0.5 on a fed Gumbel operand. Returns the shape's entry for the
-    kernel's JSON line."""
+def lloyd_shape_phase(Xs, k, torch):
+    """The Lloyd kernel at the shape of the rows ``Xs`` on the card, k
+    centers, R=10, against its plain version on the centered rows: window
+    0, and 0.5 on a fed Gumbel operand. At the δ-sweep's shape (50 000 ×
+    78, k=6) rows of 312 bytes take the kernel's unaligned staging; at
+    BASELINE #1's (1797 × 64, k=10) the row count is not aligned. Returns
+    the shape's entry for the kernel's JSON line."""
     Xc = Xs - Xs.mean(dim=0)
-    operands = lloyd_operands(Xc, SWEEP_K, R, torch)
+    operands = lloyd_operands(Xc, k, R, torch)
     cases = [("float32", Xc, None, 0.0, True),
              ("float32", Xc, operands["gum"], WINDOW, True)]
     report = hold_lloyd_cases(cases, operands, torch)
     main = report[("float32", WINDOW)]
-    return {"shape": f"{SWEEP_N}x{SWEEP_M} k={SWEEP_K} R={R}",
+    return {"shape": f"{Xs.shape[0]}x{Xs.shape[1]} k={k} R={R}",
             "window": WINDOW, "launches": None,
             "max_abs_err": max(main["err"].values()), "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             "window_0_ms": report[("float32", 0.0)]["ms"],
-            "window_0_plain_ms": report[("float32", 0.0)]["plain_ms"]}
+            "window_0_plain_ms": report[("float32", 0.0)]["plain_ms"],
+            "window_0_bound_ms": report[("float32", 0.0)]["bound_ms"]}
 
 
 def delta_sweep_path(Xs, y, torch):
@@ -4749,6 +4773,223 @@ def elastic_phase(here, torch):
                                         + killed["launches"]["argkmin"])}
 
 
+# ---------------------------------------------------------------------------
+# BASELINE #1: q-means k=10 on sklearn's digits, read from the port's copy
+# ---------------------------------------------------------------------------
+
+DIGITS_N, DIGITS_M, DIGITS_K = 1797, 64, 10
+#: X.sum() of the digits (float32), pinned on the CPU by
+#: tests/test_torch_digits.py
+DIGITS_X_SUM = 561718.0
+#: timed fits after one warm-up; ``fit_s`` is their minimum
+DIGITS_FITS = 3
+DIGITS_SEEDS = (0, 1, 2)
+#: floors from the port's CPU runs (tests/test_torch_digits.py): the
+#: median ARI of the δ=0.5 fits of seeds 0–2 against the δ=0 fit of seed 0
+#: is 0.98407 there, the lowest single seed of 0–7 0.97422, so the floor
+#: sits 0.024 under the lowest; their median inertia ratio is 1.0000329,
+#: the highest of seeds 0–7 1.000176, so the ceiling sits 0.0018 over it.
+#: The card draws its Gumbel noise from another stream: the same law.
+DIGITS_ARI_FLOOR = 0.95
+DIGITS_INERTIA_CEIL = 1.002
+DIGITS_INERTIA_RTOL = 1e-4  # δ=0 from one init, card against CPU
+DIGITS_METRIC = "qkmeans_digits_1797x64_k10_fit_wallclock"  # bench.py's
+DIGITS_PHASE_S = 30.0  # the digits phase's limit, seconds
+
+
+def digits_fit(seed, delta=WINDOW, **kw):
+    """BASELINE #1's estimator (``BASELINE.md`` row 1, ``bench.py``'s
+    headline fit): QKMeans(n_clusters=10, n_init=10, max_iter=300,
+    delta=0.5, true_distance_estimate=False, random_state=seed)."""
+    from sq_learn_tpu_torch.models import QKMeans
+
+    params = dict(n_clusters=DIGITS_K, n_init=10, max_iter=300, delta=delta,
+                  true_distance_estimate=False, random_state=seed)
+    return QKMeans(**{**params, **kw})
+
+
+def digits_record(value, snap, backend):
+    """BASELINE #1's metric line, in the JAX package's bench format."""
+    return {"metric": DIGITS_METRIC, "value": value, "unit": "s",
+            "backend": backend, "obs": snap}
+
+
+def digits_regress(warmup, fresh, here):
+    """``obs.regress.selftest(device="cuda")``, then ``python -m
+    sq_learn_tpu_torch.obs regress`` on the phase's own record ``fresh``
+    against a temp ``--root`` whose ``bench/records/`` holds the warm-up
+    fit's record ``warmup``. Returns the selftest's verdicts and the CLI's
+    summary."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from sq_learn_tpu_torch.obs import regress
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = regress.selftest(device="cuda")
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0, f"obs.regress.selftest(device='cuda') returned {rc}: "
+                   f"{out}")
+    check(out["clean"]["peak_hbm_bytes"] == "green"
+          and out["leaked"]["total_transfer_bytes"] == "red"
+          and out["leaked"]["peak_hbm_bytes"] == "red",
+          f"regress selftest verdicts {out}")
+    root = tempfile.mkdtemp(prefix="sq_regress_")
+    try:
+        os.makedirs(os.path.join(root, "bench", "records"))
+        with open(os.path.join(root, "bench", "records", "warmup.txt"),
+                  "w") as fh:
+            fh.write("# the digits phase's warm-up fit\n"
+                     + json.dumps(warmup) + "\n")
+        path = os.path.join(root, "fresh.txt")
+        with open(path, "w") as fh:
+            fh.write(json.dumps(fresh) + "\n")
+        cli = subprocess.run(
+            [sys.executable, "-m", "sq_learn_tpu_torch.obs", "regress", path,
+             "--root", root], cwd=here, env=dict(os.environ, PYTHONPATH=here),
+            capture_output=True, text=True, timeout=120)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lines = cli.stdout.strip().splitlines()
+    summary = json.loads(lines[-1]) if lines else {}
+    verdicts = {v["gate"]: v["verdict"]
+                for v in map(json.loads, lines[:-1])}
+    check(cli.returncode == 0
+          and summary.get("regression_summary", {}).get("red") == 0
+          and verdicts.get("peak_hbm_bytes") == "green",
+          f"obs regress on the digits record exited {cli.returncode}: "
+          f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    return {"selftest": {"clean": out["clean"], "leaked": out["leaked"],
+                         "bytes": out["bytes"],
+                         "peak_hbm_bytes": out["peak_hbm_bytes"]},
+            "cli": verdicts, "cli_summary": summary["regression_summary"]}
+
+
+def digits_phase(here, torch):
+    """BASELINE #1 on the card: the digits through the port's
+    ``load_digits``; the Lloyd kernel at 1797 × 64, k=10, R=10 against
+    its plain version; the fit (one warm-up under obs, then the min of
+    DIGITS_FITS timed fits), δ=0 on the card against the CPU from one
+    init, the quality floors, and ``obs regress``. Returns the shape's
+    entry for the kernels line (its launches filled in) and the
+    ``digits:`` line's figures."""
+    import warnings
+
+    import numpy as np
+
+    from sq_learn_tpu_torch import obs
+    from sq_learn_tpu_torch.datasets import load_digits
+    from sq_learn_tpu_torch.obs.regress import port_backend
+    from sq_learn_tpu_torch.ops.kernels import argkmin, lloyd_step
+
+    t_phase = time.perf_counter()
+    X, y = load_digits()
+    check(X.shape == (DIGITS_N, DIGITS_M) and X.dtype == np.float32
+          and y.dtype == np.int32 and y.shape == (DIGITS_N,)
+          and sorted(np.unique(y)) == list(range(DIGITS_K))
+          and float(X.sum()) == DIGITS_X_SUM,
+          f"load_digits: {X.shape} {X.dtype} {y.dtype}, sum {X.sum()}")
+    # the kernel at the fit's shape, against its plain version (these
+    # launches are comparisons: not counted)
+    shape = lloyd_shape_phase(torch.from_numpy(X).to(CARD), DIGITS_K, torch)
+    backend = port_backend(CARD)
+
+    lloyd_step.launches = argkmin.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # δ=0's classic notice
+        obs.enable()
+        t0 = time.perf_counter()
+        digits_fit(0).fit(X)
+        warmup_s = time.perf_counter() - t0
+        warmup = digits_record(warmup_s, obs.snapshot(), backend)
+        obs.disable()
+        fits, walls, launches = [], [], []
+        for _ in range(DIGITS_FITS):
+            before = lloyd_step.launches
+            t0 = time.perf_counter()
+            fits.append(digits_fit(0).fit(X))
+            walls.append(time.perf_counter() - t0)
+            launches.append(lloyd_step.launches - before)
+        fit_s = min(walls)
+        est = fits[0]
+        check(all(np.array_equal(f.labels_, est.labels_) for f in fits),
+              "BASELINE #1: the timed fits disagree")
+        check(all(n > 0 for n in launches),
+              f"BASELINE #1: a fit launched no Lloyd kernel: {launches}")
+        check(np.isfinite(est.cluster_centers_).all()
+              and est.cluster_centers_.shape == (DIGITS_K, DIGITS_M)
+              and np.isfinite(est.inertia_) and est.n_iter_ >= 1,
+              "BASELINE #1 fit output")
+        # the record's obs: one more fit, with obs on
+        obs.enable()
+        digits_fit(0).fit(X)
+        fresh = digits_record(fit_s, obs.snapshot(), backend)
+        obs.disable()
+
+        # δ=0 from one init, card against CPU: the classes' means (an
+        # init of data rows ties exactly on these integer pixels)
+        init = np.stack([X[y == c].mean(0) for c in range(DIGITS_K)])
+        on = {device: digits_fit(0, delta=0.0, init=init, n_init=1,
+                                 device=device).fit(X)
+              for device in (CARD, "cpu")}
+        card, cpu = on[CARD], on["cpu"]
+        check(np.array_equal(card.labels_, cpu.labels_)
+              and card.n_iter_ == cpu.n_iter_,
+              f"BASELINE #1 δ=0: card (n_iter {card.n_iter_}) and CPU "
+              f"(n_iter {cpu.n_iter_}) differ in "
+              f"{int((card.labels_ != cpu.labels_).sum())} labels")
+        check(np.isclose(card.inertia_, cpu.inertia_,
+                         rtol=DIGITS_INERTIA_RTOL),
+              f"BASELINE #1 δ=0: inertia {card.inertia_} against the CPU's "
+              f"{cpu.inertia_}")
+
+        # quality: δ=0.5 at three seeds against δ=0 at seed 0
+        exact = digits_fit(0, delta=0.0).fit(X)
+        quality = [est] + [digits_fit(s).fit(X) for s in DIGITS_SEEDS[1:]]
+    aris = [ari(exact.labels_, f.labels_) for f in quality]
+    ratios = [f.inertia_ / exact.inertia_ for f in quality]
+    check(statistics.median(aris) >= DIGITS_ARI_FLOOR,
+          f"BASELINE #1: median ARI {aris} < {DIGITS_ARI_FLOOR}")
+    check(statistics.median(ratios) <= DIGITS_INERTIA_CEIL,
+          f"BASELINE #1: median inertia ratio {ratios} > "
+          f"{DIGITS_INERTIA_CEIL}")
+    check(argkmin.launches == 0, "the digits phase launched argkmin")
+    shape["launches"] = lloyd_step.launches
+
+    gate = digits_regress(warmup, fresh, here)
+    out = {"fit_s": fit_s, "fit_s_all": walls, "warmup_s": warmup_s,
+           "n_iter": est.n_iter_, "inertia": float(est.inertia_),
+           "launches_per_fit": launches, "launches": shape["launches"],
+           "lloyd_ms": shape["ms"], "lloyd_plain_ms": shape["plain_ms"],
+           "lloyd_bound_ms": shape["bound_ms"],
+           "lloyd_bound_by": shape["bound_by"],
+           "lloyd_window_0_ms": shape["window_0_ms"],
+           "lloyd_window_0_plain_ms": shape["window_0_plain_ms"],
+           "delta0_card_eq_cpu": True, "delta0_n_iter": cpu.n_iter_,
+           "delta0_inertia_rel": abs(card.inertia_ - cpu.inertia_)
+           / cpu.inertia_,
+           "ari": aris, "ari_median": statistics.median(aris),
+           "ari_floor": DIGITS_ARI_FLOOR, "inertia_ratio": ratios,
+           "inertia_ratio_median": statistics.median(ratios),
+           "inertia_ceiling": DIGITS_INERTIA_CEIL,
+           "peak_hbm_bytes": fresh["obs"]["peak_hbm_bytes"], **gate}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"BASELINE #1 (digits 1797×64, k=10, δ=0.5): fit {fit_s:.4f} s "
+          f"(min of {walls}; warm-up {warmup_s:.4f} s), n_iter "
+          f"{est.n_iter_}, Lloyd launches per fit {launches}; median ARI "
+          f"{out['ari_median']} against δ=0 (floor {DIGITS_ARI_FLOOR}), "
+          f"median inertia ratio {out['inertia_ratio_median']} (ceiling "
+          f"{DIGITS_INERTIA_CEIL}); δ=0 card == CPU (n_iter {cpu.n_iter_})",
+          flush=True)
+    check(out["phase_s"] < DIGITS_PHASE_S,
+          f"the digits phase took {out['phase_s']} s, not under "
+          f"{DIGITS_PHASE_S} s")
+    return shape, out
+
+
 def main():
     import numpy as np
     import torch
@@ -4957,7 +5198,7 @@ def main():
           f"{scale_s:.4f} s", flush=True)
     # the Lloyd kernel at the δ-sweep's shape, against its plain version
     t0 = time.perf_counter()
-    sweep_entry = lloyd_shape_phase(Xsweep, torch)
+    sweep_entry = lloyd_shape_phase(Xsweep, SWEEP_K, torch)
     print(f"Lloyd kernel phase at {sweep_entry['shape']}: "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     # BASELINE #5, the δ-sweep: its Lloyd launches join the kernel's
@@ -5111,6 +5352,14 @@ def main():
     elastic["phase_s"] = time.perf_counter() - t_phase
     print(f"elastic phase: {elastic['phase_s']:.3f} s", flush=True)
     print("elastic: " + json.dumps(elastic), flush=True)
+
+    # the digits phase: BASELINE #1 on the card, its Lloyd launches at a
+    # shape of their own joining the kernel's
+    digits_entry, digits = digits_phase(here, torch)
+    entry["launches"] += digits_entry["launches"]
+    entry["shapes"].append(digits_entry)
+    print(f"digits phase: {digits['phase_s']:.3f} s", flush=True)
+    print("digits: " + json.dumps(digits), flush=True)
 
     # the profiling phase's fit: a main-path run whose launches join
     lloyd_step.launches = argkmin.launches = 0

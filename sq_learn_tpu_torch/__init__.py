@@ -22,8 +22,8 @@ __version__ = "0.1.0"
 
 #: the package's names, by the module that defines them
 _EXPORTS = {
-    "._config": ("config_context", "get_config", "resolve_device",
-                 "set_config"),
+    "._config": ("config_context", "default_dtype", "get_config",
+                 "resolve_device", "set_config"),
     ".base": ("BaseEstimator", "ClassifierMixin", "ClusterMixin",
               "NotFittedError", "TransformerMixin", "check_is_fitted",
               "clone"),
@@ -38,9 +38,14 @@ _EXPORTS = {
 _ORIGIN = {name: module for module, names in _EXPORTS.items()
            for name in names}
 
-__all__ = sorted([*_ORIGIN, "feature_extraction", "obs", "pipeline",
-                  "preprocessing", "resilience", "serving", "streaming",
-                  "utils"])
+#: the subpackages and modules, each loaded on first use
+_SUBMODULES = ("QuantumUtility", "cluster", "datasets", "decomposition",
+               "feature_extraction", "metrics", "model_selection", "models",
+               "neighbors", "obs", "ops", "parallel", "pipeline",
+               "preprocessing", "resilience", "serving", "streaming", "svm",
+               "utils")
+
+__all__ = sorted([*_ORIGIN, *_SUBMODULES])
 
 
 def __getattr__(name):

@@ -5,10 +5,11 @@ Every environment read of ``sq_learn_tpu_torch`` goes through the typed
 accessors below, against a registry entry that carries the knob's name,
 kind, default, scope, a one-line doc and the file whose prose describes
 it. The registry holds the knobs of the planes the port has: ``obs`` (its
-fleet envelope included), the MFU accounting of ``utils/profiling``, the
-streaming engine, the transfer supervisor, the fault harness, the sketch
-engine, the out-of-core shard stores, the serving plane, the multi-process
-world (torch.distributed's launcher variables) and the elastic world. The JAX package's other knobs (XLA's
+fleet envelope and regression gate included), the MFU accounting of
+``utils/profiling``, the streaming engine, the transfer supervisor, the
+fault harness, the sketch engine, the out-of-core shard stores, the
+serving plane, the multi-process world (torch.distributed's launcher
+variables) and the elastic world. The JAX package's other knobs (XLA's
 caches, among them ``SQ_COMPILE_CACHE_DIR``: eager torch compiles nothing
 to persist) have no object here.
 
@@ -16,6 +17,8 @@ Runtime contract, as in the JAX package:
 
 - Accessors validate the name against the registry and raise
   :class:`UnknownKnobError` on a miss.
+- A family entry (a name ending in ``*``, such as ``SQ_REGRESS_TOL_*``)
+  governs every name with its prefix (``SQ_REGRESS_TOL_LATENCY``).
 - ``kind="flag"`` knobs follow one rule: a knob whose registered default
   is False is enabled only by ``"1"``; a knob whose default is True stays
   enabled unless set to ``"0"``.
@@ -72,6 +75,12 @@ class Knob:
         return (f"Knob({self.name!r}, kind={self.kind!r}, "
                 f"default={self.default!r}, scope={self.scope!r})")
 
+    @property
+    def is_family(self):
+        """True for a family entry (a trailing ``*``): it governs every
+        name that starts with its prefix."""
+        return self.name.endswith("*")
+
 
 def _K(name, kind, default, scope, doc, anchor):
     return Knob(name, kind, default, scope, doc, anchor)
@@ -126,6 +135,13 @@ _ENTRIES = [
     _K("SQ_OBS_BUDGET_BURN", "float", 2.0, "lib",
        "Multi-window burn-rate alert threshold (must hold in EVERY "
        "window).", "sq_learn_tpu_torch/obs/budget.py"),
+    _K("SQ_REGRESS_TOL_*", "float", None, "lib",
+       "Per-gate tolerance override for the bench regression gate "
+       "(e.g. SQ_REGRESS_TOL_LATENCY).",
+       "sq_learn_tpu_torch/obs/regress.py"),
+    _K("SQ_REGRESS_SLACK_*", "float", None, "lib",
+       "Per-gate additive-slack override for the bench regression gate.",
+       "sq_learn_tpu_torch/obs/regress.py"),
     _K("SQ_PROBE_TTL_S", "float", 300.0, "lib",
        "TTL of a cached device-health probe result (0 disables caching).",
        "sq_learn_tpu_torch/obs/probe.py"),
@@ -339,16 +355,25 @@ _ENTRIES = [
        "sq_learn_tpu_torch/parallel/distributed.py"),
 ]
 
-#: name → Knob
+#: name → Knob for exact entries; families keep their trailing ``*``
 REGISTRY = {e.name: e for e in _ENTRIES}
+
+_FAMILIES = tuple(e for e in _ENTRIES if e.is_family)
 
 if len(REGISTRY) != len(_ENTRIES):  # pragma: no cover - registry bug
     raise RuntimeError("duplicate knob registration")
 
 
 def resolve(name):
-    """The :class:`Knob` entry for ``name``, or None when unregistered."""
-    return REGISTRY.get(name)
+    """The :class:`Knob` entry governing ``name`` (exact match first,
+    then family prefix), or None when unregistered."""
+    e = REGISTRY.get(name)
+    if e is not None:
+        return e
+    for fam in _FAMILIES:
+        if name.startswith(fam.name[:-1]):
+            return fam
+    return None
 
 
 def knob(name):

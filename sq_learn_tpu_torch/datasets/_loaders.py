@@ -1,8 +1,10 @@
 """Datasets (copies from ``sq_learn_tpu/datasets/_loaders.py``): the
 seeded surrogates, the BASELINE loaders as their offline stand-ins, the
-CICIDS CSV reader and ``make_blobs``. Nothing is downloaded."""
+digits from the port's own copy of the data, the CICIDS CSV reader and
+``make_blobs``. Nothing is downloaded."""
 
 import csv
+import gzip
 import os
 import warnings
 
@@ -74,9 +76,8 @@ def load_mnist_surrogate_low_margin(n_samples=10_000):
 # ``sq_learn_tpu/datasets/_loaders.py:100-288``), offline only
 # ---------------------------------------------------------------------------
 
-_FETCHERS = ("{} is not ported: it needs sklearn or a download, and the "
-             "port imports neither; ROADMAP.md §1 item 7, the dataset "
-             "fetchers")
+_FETCHERS = ("{} is not ported: it needs a download, and the port never "
+             "fetches; ROADMAP.md §1 item 7, the dataset fetchers")
 
 
 def load_mnist(data_home=None):
@@ -183,9 +184,20 @@ class Bunch(dict):
         self[key] = value
 
 
+#: the port's copy of sklearn's bundled digits (``data/README``)
+_DIGITS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "data", "digits.csv.gz")
+
+
 def load_digits():
-    """Not ported: sklearn's bundled digits need sklearn."""
-    raise NotImplementedError(_FETCHERS.format("load_digits"))
+    """The optical-recognition digits, 1797 × 64 (BASELINE #1): the UCI
+    test set as scikit-learn bundles it, read from the port's byte-for-byte
+    copy (``datasets/data/digits.csv.gz``) with numpy and gzip alone, so it
+    needs neither sklearn nor a network. Returns (X float32 (1797, 64),
+    y int32 (1797,)), the JAX package's ``load_digits``."""
+    with gzip.open(_DIGITS_PATH, "rt", encoding="utf-8") as fh:
+        data = np.loadtxt(fh, delimiter=",")
+    return data[:, :-1].astype(np.float32), data[:, -1].astype(np.int32)
 
 
 def fetch_openml(*args, **kwargs):

@@ -539,6 +539,25 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
     return labels, inertia, out_centers, it, history
 
 
+def kmeans_plusplus(generator, X, x_sq_norms, n_clusters,
+                    n_local_trials=None, weights=None):
+    """k-means++ D²-sampling init of one restart (the JAX package's
+    ``kmeans_plusplus``, reference ``_kmeans_plusplus``,
+    ``_dmeans.py:153-245``): greedy best-of-trials candidate selection per
+    new center, drawn from the torch ``generator``. Potentials are
+    sample-weighted, so zero-weight (e.g. padding) rows are never
+    selected. It is :func:`~sq_learn_tpu_torch.parallel.init.
+    kmeans_plusplus_batched` at one restart; ``x_sq_norms`` None computes
+    the row norms.
+
+    Returns (centers (n_clusters, m), indices (n_clusters,) int64).
+    """
+    centers, indices = kmeans_plusplus_batched(
+        generator, X, x_sq_norms, n_clusters, n_restarts=1,
+        weights=weights, n_local_trials=n_local_trials)
+    return centers[0], indices[0]
+
+
 def _restart_inits(generator, X, weights, x_sq_norms, *, n_init, init,
                    n_clusters, init_subsample=0):
     """(n_init, k, m) initial-center stack: batched k-means++ (with the

@@ -18,8 +18,8 @@ Environment: ``SQ_OBS=1`` enables at import with a JSONL sink at
 ``SQ_OBS_PATH`` (default ``sq_obs.jsonl``); ``SQ_OBS_AUDIT_STRICT=1``
 makes a flagged guarantee site raise. The files are read by
 ``python -m sq_learn_tpu_torch.obs
-{audit,frontier,trace,storage,report,budget,control,fleet}``, and by the
-JAX package's readers. :mod:`.storage` is the out-of-core plane's per-shard
+{audit,frontier,trace,storage,report,budget,control,fleet,regress}``, and
+by the JAX package's readers. :mod:`.storage` is the out-of-core plane's per-shard
 ledger; :mod:`.trace` renders a run as a Chrome trace
 (``SQ_OBS_TRACE``); ``SQ_OBS_ROTATE_BYTES`` rotates the sink. The
 serving plane's half: :mod:`.budget` (the per-tenant error-budget
@@ -29,15 +29,18 @@ run, for a person). The elastic world's half: the fleet envelope
 (``SQ_OBS_FLEET_RUN_ID``/``SQ_OBS_FLEET_HOST``, :func:`set_fleet`,
 :func:`set_generation`; ``SQ_OBS_FLEET_DIR`` shards the sinks per
 process) and :mod:`.fleet`, which merges the shards of one run into a
-clock-aligned timeline and reconciles its commit ledger.
+clock-aligned timeline and reconciles its commit ledger. :mod:`.regress`
+bands a fresh bench record against its history (latency, transfer bytes,
+the measured peak device memory), its ``--selftest`` a real injected
+regression.
 
 Not ported: ``xla.py`` (XLA's per-compilation cost analysis) and
 ``watchdog.py`` (jit retrace counts) have no object in an eager torch
-port; ``regress`` waits for the port's benchmark (``ROADMAP.md`` §1).
+port.
 """
 
 from . import (budget, control, fleet, frontier, guarantees, ledger, probe,
-               report, schema, storage, trace)
+               regress, report, schema, storage, trace)
 from .recorder import (NULL_SPAN, Recorder, counter_add, disable, enable,
                        enabled, flush, gauge, get_recorder, record_span,
                        set_fleet, set_generation, snapshot, span)
@@ -64,6 +67,7 @@ __all__ = [
     "ledger_record",
     "probe",
     "record_span",
+    "regress",
     "report",
     "schema",
     "set_fleet",

@@ -1,5 +1,5 @@
 """CLI: ``python -m sq_learn_tpu_torch.obs
-<audit|frontier|trace|storage|report|budget|control|fleet> ...``.
+<audit|frontier|trace|storage|report|budget|control|fleet|regress> ...``.
 
 - ``audit <jsonl> [...] [--json] [--confidence C]`` — Clopper–Pearson
   audit of a run's (ε, δ) guarantee records; exits 1 on any flagged site
@@ -30,18 +30,15 @@
   reconciliation; exits 1 when the ledger disagrees with itself, 2 when
   there is no shard (:mod:`.fleet`).
 
-The JAX package's ``regress`` raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it.
+- ``regress <record-file> [--root DIR] [--no-exit-code] | --selftest
+  [--device cpu|cuda]`` — bands a fresh metric record against the
+  history of the same metric and backend under ``--root``; exits 1 on a
+  red verdict (unless ``--no-exit-code``), 2 on bad usage. ``--selftest``
+  injects a real regression and checks that it goes red, on
+  ``--device`` or else the configured device (:mod:`.regress`).
 """
 
 import sys
-
-#: subcommands of the JAX package's CLI that wait for a part of the port
-_LATER = {
-    "regress": "ROADMAP.md §1, the port's benchmark (regress bands a bench "
-               "trajectory, which the port has only after its benchmark "
-               "PR)",
-}
 
 
 def main(argv=None):
@@ -66,12 +63,11 @@ def main(argv=None):
         from .control import main as run
     elif cmd == "fleet":
         from .fleet import main as run
-    elif cmd in _LATER:
-        raise NotImplementedError(
-            f"'{cmd}' is not ported yet: {_LATER[cmd]}")
+    elif cmd == "regress":
+        from .regress import main as run
     else:
         print(f"unknown subcommand {cmd!r} (expected audit, frontier, "
-              "trace, storage, report, budget, control or fleet)",
+              "trace, storage, report, budget, control, fleet or regress)",
               file=sys.stderr)
         return 2
     return run(rest)

@@ -37,11 +37,13 @@ shards of the elastic world's processes merge into one timeline
 (:mod:`.fleet`); :func:`set_generation` stamps the live generation.
 ``SQ_OBS_FLEET_DIR`` puts an ``SQ_OBS=1`` run's sink at
 ``<dir>/obs.<host>.jsonl``. The watchdog and XLA-cost fields of the JAX
-package's :func:`snapshot` have no object in an eager torch port.
+package's :func:`snapshot` have no object in an eager torch port; its
+``peak_hbm_bytes`` is the cards' measured peak here.
 """
 
 import json
 import os
+import sys
 import threading
 import time
 
@@ -342,13 +344,41 @@ def get_recorder():
     return _active
 
 
+def _cuda():
+    """``torch.cuda`` once torch is loaded and CUDA initialized, else None:
+    the recorder never imports torch, and never initializes CUDA."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    return torch.cuda
+
+
+def _peak_device_bytes():
+    """The process's measured peak of allocated device memory since
+    :func:`enable`, allocations made before the run included: the largest
+    ``torch.cuda.max_memory_allocated`` over the cards (their peak stats
+    are reset at :func:`enable`). None on a process without CUDA."""
+    cuda = _cuda()
+    if cuda is None:
+        return None
+    return max((int(cuda.max_memory_allocated(d))
+                for d in range(cuda.device_count())), default=None)
+
+
 def enable(path=None):
     """Start a fresh observability run. ``path`` opens a JSONL sink
-    (appending); None records in memory only."""
+    (appending); None records in memory only. Resets the cards' peak
+    memory statistics, so the run's ``peak_hbm_bytes`` is the process's
+    peak of allocated device memory since this call, with what was
+    allocated before it still counted."""
     global _active
     with _lock:
         disable()
         _active = Recorder(path)
+    cuda = _cuda()
+    if cuda is not None:
+        for d in range(cuda.device_count()):
+            cuda.reset_peak_memory_stats(d)
     return _active
 
 
@@ -465,9 +495,16 @@ def snapshot():
     """One-dict summary of the run: spans, ledger entries, the guarantee
     audit's draws, violations and flagged sites, trade-off points, the
     sketch's counters, faults injected and the breaker's state, the
-    measured MFU, and the out-of-core plane's transfer, prefetch and codec
-    counters with the storage ledger's per-surface rollup. None when
-    disabled."""
+    measured MFU, the peak device memory, and the out-of-core plane's
+    transfer, prefetch and codec counters with the storage ledger's
+    per-surface rollup. None when disabled.
+
+    ``peak_hbm_bytes`` is measured: the largest
+    ``torch.cuda.max_memory_allocated`` over the cards since
+    :func:`enable`, what was allocated before it included; None without
+    CUDA. The JAX package's is the peak of
+    XLA's compiled-kernel memory accounting (its ``obs/xla.py``), which
+    eager torch does not have."""
     rec = _active
     if rec is None:
         return None
@@ -491,6 +528,7 @@ def snapshot():
         "sketch_estimates": int(counters.get("sketch.estimates", 0)),
         "total_transfer_bytes": int(
             counters.get("streaming.transfer_bytes", 0)),
+        "peak_hbm_bytes": _peak_device_bytes(),
         "faults_injected": len(rec.fault_events),
         "breaker_state": breaker.state(),
         "breaker_trips": int(breaker.trips),

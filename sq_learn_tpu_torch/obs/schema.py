@@ -108,10 +108,19 @@ Any record may carry the ``fleet`` envelope, an object of run_id (str),
 host (str), pid (int) and gen (int ≥ 0 | null), validated whenever
 present.
 
-The JAX package's other types (watchdog, xla_cost, regression) have no
-object in an eager torch port or wait for the port's benchmark
-(``ROADMAP.md`` §1); a record of any of them is rejected, with an error
-that names its type.
+The regression gate (:mod:`.regress`) writes one more:
+
+==========  =============================================================
+regression  gate (str), metric (str), verdict (str ∈ {green, red, skip}),
+            current (number | null), reference (number | null),
+            tolerance (number | null) — one tolerance-banded comparison of
+            a fresh metric line against its history; optional history_n
+            (int ≥ 0)
+==========  =============================================================
+
+The JAX package's other types (watchdog, xla_cost) have no object in an
+eager torch port; a record of either is rejected, with an error that
+names its type.
 """
 
 import json
@@ -126,7 +135,8 @@ KNOWN_VERSIONS = set(range(1, SCHEMA_VERSION + 1))
 #: every record type the port writes, machine-readable
 RECORD_TYPES = ("meta", "span", "counter", "gauge", "ledger", "guarantee",
                 "tradeoff", "fault", "breaker", "io", "slo", "budget",
-                "alert", "control", "probe", "elastic", "clock")
+                "alert", "control", "probe", "elastic", "clock",
+                "regression")
 
 _BREAKER_STATES = frozenset({"closed", "open", "half_open"})
 
@@ -136,6 +146,9 @@ _CONTROL_ACTIONS = frozenset({"plan", "hold", "relax", "tighten", "degrade",
                               "recover"})
 
 _PROBE_OUTCOMES = frozenset({"ok", "timeout", "error", "cpu", "skipped"})
+
+#: the regression gate's verdicts (``sq_learn_tpu/obs/schema.py:261``)
+_REGRESSION_VERDICTS = frozenset({"green", "red", "skip"})
 
 #: the elastic world's event vocabulary
 #: (``sq_learn_tpu/obs/schema.py:199``)
@@ -359,6 +372,20 @@ def validate_record(rec):
                    errors, "clock.generation non-negative int")
         if "via" in rec:
             _check(isinstance(rec["via"], str), errors, "clock.via str")
+    elif t == "regression":
+        _check(isinstance(rec.get("gate"), str), errors,
+               "regression.gate str")
+        _check(isinstance(rec.get("metric"), str), errors,
+               "regression.metric str")
+        _check(rec.get("verdict") in _REGRESSION_VERDICTS, errors,
+               f"regression.verdict in {sorted(_REGRESSION_VERDICTS)}")
+        for field in ("current", "reference", "tolerance"):
+            _check(field in rec and (rec[field] is None
+                                     or _number(rec[field])),
+                   errors, f"regression.{field} number or null")
+        if "history_n" in rec:
+            _check(_int(rec["history_n"]) and rec["history_n"] >= 0,
+                   errors, "regression.history_n non-negative int")
     else:
         errors.append(
             f"unknown record type {t!r} (the port writes "

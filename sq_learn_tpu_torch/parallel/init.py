@@ -26,6 +26,9 @@ import torch
 from .. import obs as _obs
 from .mesh import pad_to_multiple, shard_rows
 
+__all__ = ["NBLOCKS", "kmeans_plusplus_batched", "kmeans_plusplus_sharded",
+           "resolve_init_subsample"]
+
 #: number of row blocks of the hierarchical sampler
 NBLOCKS = 64
 

@@ -119,8 +119,9 @@ def test_bunch_and_the_unported_fetchers():
     assert b.data == 1 and b["target"] == 2
     with pytest.raises(AttributeError):
         b.missing
-    for fetch in (datasets.load_digits, datasets.fetch_openml,
-                  datasets.fetch_covtype):
+    for fetch in (datasets.fetch_openml, datasets.fetch_covtype):
         with pytest.raises(NotImplementedError,
                            match="item 7, the dataset fetchers"):
             fetch()
+    X, y = datasets.load_digits()  # the port's own copy: no download
+    assert X.shape == (1797, 64) and y.shape == (1797,)

@@ -234,6 +234,12 @@ def _write_artifact(path):
             c_runtime=float(classical), wall_s=0.1, budget={"delta": delta})
     snap = obs.snapshot()
     obs.disable()
+    # the regression gate's verdicts, appended to the run's file as a
+    # suite record's are
+    line = {"metric": "m", "value": 1.0, "unit": "s", "obs": snap}
+    with open(path, "a") as fh:
+        for v in obs.regress.check_record(line, {"m": [line]}):
+            fh.write(json.dumps(v) + "\n")
     return snap
 
 
@@ -309,11 +315,12 @@ def test_cli_reads_an_artifact_without_torch(tmp_path):
 
 
 def test_cli_usage_and_later_subcommands(tmp_path, capsys):
-    """``trace``, ``storage``, ``report``, ``budget``, ``control`` and
-    ``fleet`` run now (their own tests are ``tests/test_torch_obs_trace.py``,
-    ``tests/test_torch_obs_storage.py``, ``tests/test_torch_obs_report.py``,
-    ``tests/test_torch_obs_budget.py`` and ``tests/test_torch_obs_fleet.py``);
-    ``regress`` (the port's benchmark) raises, naming its ROADMAP item."""
+    """``trace``, ``storage``, ``report``, ``budget``, ``control``,
+    ``fleet`` and ``regress`` run now (their own tests are
+    ``tests/test_torch_obs_trace.py``, ``tests/test_torch_obs_storage.py``,
+    ``tests/test_torch_obs_report.py``, ``tests/test_torch_obs_budget.py``,
+    ``tests/test_torch_obs_fleet.py`` and ``tests/test_torch_regress.py``);
+    ``regress`` returns 2 on bad usage."""
     from sq_learn_tpu_torch.obs.__main__ import main
 
     assert main([]) == 2
@@ -322,10 +329,9 @@ def test_cli_usage_and_later_subcommands(tmp_path, capsys):
     for cmd in ("report", "budget", "control", "fleet"):
         assert main([cmd]) == 2  # usage: no artifact named
     assert main(["fleet", str(tmp_path)]) == 2  # no obs shard there
-    with pytest.raises(NotImplementedError,
-                       match="the port's benchmark") as err:
-        main(["regress", str(tmp_path)])
-    assert "ROADMAP.md" in str(err.value)
+    assert main(["regress"]) == 2  # usage: no record file named
+    assert main(["regress", str(tmp_path), "--bogus"]) == 2
+    assert main(["regress", "--selftest", "--device", "tpu"]) == 2
     empty = tmp_path / "empty.jsonl"
     obs.enable(str(empty))
     obs.disable()
