@@ -277,9 +277,30 @@ each of which fails the run:
    sq_learn_tpu_torch.obs regress`` on the phase's record against a temp
    root holding the warm-up's (exit 0, no red). The phase's Lloyd
    launches join the ``kernels`` line under the digits shape; its
-   figures print on a ``digits:`` JSON line. It runs after every other
-   main path and before the profiling phase's fit.
-10. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
+   figures print on a ``digits:`` JSON line. It runs after every main
+   path but the examples phase and the profiling phase's fit.
+10. The examples phase, under EXAMPLES_PHASE_S seconds: every driver of
+    ``examples_torch/`` (the port's counterparts of ``examples/``)
+    through its ``main(argv)`` in this process on the card, at the JAX
+    drivers' defaults (``mnist_trial`` at 10 000 × 784, 61 components)
+    but ``qpca_error_tradeoff --subsample 4000 --folds 3`` and
+    ``sharded_fit --shards 4`` (and over every card where there are
+    more), each with the counts set to 0 before it. A driver that raises
+    or exits non-zero (``runtime_tradeoff``'s audit flag included) fails
+    the run; so does a quality number under its floor, the JAX driver's
+    own number at the same arguments less a stated margin (the EX_*
+    constants: the δ-sweep's and the runtime study's ARIs, the CV and
+    holdout accuracies, P(err ≤ δ), the stream's steps, the sharded
+    5-NN accuracy), and a resumed stream that does not end bit-equal to
+    one uninterrupted ingest of the same file. Both kernels are held
+    against their plain versions, and timed, at the shapes the drivers
+    launch them at (Lloyd at 20 000 × 78, 3 072 × 32 and a 1 001-row
+    shard; argkmin at the CV folds' 9 000 × 1 000 × 61, 2 666 × 1 334
+    at widths 61 and 10, the holdout's 1 536 × 1 536 × 8 and a 450-row
+    shard at 64), and the drivers' launches join the ``kernels`` line
+    under those shapes. The drivers' lines print indented; the phase's
+    figures print on an ``examples:`` JSON line.
+11. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
 import json
@@ -1724,20 +1745,20 @@ def cicids_standardized(torch):
     return Xs, y, scale_s
 
 
-def lloyd_shape_phase(Xs, k, torch):
+def lloyd_shape_phase(Xs, k, torch, r=R):
     """The Lloyd kernel at the shape of the rows ``Xs`` on the card, k
-    centers, R=10, against its plain version on the centered rows: window
-    0, and 0.5 on a fed Gumbel operand. At the δ-sweep's shape (50 000 ×
-    78, k=6) rows of 312 bytes take the kernel's unaligned staging; at
-    BASELINE #1's (1797 × 64, k=10) the row count is not aligned. Returns
-    the shape's entry for the kernel's JSON line."""
+    centers, r restarts (R=10 by default), against its plain version on
+    the centered rows: window 0, and 0.5 on a fed Gumbel operand. At the
+    δ-sweep's shape (50 000 × 78, k=6) rows of 312 bytes take the kernel's
+    unaligned staging; at BASELINE #1's (1797 × 64, k=10) the row count is
+    not aligned. Returns the shape's entry for the kernel's JSON line."""
     Xc = Xs - Xs.mean(dim=0)
-    operands = lloyd_operands(Xc, k, R, torch)
+    operands = lloyd_operands(Xc, k, r, torch)
     cases = [("float32", Xc, None, 0.0, True),
              ("float32", Xc, operands["gum"], WINDOW, True)]
     report = hold_lloyd_cases(cases, operands, torch)
     main = report[("float32", WINDOW)]
-    return {"shape": f"{Xs.shape[0]}x{Xs.shape[1]} k={k} R={R}",
+    return {"shape": f"{Xs.shape[0]}x{Xs.shape[1]} k={k} R={r}",
             "window": WINDOW, "launches": None,
             "max_abs_err": max(main["err"].values()), "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -4990,6 +5011,368 @@ def digits_phase(here, torch):
     return shape, out
 
 
+# ---------------------------------------------------------------------------
+# The examples phase: the reference's driver scripts (examples_torch/)
+# ---------------------------------------------------------------------------
+
+#: the drivers in the order they run, with their arguments: the JAX
+#: drivers' defaults but for qpca_error_tradeoff (the Makefile's
+#: ``examples`` arguments) and sharded_fit (four shards of the card);
+#: runtime_tradeoff's ``--out`` goes to a temporary directory
+EXAMPLES = (
+    ("mnist_trial", ()),
+    ("qpca_demo", ()),
+    ("tomography_histogram", ()),
+    ("delta_tradeoff", ()),
+    ("qpca_error_tradeoff", ("--subsample", "4000", "--folds", "3")),
+    ("runtime_tradeoff", ()),
+    ("streaming_fit", ()),
+    ("sharded_fit", ("--shards", str(MESH_SHARDS))),
+)
+EXAMPLES_PHASE_S = 120.0  # the phase's limit, seconds
+# The JAX drivers' own numbers at the same arguments, measured on the CPU
+# by the script modes of tests/test_torch_examples_qpca.py and
+# tests/test_torch_examples_qkmeans.py; a floor is such a number less a
+# stated margin.
+#: mnist_trial's 10-fold 7-NN accuracy over 10 000 rows
+EX_JAX_MNIST_CV = 1.0
+#: qpca_error_tradeoff at --subsample 4000 --folds 3: per leg, (its
+#: classical CV accuracy, {ε+δ: CV accuracy}) and its rows
+EX_JAX_QERR = {
+    "mnist": (1.0, {0.2: 1.0, 0.8: 1.0, 1.6: 1.0, 3.2: 1.0}),
+    "low_margin": (0.9865, {0.2: 0.987, 0.8: 0.9742, 1.6: 0.9428,
+                            3.2: 0.8755}),
+    "cicids": (1.0, {0.2: 0.9998, 0.8: 0.951, 1.6: 0.8388, 3.2: 0.7137})}
+EX_QERR_ROWS = {"mnist": 4000, "low_margin": 4000, "cicids": 4000}
+#: tomography_histogram's P(err ≤ δ) over 64 trials, less three trials
+EX_JAX_TOMO_WITHIN = 1.0
+EX_TOMO_MARGIN = 3 / 64
+#: delta_tradeoff's ARI range over random_state 0–9 at each δ; the δ=0
+#: floor is its least less 0.005, the others' less 0.03
+EX_JAX_SWEEP_ARI = {0.0: (1.0, 1.0), 0.1: (1.0, 1.0),
+                    0.3: (0.9106336396931322, 0.9960908900559725),
+                    0.5: (0.8068788074629861, 0.845357319176317),
+                    1.0: (0.7701114062424389, 0.7996688268417864)}
+EX_SWEEP_MARGIN = {0.0: 0.005, 0.1: 0.03, 0.3: 0.03, 0.5: 0.03, 1.0: 0.03}
+#: runtime_tradeoff's leg-1 ARI range over random_state 0–11, less 0.01;
+#: leg 2's holdout 1-NN accuracy over 1 536 queries
+EX_JAX_RT_ARI = {0.0: (0.7724104510582867, 1.0),
+                 2.0: (0.7724360514789496, 1.0),
+                 8.0: (0.7724144511740647, 1.0),
+                 32.0: (0.7724360514789496, 0.998438008626302)}
+EX_RT_MARGIN = 0.01
+EX_JAX_RT_ACC = {0.4: 1.0, 1.6: 1.0, 6.4: 1.0}
+#: streaming_fit's mini-batch steps at the checkpoint and at the end
+EX_STREAM_STEPS = (10, 20)
+#: sharded_fit's exact 5-NN accuracy on 300 digits, less three digits;
+#: its explained-variance ratio and σ₁ (no draw) at rtol 1e-4
+EX_JAX_SHARDED = {"knn_accuracy": 0.990, "explained_variance_ratio": 0.8494,
+                  "sigma1": 2193.1}
+#: half a unit of the last digit the JAX driver prints of each
+EX_SHARDED_PRINTED = {"explained_variance_ratio": 5e-5, "sigma1": 0.05}
+EX_SHARDED_MARGIN = 3 / 300
+EX_SHARDED_RTOL = 1e-4
+
+
+def acc_floor(p, n):
+    """The floor of an accuracy over ``n`` rows whose noise is a draw,
+    against the JAX package's ``p``: 4 standard deviations of the
+    difference of two binomial shares (p(1−p) floored at 1/n), and at
+    least half a percent."""
+    return p - max(4.0 * (2.0 * max(p * (1.0 - p), 1.0 / n) / n) ** 0.5,
+                   0.005)
+
+
+def load_example(here, name):
+    """The module ``examples_torch/<name>.py`` under a name of its own."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(here, "examples_torch",
+                                                f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_example(module, name, argv, torch):
+    """Run one driver's ``main(argv + ['--device', <CARD's type>])`` with
+    the kernels' counts at 0; its printed lines are echoed indented.
+    Returns its result, seconds, Lloyd and argkmin launches and argkmin
+    launches by (width, k)."""
+    import contextlib
+    import io
+
+    from sq_learn_tpu_torch.ops.kernels import argkmin, lloyd_step
+
+    buf = io.StringIO()
+    lloyd_step.launches = argkmin.launches = 0
+    argkmin.by_shape.clear()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = module.main([*argv, "--device",
+                                  torch.device(CARD).type])
+        torch.cuda.synchronize()
+    except SystemExit as exc:
+        raise RuntimeError(f"chip_smoke: examples_torch/{name}.py exited: "
+                           f"{exc.code}") from None
+    finally:
+        print("".join(f"  | {line}\n" for line in
+                      buf.getvalue().splitlines()), end="", flush=True)
+    return {"result": result, "s": time.perf_counter() - t0,
+            "lloyd_launches": lloyd_step.launches,
+            "argkmin_launches": argkmin.launches,
+            "by_shape": dict(argkmin.by_shape)}
+
+
+def examples_phase(here, torch):
+    """Every driver of ``examples_torch/`` in-process on the card at the
+    arguments of EXAMPLES, each with the kernels' counts set to 0 before
+    it: the quality floors against the JAX drivers' own numbers, the
+    resumed stream bit-equal to one uninterrupted ingest, and the kernels
+    held against their plain versions at the shapes the drivers launch
+    them at. Returns the Lloyd and argkmin shape entries (launches filled
+    in) and the ``examples:`` line's figures."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    modules = {name: load_example(here, name) for name, _ in EXAMPLES}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in EXAMPLES:
+            if name == "runtime_tradeoff":
+                argv = ("--out", os.path.join(tmp, "tradeoff.jsonl"))
+            print(f"examples_torch/{name}.py {' '.join(argv)} --device "
+                  f"{torch.device(CARD).type}", flush=True)
+            runs[name] = run_example(modules[name], name, argv, torch)
+        cards = torch.cuda.device_count()
+        if cards > 1:  # sharded_fit over the real cards too
+            print(f"examples_torch/sharded_fit.py --device cuda ({cards} "
+                  f"cards)", flush=True)
+            runs["sharded_fit_cards"] = run_example(
+                modules["sharded_fit"], "sharded_fit", (), torch)
+    res = {name: run["result"] for name, run in runs.items()}
+    launches = {name: (run["lloyd_launches"], run["argkmin_launches"])
+                for name, run in runs.items()}
+
+    # which drivers launch which kernel
+    expect = {"mnist_trial": (False, True), "qpca_demo": (False, False),
+              "tomography_histogram": (False, False),
+              "delta_tradeoff": (True, False),
+              "qpca_error_tradeoff": (False, True),
+              "runtime_tradeoff": (True, True),
+              "streaming_fit": (False, False),
+              "sharded_fit": (True, True), "sharded_fit_cards": (True, True)}
+    for name, (lloyd_n, knn_n) in launches.items():
+        want_lloyd, want_knn = expect[name]
+        check((lloyd_n > 0) == want_lloyd and (knn_n > 0) == want_knn,
+              f"examples_torch/{name}.py launched lloyd_step {lloyd_n} and "
+              f"argkmin {knn_n} times")
+    check(launches["mnist_trial"][1] == 10,
+          f"mnist_trial's 10-fold CV launched argkmin "
+          f"{launches['mnist_trial'][1]} times")
+
+    # quality floors
+    mnist = res["mnist_trial"]
+    check(mnist["shape"] == (10_000, M) and mnist["topk"] == 61
+          and np.isfinite(mnist["f_norm"]),
+          f"mnist_trial: shape {mnist['shape']}, top-k {mnist['topk']}")
+    check(mnist["cv_mean"] >= acc_floor(EX_JAX_MNIST_CV, 10_000),
+          f"mnist_trial: CV accuracy {mnist['cv_mean']} under "
+          f"{acc_floor(EX_JAX_MNIST_CV, 10_000)}")
+    for leg, (classical, points) in EX_JAX_QERR.items():
+        got, n = res["qpca_error_tradeoff"][leg], EX_QERR_ROWS[leg]
+        check(got["classical_acc"] >= acc_floor(classical, n),
+              f"qpca_error_tradeoff {leg}: classical CV accuracy "
+              f"{got['classical_acc']} under {acc_floor(classical, n)}")
+        for err, acc in points.items():
+            mine = got["points"][err]
+            check(mine["acc"] >= acc_floor(acc, n)
+                  and np.isfinite(mine["f_norm"]),
+                  f"qpca_error_tradeoff {leg} ε+δ={err}: CV accuracy "
+                  f"{mine['acc']} under {acc_floor(acc, n)}")
+    tomo = res["tomography_histogram"]
+    check(tomo["within"] >= EX_JAX_TOMO_WITHIN - EX_TOMO_MARGIN,
+          f"tomography_histogram: P(err <= delta) {tomo['within']} under "
+          f"{EX_JAX_TOMO_WITHIN - EX_TOMO_MARGIN}")
+    sweep = res["delta_tradeoff"]
+    check(sweep["shape"] == (20_000, SWEEP_M) and sweep["k"] == SWEEP_K,
+          f"delta_tradeoff: shape {sweep['shape']}, k {sweep['k']}")
+    check(sweep["sklearn_ari"] is None or sweep["sklearn_ari"] >= 0.99,
+          f"delta_tradeoff: sklearn's ARI {sweep['sklearn_ari']}")
+    for delta, (lo, _) in EX_JAX_SWEEP_ARI.items():
+        got = sweep["sweep"][delta]["ari"]
+        check(got >= lo - EX_SWEEP_MARGIN[delta],
+              f"delta_tradeoff δ={delta}: ARI {got} under "
+              f"{lo - EX_SWEEP_MARGIN[delta]}")
+    rt = res["runtime_tradeoff"]
+    check(rt["flagged"] == [], f"runtime_tradeoff flagged {rt['flagged']}")
+    for delta, (lo, _) in EX_JAX_RT_ARI.items():
+        got = rt["qkmeans"][delta]
+        check(got["ari"] >= lo - EX_RT_MARGIN
+              and (delta == 0 or got["q_runtime"] > 0),
+              f"runtime_tradeoff δ={delta}: {got} under ARI "
+              f"{lo - EX_RT_MARGIN}")
+    for err, acc in EX_JAX_RT_ACC.items():
+        got = rt["qpca"][err]
+        check(got["acc"] >= acc_floor(acc, 1536) and got["q_runtime"] > 0,
+              f"runtime_tradeoff ε+δ={err}: {got} under accuracy "
+              f"{acc_floor(acc, 1536)}")
+    stream = res["streaming_fit"]
+    check((stream["saved_steps"], stream["n_steps"]) == EX_STREAM_STEPS,
+          f"streaming_fit: steps {stream['saved_steps']} and "
+          f"{stream['n_steps']}, not {EX_STREAM_STEPS}")
+    stream_eq = stream_resume_case(modules["streaming_fit"], stream)
+    for name in ("sharded_fit", "sharded_fit_cards"):
+        if name not in res:
+            continue
+        got = res[name]
+        check(got["knn_accuracy"] >= EX_JAX_SHARDED["knn_accuracy"]
+              - EX_SHARDED_MARGIN and got["clusters"] == 5
+              and got["transform_shape"] == (64, 16),
+              f"{name}: {got} against {EX_JAX_SHARDED}")
+        for key, half_unit in EX_SHARDED_PRINTED.items():
+            check(abs(got[key] - EX_JAX_SHARDED[key])
+                  <= EX_SHARDED_RTOL * EX_JAX_SHARDED[key] + half_unit,
+                  f"{name}: {key} {got[key]} against the JAX driver's "
+                  f"{EX_JAX_SHARDED[key]}")
+
+    # the kernels at the shapes the drivers launch them at (these
+    # launches are comparisons: not counted)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        lloyd_entries, knn_entries = example_kernel_shapes(runs, torch)
+    out = {"phase_s": time.perf_counter() - t_phase,
+           "stream_resume_bit_equal": stream_eq,
+           "drivers": {name: {key: run[key] for key in (
+               "s", "lloyd_launches", "argkmin_launches")}
+                       for name, run in runs.items()},
+           "mnist_cv": mnist["cv_mean"], "mnist_f_norm": mnist["f_norm"],
+           "demo_topk": res["qpca_demo"]["topk"],
+           "demo_est_theta": res["qpca_demo"]["est_theta"],
+           "tomography_within": tomo["within"],
+           "tomography_mean_err": tomo["mean_err"],
+           "sweep_ari": {d: p["ari"] for d, p in sweep["sweep"].items()},
+           "sweep_fit_s": {d: p["fit_s"] for d, p in sweep["sweep"].items()},
+           "qerr_acc": {leg: {e: p["acc"]
+                              for e, p in v["points"].items()}
+                        for leg, v in res["qpca_error_tradeoff"].items()},
+           "runtime_ari": {d: p["ari"] for d, p in rt["qkmeans"].items()},
+           "runtime_acc": {e: p["acc"] for e, p in rt["qpca"].items()},
+           "runtime_draws": rt["draws"],
+           "stream_steps": stream["n_steps"],
+           "stream_inertia": stream["inertia"],
+           "sharded_knn": res["sharded_fit"]["knn_accuracy"],
+           "sharded_inertia": res["sharded_fit"]["inertia"]}
+    check(out["phase_s"] < EXAMPLES_PHASE_S,
+          f"the examples phase took {out['phase_s']} s, not under "
+          f"{EXAMPLES_PHASE_S} s")
+    return lloyd_entries, knn_entries, out
+
+
+def stream_resume_case(module, stream):
+    """streaming_fit's resumed ingest against one uninterrupted ingest
+    of the same file on the card: the same centers, inertia and steps,
+    bit for bit."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        path = os.path.join(tmp, "events.csv")
+        module.write_events(path)
+        est = module.new_estimator()
+        for batch in module.csv_stream_batches(path, batch_rows=1024):
+            est.partial_fit(batch)
+    same = (est.n_steps_ == stream["n_steps"]
+            and np.array_equal(est.cluster_centers_, stream["centers"])
+            and est.inertia_ == stream["inertia"])
+    check(same, f"streaming_fit: the resumed stream ({stream['n_steps']} "
+                f"steps, inertia {stream['inertia']}) is not bit-equal to "
+                f"one ingest ({est.n_steps_} steps, inertia {est.inertia_})")
+    print(f"streaming_fit: the resumed stream bit-equal to one "
+          f"uninterrupted ingest of the file ({est.n_steps_} steps)",
+          flush=True)
+    return same
+
+
+def example_kernel_shapes(runs, torch):
+    """Both kernels held against their plain versions, and timed, at the
+    drivers' shapes: Lloyd at delta_tradeoff's 20 000 × 78 (k=6, R=10),
+    runtime_tradeoff's 3 072 × 32 (k=6, R=2) and a shard of sharded_fit's
+    4 003 blobs (1 001 × 16, k=5, R=1); argkmin at mnist_trial's folds
+    (9 000 × 1 000 × 61, k=7), qpca_error_tradeoff's folds (2 666 × 1 334
+    at width 61 for its MNIST legs and 10 for its CICIDS leg, k=7),
+    runtime_tradeoff's holdout (1 536 × 1 536 × 8, k=1) and a shard of
+    sharded_fit's 5-NN (450 × 300 × 64, k=5). ``runs`` holds the drivers'
+    runs (:func:`run_example`). Returns the entries, each with its
+    driver's launches (at that (width, k) for the search)."""
+    import numpy as np
+
+    from sq_learn_tpu_torch.datasets import (load_cicids, load_digits,
+                                             load_mnist, make_blobs)
+    from sq_learn_tpu_torch.models import QPCA
+    from sq_learn_tpu_torch.preprocessing import StandardScaler
+
+    X, _, _ = load_mnist()
+    Xc, _, _ = load_cicids(n_samples=20_000)
+    Xs = StandardScaler().fit_transform(Xc)
+    rng = np.random.default_rng(0)  # runtime_tradeoff's clustered rows
+    centers = rng.normal(scale=1.6, size=(6, 32))
+    Xrt = np.concatenate([rng.normal(loc=c, scale=1.0, size=(512, 32))
+                          for c in centers]).astype(np.float32)
+    Xrt = Xrt[rng.permutation(len(Xrt))]
+    Xb, _ = make_blobs(n_samples=4003, centers=5, n_features=16,
+                       random_state=0)
+    Xd, _ = load_digits()
+
+    lloyd = []
+    for name, rows, k, r in (("delta_tradeoff", Xs, 6, R),
+                             ("runtime_tradeoff",
+                              torch.from_numpy(Xrt).to(CARD), 6, 2),
+                             ("sharded_fit",
+                              torch.from_numpy(Xb[:1001]).to(CARD), 5, 1)):
+        entry = lloyd_shape_phase(rows, k, torch, r=r)
+        entry["launches"] = runs[name]["lloyd_launches"]
+        entry["driver"] = name
+        lloyd.append(entry)
+
+    def projected(Z, width):
+        pca = QPCA(n_components=width, svd_solver="full",
+                   random_state=0).fit(Z)
+        return pca.transform(Z).contiguous()
+
+    Zm = projected(X[:10_000], 61)
+    Zq = projected(X[:4000], 61)
+    Zc = projected(StandardScaler().fit_transform(Xc[:4000]), 10)
+    Zr = projected(Xrt, 8)
+    Zd = torch.from_numpy(Xd).to(CARD)
+    knn = []
+    for name, T, Q, k, key in (
+            ("mnist_trial", Zm[:9000], Zm[9000:], 7, "mnist_trial"),
+            ("qpca_error_tradeoff's MNIST legs", Zq[:2666], Zq[2666:], 7,
+             "qpca_error_tradeoff"),
+            ("qpca_error_tradeoff's CICIDS leg", Zc[:2666], Zc[2666:], 7,
+             "qpca_error_tradeoff"),
+            ("runtime_tradeoff", Zr[:1536], Zr[1536:], 1,
+             "runtime_tradeoff"),
+            ("sharded_fit", Zd[:450], Zd[:300], 5, "sharded_fit")):
+        T, Q = T.contiguous(), Q.contiguous()
+        entry = argkmin_fold_case(
+            T, torch.sum(T * T, dim=1), Q, k,
+            runs[key]["by_shape"].get((T.shape[1], k), 0), torch,
+            path=name)
+        entry["driver"] = key
+        knn.append(entry)
+    return lloyd, knn
+
+
 def main():
     import numpy as np
     import torch
@@ -5360,6 +5743,19 @@ def main():
     entry["shapes"].append(digits_entry)
     print(f"digits phase: {digits['phase_s']:.3f} s", flush=True)
     print("digits: " + json.dumps(digits), flush=True)
+
+    # the examples phase: every driver of examples_torch/ on the card,
+    # each with the counts set to 0 before it; their launches join the
+    # kernels', filed under the drivers' shapes
+    ex_lloyd, ex_knn, examples = examples_phase(here, torch)
+    entry["launches"] += sum(d["lloyd_launches"]
+                             for d in examples["drivers"].values())
+    knn_entry["launches"] += sum(d["argkmin_launches"]
+                                 for d in examples["drivers"].values())
+    entry["shapes"].extend(ex_lloyd)
+    knn_entry["shapes"].extend(ex_knn)
+    print(f"examples phase: {examples['phase_s']:.3f} s", flush=True)
+    print("examples: " + json.dumps(examples), flush=True)
 
     # the profiling phase's fit: a main-path run whose launches join
     lloyd_step.launches = argkmin.launches = 0

@@ -3,7 +3,9 @@
 In a fresh interpreter where ``import jax`` and ``import sklearn`` fail,
 every module of ``sq_learn_tpu_torch`` (the serving plane and the elastic
 world included),
-``chip_smoke.py``, ``chip_profile.py`` and ``chip_variants.py`` import,
+``chip_smoke.py``, ``chip_profile.py``, ``chip_variants.py`` and every
+driver of ``examples_torch/`` (one for each script of ``examples/``)
+import,
 the ``obs`` package writes an artifact that its ``audit``, ``frontier``
 and ``report`` subcommands read, and no ``sq_learn_tpu`` module gets
 loaded.
@@ -31,6 +33,16 @@ for name in names:
 for script in ("chip_smoke", "chip_profile", "chip_variants"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+import glob, os
+drivers = []
+for path in sorted(glob.glob(os.path.join("examples_torch", "*.py"))):
+    driver = os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location(
+        "examples_torch_" + driver, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    assert driver.startswith("_") or callable(module.main), driver
+    drivers.append(driver)
 import os, tempfile
 from sq_learn_tpu_torch import obs
 from sq_learn_tpu_torch.obs.__main__ import main as obs_main
@@ -56,6 +68,7 @@ assert not bad, bad
 assert sys.modules["jax"] is None and sys.modules["sklearn"] is None
 print(len(names), "modules")
 print(" ".join(names))
+print(" ".join(drivers))
 """
 
 
@@ -112,6 +125,12 @@ def test_port_imports_without_jax_or_the_jax_package():
         "mesh", "init", "lloyd", "pca", "neighbors", "streaming",
         "distributed", "elastic")} <= names
     assert "sq_learn_tpu_torch.obs.fleet" in names
+    # the drivers of examples_torch/: one for every script of examples/
+    drivers = out.stdout.splitlines()[2].split()
+    jax_drivers = sorted(name[:-3] for name in os.listdir(
+        os.path.join(REPO, "examples")) if name.endswith(".py")
+        and name != "_common.py")
+    assert drivers == ["_device", *jax_drivers]
 
 
 def test_chip_smoke_fails_without_a_card():
