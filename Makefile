@@ -205,6 +205,78 @@ elastic-smoke:
 smoke: obs-smoke faults-smoke oocore-smoke obs-storage serve-smoke \
     control-smoke elastic-smoke regress-selftest lint-selftest
 
+# The port's contract smokes (sq_learn_tpu_torch), on the card unless
+# DEVICE=cpu: each runs `python -m sq_learn_tpu_torch.<module> --device
+# $(DEVICE)` with the JAX smoke's artifact path under a -torch name.
+# Without CUDA, DEVICE=cuda exits 2 before writing anything; nothing
+# falls back to the CPU. Differences from the JAX smokes are listed in
+# each module's docstring and in ROADMAP.md (item 7).
+DEVICE ?= cuda
+# The port's artifacts go to the shell's TMPDIR (else /tmp), under names
+# no JAX smoke writes.
+SMOKE_DIR = $${TMPDIR:-/tmp}
+
+.PHONY: obs-smoke-torch faults-smoke-torch oocore-smoke-torch \
+    serve-smoke-torch control-smoke-torch elastic-smoke-torch \
+    obs-storage-torch regress-selftest-torch lint-selftest-torch \
+    smoke-torch examples-torch
+
+obs-smoke-torch:
+	env SQ_OBS=1 SQ_OBS_PATH=$(SMOKE_DIR)/sq_obs_smoke-torch.jsonl \
+	    $(PYTHON) -m sq_learn_tpu_torch.obs.smoke --device $(DEVICE)
+
+faults-smoke-torch:
+	env SQ_OBS=1 SQ_OBS_PATH=$(SMOKE_DIR)/sq_faults_smoke-torch.jsonl \
+	    $(PYTHON) -m sq_learn_tpu_torch.resilience.smoke --device $(DEVICE)
+
+oocore-smoke-torch:
+	env SQ_OBS=1 SQ_OBS_PATH=$(SMOKE_DIR)/sq_oocore_smoke-torch.jsonl \
+	    $(PYTHON) -m sq_learn_tpu_torch.oocore.smoke --device $(DEVICE)
+
+serve-smoke-torch:
+	env SQ_OBS=1 SQ_OBS_PATH=$(SMOKE_DIR)/sq_serve_smoke-torch.jsonl \
+	    $(PYTHON) -m sq_learn_tpu_torch.serving.smoke --device $(DEVICE)
+
+control-smoke-torch:
+	env SQ_OBS=1 SQ_OBS_PATH=$(SMOKE_DIR)/sq_control_smoke-torch.jsonl \
+	    $(PYTHON) -m sq_learn_tpu_torch.serving.control_smoke \
+	    --device $(DEVICE)
+
+# The merged fleet timeline lands at SQ_OBS_PATH; `obs fleet` reads it.
+elastic-smoke-torch:
+	env SQ_OBS_PATH=$(SMOKE_DIR)/sq_elastic_smoke-torch.jsonl \
+	    $(PYTHON) -m sq_learn_tpu_torch.parallel.elastic_smoke \
+	    --device $(DEVICE)
+
+obs-storage-torch:
+	$(PYTHON) -m sq_learn_tpu_torch.obs storage \
+	    $(SMOKE_DIR)/sq_oocore_smoke-torch.jsonl --advise
+
+regress-selftest-torch:
+	$(PYTHON) -m sq_learn_tpu_torch.obs regress --selftest \
+	    --device $(DEVICE)
+
+lint-selftest-torch:
+	$(PYTHON) -m sq_learn_tpu_torch.analysis --selftest
+
+# All the port's contract smokes, as `smoke` runs the JAX package's.
+smoke-torch: obs-smoke-torch faults-smoke-torch oocore-smoke-torch \
+    obs-storage-torch serve-smoke-torch control-smoke-torch \
+    elastic-smoke-torch regress-selftest-torch lint-selftest-torch
+
+# The port's drivers (examples_torch/) with the `examples` target's
+# arguments, streaming_fit included: the port has no backend probe.
+examples-torch:
+	$(PYTHON) examples_torch/qpca_demo.py --device $(DEVICE)
+	$(PYTHON) examples_torch/tomography_histogram.py --device $(DEVICE)
+	$(PYTHON) examples_torch/sharded_fit.py --device $(DEVICE)
+	$(PYTHON) examples_torch/mnist_trial.py --device $(DEVICE)
+	$(PYTHON) examples_torch/delta_tradeoff.py --device $(DEVICE)
+	$(PYTHON) examples_torch/qpca_error_tradeoff.py --subsample 4000 \
+	    --folds 3 --device $(DEVICE)
+	$(PYTHON) examples_torch/runtime_tradeoff.py --device $(DEVICE)
+	$(PYTHON) examples_torch/streaming_fit.py --device $(DEVICE)
+
 # Render the human report / Chrome trace of an obs JSONL artifact
 # (default: the obs-smoke artifact; override with OBS=<path>).
 OBS ?= /tmp/sq_obs_smoke.jsonl

@@ -300,7 +300,21 @@ each of which fails the run:
     shard at 64), and the drivers' launches join the ``kernels`` line
     under those shapes. The drivers' lines print indented; the phase's
     figures print on an ``examples:`` JSON line.
-11. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
+11. The smokes phase, under SMOKES_PHASE_S seconds: the six contract
+    smokes (``python -m sq_learn_tpu_torch.{obs,resilience,oocore}.smoke``,
+    ``serving.smoke``, ``serving.control_smoke`` and
+    ``parallel.elastic_smoke``), each as its own process with ``--device
+    cuda`` and ``SQ_OBS=1``, its artifact in a temporary directory: each
+    must exit 0 with its ``ok`` summary and no error, and leave an
+    artifact the port's schema validates; then the port's ``obs report``,
+    ``obs storage`` and ``obs fleet`` must render the obs, oocore and
+    elastic smokes' artifacts with exit 0. The smokes' Lloyd launches
+    (their child and worker processes included, as they report them)
+    must be more than 0 and join the ``kernels`` line: each smoke's under
+    its fit's shape, where the kernel is held against its plain version
+    and timed on the smoke's rows, and the elastic smoke's under the
+    certification's. Its figures print on a ``smokes:`` JSON line.
+12. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
 import json
@@ -5373,6 +5387,171 @@ def example_kernel_shapes(runs, torch):
     return lloyd, knn
 
 
+# ---------------------------------------------------------------------------
+# The contract smokes: python -m sq_learn_tpu_torch.<plane>.smoke on the card
+# ---------------------------------------------------------------------------
+
+#: (name, module, summary key) of every contract smoke, in `make
+#: smoke-torch`'s order
+SMOKES = (
+    ("obs", "obs.smoke", "obs_smoke"),
+    ("faults", "resilience.smoke", "faults_smoke"),
+    ("oocore", "oocore.smoke", "oocore_smoke"),
+    ("serve", "serving.smoke", "serve_smoke"),
+    ("control", "serving.control_smoke", "control_smoke"),
+    ("elastic", "parallel.elastic_smoke", "elastic_smoke"),
+)
+#: the port's obs CLI over the smokes' artifacts: (subcommand, smoke,
+#: arguments), as `make smoke-torch` and `make obs-report|obs-fleet` read
+#: them
+SMOKE_RENDERS = (("report", "obs", ()), ("storage", "oocore", ("--advise",)),
+                 ("fleet", "elastic", ()))
+#: the smokes whose fits launch the Lloyd kernel: obs's δ-means point,
+#: oocore's labelling pass, the serve and control tenants' fits, the
+#: elastic workers' certifications
+SMOKES_LAUNCHING = ("obs", "oocore", "serve", "control", "elastic")
+SMOKE_TIMEOUT_S = 300
+SMOKES_PHASE_S = 240.0  # the phase's limit, seconds
+
+
+def run_smoke(name, module, key, artifact, here):
+    """One contract smoke as its own process on the card with ``SQ_OBS=1``
+    and its artifact at ``artifact``: exit 0, an ``ok`` summary with no
+    error, and an artifact the port's schema validates. Returns its
+    seconds, summary and record counts by type."""
+    from sq_learn_tpu_torch import _smoke
+    from sq_learn_tpu_torch.obs import schema
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"sq_learn_tpu_torch.{module}", "--device",
+         CARD.split(":")[0]], cwd=here, capture_output=True, text=True,
+        timeout=SMOKE_TIMEOUT_S,
+        env=_smoke.child_env(SQ_OBS="1", SQ_OBS_PATH=artifact,
+                             SQ_OBS_TRACE=None, SQ_FAULTS=None))
+    seconds = time.perf_counter() - t0
+    summary = _smoke.summary_line(proc.stdout, key)
+    ok = (proc.returncode == 0 and summary is not None
+          and summary[key] == "ok" and summary["errors"] == []
+          and str(summary.get("device", "")).startswith("cuda"))
+    if not ok:
+        print(f"--- {module} (exit {proc.returncode})\n{proc.stdout[-3000:]}"
+              f"\n{proc.stderr[-3000:]}", flush=True)
+    check(ok, f"smokes: {module} exited {proc.returncode} on "
+              f"{summary and summary.get('device')} with "
+              f"{summary and summary.get('errors')}")
+    by_type = {}
+    if os.path.exists(artifact):
+        result = schema.validate_jsonl(artifact)
+        check(result["errors"] == [],
+              f"smokes: {name}'s artifact: {result['errors'][:3]}")
+        by_type = result["by_type"]
+    check(sum(by_type.values()) > 0, f"smokes: {name} left no artifact")
+    return seconds, summary or {}, by_type
+
+
+def smoke_kernel_shapes(smokes, torch):
+    """The Lloyd kernel held against its plain version, and timed, at the
+    shapes of the smokes' fits: the obs smoke's δ-means sweep point (512 ×
+    64, k=4, R=1), the oocore smoke's labelling tile (1024 × 32 of its
+    store, k=6, R=1), the serving smoke's tenant (600 × 16, k=4, R=10) and
+    the control smoke's (400 × 8, k=3, R=10), each on the smoke's own
+    rows. Each smoke's launches are filed under its fit's shape (the
+    predicts it checks against launch at its requests' shapes). The
+    elastic smoke's launches are its workers' certifications, at the
+    elastic phase's certification shape. Returns the entries."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sq_learn_tpu_torch.obs import smoke as obs_smoke
+    from sq_learn_tpu_torch.oocore import create_synthetic_store
+    from sq_learn_tpu_torch.oocore.smoke import FIT, LABEL_ROWS, STORE
+    from sq_learn_tpu_torch.serving import control_smoke, smoke as serve_smoke
+
+    obs_rows = obs_smoke.fit_rows()[:obs_smoke.SWEEP_ROWS]
+    tmp = tempfile.mkdtemp(prefix="sq-smokes-store-")
+    try:
+        store = create_synthetic_store(os.path.join(tmp, "store"),
+                                       shard_bytes=64 * 1024, **STORE)
+        ooc_rows = np.concatenate([store.read_shard(i) for i in range(
+            store.n_shards)])[:LABEL_ROWS]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    entries = []
+    for name, X, k, r in (("obs", obs_rows, 4, 1),
+                          ("oocore", ooc_rows, FIT["n_clusters"], 1),
+                          ("serve", serve_smoke.tenant_rows(), 4, R),
+                          ("control", control_smoke.tenant_rows(), 3, R)):
+        entry = lloyd_shape_phase(torch.from_numpy(X).to(CARD), k, torch,
+                                  r=r)
+        entry["launches"] = smokes[name]["launches"]["lloyd_step"]
+        entry["smoke"] = name
+        entries.append(entry)
+    return entries
+
+
+def smokes_phase(here, torch):
+    """The six contract smokes, each as its own process on the card
+    (``--device cuda``, ``SQ_OBS=1``, its artifact in a temporary
+    directory), then the port's ``obs report``, ``obs storage`` and ``obs
+    fleet`` over the obs, oocore and elastic smokes' artifacts, each
+    with exit 0; under SMOKES_PHASE_S seconds. Returns the ``smokes:``
+    line's figures, with the launches the smokes (their children and
+    workers included) reported."""
+    import shutil
+    import tempfile
+
+    from sq_learn_tpu_torch import _smoke
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sq-smokes-")
+    out = {"smokes": {}, "renders_s": {}}
+    try:
+        paths = {}
+        for name, module, key in SMOKES:
+            paths[name] = os.path.join(tmp, f"{name}.jsonl")
+            seconds, summary, by_type = run_smoke(name, module, key,
+                                                  paths[name], here)
+            launched = summary.get("launches",
+                                   {"lloyd_step": 0, "argkmin": 0})
+            out["smokes"][name] = {"s": seconds,
+                                   "records": sum(by_type.values()),
+                                   "by_type": by_type,
+                                   "launches": launched}
+            print(f"smoke {module}: {seconds:.3f} s, "
+                  f"{sum(by_type.values())} records, launches {launched}",
+                  flush=True)
+        for sub, name, args in SMOKE_RENDERS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "sq_learn_tpu_torch.obs", sub,
+                 paths[name], *args], cwd=here, capture_output=True,
+                text=True, timeout=120, env=_smoke.child_env(SQ_OBS=None))
+            out["renders_s"][sub] = time.perf_counter() - t0
+            check(proc.returncode == 0 and proc.stdout.strip(),
+                  f"smokes: obs {sub} over the {name} smoke's artifact "
+                  f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+            print(f"obs {sub} over the {name} smoke's artifact: exit "
+                  f"{proc.returncode}, {len(proc.stdout.splitlines())} "
+                  f"lines, {out['renders_s'][sub]:.3f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {key: sum(s["launches"].get(key, 0)
+                                for s in out["smokes"].values())
+                       for key in ("lloyd_step", "argkmin")}
+    out["phase_s"] = time.perf_counter() - t_phase
+    for name in SMOKES_LAUNCHING:
+        launched = out["smokes"][name]["launches"].get("lloyd_step", 0)
+        check(launched > 0, f"smokes: the {name} smoke launched lloyd_step "
+                            f"{launched} times on the card")
+    check(out["phase_s"] < SMOKES_PHASE_S,
+          f"the smokes phase took {out['phase_s']} s, not under "
+          f"{SMOKES_PHASE_S} s")
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -5756,6 +5935,22 @@ def main():
     knn_entry["shapes"].extend(ex_knn)
     print(f"examples phase: {examples['phase_s']:.3f} s", flush=True)
     print("examples: " + json.dumps(examples), flush=True)
+
+    # the smokes phase: the six contract smokes as their own processes on
+    # the card (their children's and workers' launches reported in their
+    # summaries), then the Lloyd kernel at the shapes of their fits; their
+    # launches join the kernels'
+    lloyd_step.launches = argkmin.launches = 0
+    smokes = smokes_phase(here, torch)
+    check(lloyd_step.launches == argkmin.launches == 0,
+          "the smokes phase launched a kernel in this process")
+    entry["launches"] += smokes["launches"]["lloyd_step"]
+    knn_entry["launches"] += smokes["launches"]["argkmin"]
+    cert_entry["launches"] += smokes["smokes"]["elastic"]["launches"][
+        "lloyd_step"]
+    entry["shapes"].extend(smoke_kernel_shapes(smokes["smokes"], torch))
+    print(f"smokes phase: {smokes['phase_s']:.3f} s", flush=True)
+    print("smokes: " + json.dumps(smokes), flush=True)
 
     # the profiling phase's fit: a main-path run whose launches join
     lloyd_step.launches = argkmin.launches = 0

@@ -28,6 +28,7 @@ Runtime contract, as in the JAX package:
   process (the elastic coordinator's workers).
 """
 
+import contextlib
 import os
 
 __all__ = [
@@ -43,7 +44,9 @@ __all__ = [
     "is_set",
     "iter_knobs",
     "knob",
+    "override",
     "resolve",
+    "set_env",
     "setdefault",
     "snapshot",
 ]
@@ -463,3 +466,26 @@ def snapshot(names):
     """{name: raw value or None} for registered knobs — the save half of a
     save/mutate/restore of the environment."""
     return {n: get_raw(n) for n in names}
+
+
+def set_env(**values):
+    """Set (a value) or unset (None) registered knobs in this process's
+    environment — the mutate half; returns the previous raw values, so
+    that ``set_env(**previous)`` restores them."""
+    previous = snapshot(values)
+    for name, value in values.items():
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = str(value)
+    return previous
+
+
+@contextlib.contextmanager
+def override(**values):
+    """:func:`set_env` for the body of a ``with``, restored after it."""
+    previous = set_env(**values)
+    try:
+        yield
+    finally:
+        set_env(**previous)

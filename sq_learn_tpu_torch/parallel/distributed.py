@@ -109,10 +109,17 @@ def _connect(address, timeout_s):
                          timeout=datetime.timedelta(seconds=timeout_s))
 
 
-def _default_devices(backend):
-    if backend == "nccl":
+def _default_devices():
+    """A process's shards when ``initialize`` is given none: the configured
+    device (:func:`~sq_learn_tpu_torch._config.resolve_device`): every
+    visible card for a bare ``cuda``, the one card for ``cuda:<i>``, one
+    CPU shard for ``cpu``. A CUDA device without CUDA raises."""
+    from .._config import resolve_device
+
+    dev = resolve_device()
+    if dev.type == "cuda" and dev.index is None:
         return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
-    return ["cpu"]
+    return [str(dev)]
 
 
 def elastic_device(index, device=None):
@@ -137,8 +144,10 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     ``coordinator_address`` is ``host:port`` of the TCP rendezvous store
     (process 0 hosts it); ``num_processes`` and ``process_id`` the world
     size and this process's rank. ``devices`` are this process's shards
-    (default: every visible CUDA device under NCCL, one CPU shard under
-    gloo); ``backend`` defaults to NCCL when they are CUDA devices, gloo
+    (default: the configured device, the card unless the caller set
+    another: every visible card for ``cuda``, one CPU shard for ``cpu``;
+    without CUDA the card raises, and no world forms on the CPU in its
+    place); ``backend`` defaults to NCCL when they are CUDA devices, gloo
     otherwise.
 
     Re-calling with the same ``generation``, or with none, while a world
@@ -187,13 +196,12 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
             "initialize needs coordinator_address, num_processes and "
             "process_id, as arguments or from MASTER_ADDR/MASTER_PORT, "
             "WORLD_SIZE and RANK")
-    if backend is None:
-        on_cuda = (torch.cuda.is_available() if devices is None else
-                   all(torch.device(d).type == "cuda" for d in devices))
-        backend = "nccl" if on_cuda else "gloo"
     if devices is None:
-        devices = _default_devices(backend)
+        devices = _default_devices()
     devices = [torch.device(d) for d in devices]
+    if backend is None:
+        backend = ("nccl" if all(d.type == "cuda" for d in devices)
+                   else "gloo")
     if backend == "nccl":
         torch.cuda.set_device(devices[0])
     dist.init_process_group(

@@ -24,9 +24,9 @@ Quickstart::
     resilience.faults.disarm()
     print(resilience.breaker.state())
 
-The JAX package's ``resilience/smoke.py`` (a CPU smoke CLI) is not
-ported: its scenarios run on the card in ``chip_smoke.py``'s streaming
-phase.
+The plane's contract smoke is ``python -m
+sq_learn_tpu_torch.resilience.smoke`` (``--device {cuda,cpu}``, the card
+by default).
 """
 
 from . import faults, supervisor

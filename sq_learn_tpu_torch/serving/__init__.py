@@ -34,10 +34,11 @@ Quickstart::
         labels = d.submit("tenant-a", "predict", X_rows).result()
 
 The names below load on first use (this package imports torch; ``obs``
-stays a standard-library tool). Not ported: ``smoke.py`` and
-``control_smoke.py`` (CPU smoke CLIs: their scenarios run in
-``chip_smoke.py`` and the tests), the ``native/`` gather and scatter, and
-the persistent compile cache (``ROADMAP.md``).
+stays a standard-library tool). The plane's contract smokes are
+``python -m sq_learn_tpu_torch.serving.smoke`` and ``...serving.
+control_smoke`` (``--device {cuda,cpu}``, the card by default). Not
+ported: the ``native/`` gather and scatter, and the persistent compile
+cache (``ROADMAP.md``).
 """
 
 import importlib

@@ -61,6 +61,18 @@ def main():
         obs_recorder.set_fleet("fleet-mp-test" if pid == 0 else None,
                                host=f"w{pid}")
         cpus = ["cpu"] * 2
+        if pid != 0:
+            # worker 0 publishes the fleet run id as it joins, and a member
+            # that joins without one waits only 1 s to adopt it: join after
+            # it is there, since a loaded machine can start worker 0
+            # seconds after worker 1
+            import datetime
+
+            from torch.distributed import TCPStore
+
+            TCPStore("127.0.0.1", int(sys.argv[3]), is_master=False,
+                     timeout=datetime.timedelta(seconds=60)).wait(
+                         ["fleet/run_id"])
         dist.initialize(addr0, 2, pid, generation=0, elastic=True,
                         devices=cpus, timeout_s=60)
         rec = obs_recorder.get_recorder()

@@ -142,6 +142,38 @@ def test_elastic_initialize_defaults_to_the_card(monkeypatch):
         assert dist.generation() is None
 
 
+def test_initialize_without_devices_follows_the_configured_device(
+        monkeypatch):
+    """``initialize`` given no ``devices`` takes the configured device, as
+    every entry point does: under the default config the card, which
+    raises without CUDA before any world forms (never a gloo world on the
+    CPU in its place); under ``config_context(device="cpu")`` one CPU
+    shard over gloo."""
+    from sq_learn_tpu_torch._config import _global_config
+
+    assert _global_config["device"] == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            dist.initialize(f"localhost:{_free_port()}", 1, 0)
+        assert dist.generation() is None
+    with config_context(device="cpu"):
+        dist.initialize(f"localhost:{_free_port()}", 1, 0)
+    try:
+        assert dist._WORLD["backend"] == "gloo"
+        assert dist._WORLD["devices"] == [torch.device("cpu")]
+        assert dist.process_info() == (0, 1, 1)
+    finally:
+        dist.shutdown()
+    assert dist.generation() is None
+    # with cards: every visible card for a bare "cuda", one for "cuda:<i>"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with config_context(device="cuda"):
+        assert dist._default_devices() == ["cuda:0", "cuda:1"]
+    with config_context(device="cuda:1"):
+        assert dist._default_devices() == ["cuda:1"]
+
+
 def test_a_one_process_world_from_the_environment(monkeypatch):
     """WORLD_SIZE/RANK/MASTER_ADDR/MASTER_PORT stand in for the arguments;
     the one-process world's mesh gives the in-process 1-shard mesh's

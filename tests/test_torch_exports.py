@@ -23,7 +23,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the reasons ``ROADMAP.md`` gives
 NO_OBJECT = "no object in eager torch"
 GROUND_RULES = "out by the ground rules"
-SMOKE_CLI = "the CPU smoke CLIs"
 JAX_KEYS = "jax keys: the counterpart is utils/random.py"
 PALLAS = "the Pallas kernels: the counterparts are csrc/"
 
@@ -52,15 +51,9 @@ NOT_PORTED_MODULES = {
     "sq_learn_tpu._compat": NO_OBJECT,
     "sq_learn_tpu.analysis.rules.jitpure": NO_OBJECT,
     "sq_learn_tpu.native": GROUND_RULES,
-    "sq_learn_tpu.obs.smoke": SMOKE_CLI,
     "sq_learn_tpu.obs.watchdog": NO_OBJECT,
     "sq_learn_tpu.obs.xla": NO_OBJECT,
-    "sq_learn_tpu.oocore.smoke": SMOKE_CLI,
     "sq_learn_tpu.ops.pallas_kernels": PALLAS,
-    "sq_learn_tpu.parallel.elastic_smoke": SMOKE_CLI,
-    "sq_learn_tpu.resilience.smoke": SMOKE_CLI,
-    "sq_learn_tpu.serving.control_smoke": SMOKE_CLI,
-    "sq_learn_tpu.serving.smoke": SMOKE_CLI,
     "sq_learn_tpu.utils.keys": JAX_KEYS,
 }
 

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX and nothing of ``sq_learn_tpu``.
 
 In a fresh interpreter where ``import jax`` and ``import sklearn`` fail,
-every module of ``sq_learn_tpu_torch`` (the serving plane and the elastic
-world included),
+every module of ``sq_learn_tpu_torch`` (the serving plane, the elastic
+world and the contract smokes included),
 ``chip_smoke.py``, ``chip_profile.py``, ``chip_variants.py`` and every
 driver of ``examples_torch/`` (one for each script of ``examples/``)
 import,
@@ -125,6 +125,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "mesh", "init", "lloyd", "pca", "neighbors", "streaming",
         "distributed", "elastic")} <= names
     assert "sq_learn_tpu_torch.obs.fleet" in names
+    # the contract smokes, each beside the module of the JAX package's
+    assert {f"sq_learn_tpu_torch.{name}" for name in (
+        "obs.smoke", "resilience.smoke", "oocore.smoke", "serving.smoke",
+        "serving.control_smoke", "parallel.elastic_smoke")} <= names
     # the drivers of examples_torch/: one for every script of examples/
     drivers = out.stdout.splitlines()[2].split()
     jax_drivers = sorted(name[:-3] for name in os.listdir(

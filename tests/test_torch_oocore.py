@@ -1274,6 +1274,7 @@ def test_obs_names_are_the_jax_packages(scenario, tmp_path, monkeypatch):
     under both schemas, and the ``io`` records cover every shard."""
     from sq_learn_tpu import obs as jobs
     from sq_learn_tpu.models import MiniBatchQKMeans as JaxMiniBatch
+    from sq_learn_tpu.obs import recorder as jrecorder
     from sq_learn_tpu.obs import schema as jschema
     from sq_learn_tpu_torch.models import MiniBatchQKMeans
 
@@ -1291,12 +1292,20 @@ def test_obs_names_are_the_jax_packages(scenario, tmp_path, monkeypatch):
     est = MiniBatchQKMeans(**kw).fit(st)
     est.partial_fit(cst)
     obs.disable()
+    # the JAX package's labelling pass leaves its ``oocore.assign_labels``
+    # spans open on this thread's span stack: restore the stack, so a
+    # later test on this thread nests its spans from where it was
+    jstack = list(getattr(jrecorder._tls, "span_stack", None) or ())
     jrec = jobs.enable(str(tmp_path / "jax.jsonl"))
-    jcst = joo.store_from_array(str(tmp_path / "jc"), st.read_rows(0, 600),
-                                codec="lz4", shard_bytes=16 * 1024)
-    jest = JaxMiniBatch(**kw).fit(joo.open_store(st.path))
-    jest.partial_fit(jcst)
-    jobs.disable()
+    try:
+        jcst = joo.store_from_array(str(tmp_path / "jc"),
+                                    st.read_rows(0, 600), codec="lz4",
+                                    shard_bytes=16 * 1024)
+        jest = JaxMiniBatch(**kw).fit(joo.open_store(st.path))
+        jest.partial_fit(jcst)
+    finally:
+        jobs.disable()
+        jrecorder._tls.span_stack = jstack
     spans, counters = _names(rec)
     jspans, jcounters = _names(jrec)
     oo_spans = {s for s in spans if s.startswith(("oocore.", "minibatch."))}
