@@ -314,7 +314,24 @@ each of which fails the run:
     its fit's shape, where the kernel is held against its plain version
     and timed on the smoke's rows, and the elastic smoke's under the
     certification's. Its figures print on a ``smokes:`` JSON line.
-12. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
+12. The parameters phase, under PARAMS_PHASE_S seconds: the JAX
+    package's keywords on the card. BASELINE #3's δ=0 fit under
+    ``config_context(assume_finite=True)`` must equal the main path's δ=0
+    fit bit for bit (labels, ``n_iter_``, centers, inertia, Lloyd
+    launches), and ``check_array`` of the 70 000 × 784 card tensor must
+    sync nothing with the check off (CUDA sync debug mode) and is timed
+    with it on and off; ``knn_indices_sharded`` on the 4-shard mesh of
+    cuda:0 at ``block=PARAMS_BLOCK`` must equal the default block bit for
+    bit with the same launches (one ``argkmin`` per shard), and the
+    float64 route at ``block=PARAMS_F64_BLOCK`` the default's lists (its
+    distances to 1e-12, bit-equality printed); ``streamed_prestats(
+    mu_blocked=True)`` must give the one-pass sweep's μ to 1e-5 and its
+    other statistics bit for bit. (The breaker case of the streaming
+    phase holds ``CircuitBreaker(trip_action=...)``, and the elastic
+    phase's 2-worker fit takes its heartbeat and lease as keywords.) Its
+    figures print on a ``params:`` JSON line, and its launches join the
+    ``kernels`` line.
+13. Print the card, a ``kernels`` JSON line and, last, the ``ok`` line.
 """
 
 import json
@@ -2588,15 +2605,24 @@ def streamed_qpca_case(X, Xd, torch):
 def breaker_case(X, torch):
     """SQ_BREAKER_K consecutive put failures trip the breaker: the fit
     raises BreakerOpenError, sets no fitted attribute, and so does the
-    next streamed fit's preflight; reset afterwards."""
+    next streamed fit's preflight; reset afterwards. The process's
+    breaker is, for the case, a ``CircuitBreaker(trip_action=hook)``:
+    the hook must run exactly once, at the trip."""
+    from sq_learn_tpu_torch import resilience
     from sq_learn_tpu_torch.models import QPCA
-    from sq_learn_tpu_torch.resilience import (BreakerOpenError, breaker,
-                                               faults)
+    from sq_learn_tpu_torch.resilience import (BreakerOpenError, faults,
+                                               supervisor)
+    from sq_learn_tpu_torch.resilience.supervisor import CircuitBreaker
 
     est = QPCA(n_components=QPCA_COMPONENTS, svd_solver="full",
                ingest="streamed", random_state=0)
     env = _env(SQ_STREAM_TILE_BYTES=STREAM_TILE_BYTES, SQ_BREAKER_K=3,
                SQ_RETRY_BACKOFF_S=0.001)
+    hooked = []
+    breaker = CircuitBreaker(trip_action=lambda: hooked.append(
+        breaker.state()))
+    process_breaker = supervisor.breaker
+    supervisor.breaker = resilience.breaker = breaker
     raised = []
     try:
         faults.arm("put_fail:tiles=2,times=10")
@@ -2610,16 +2636,19 @@ def breaker_case(X, torch):
         faults.disarm()
         state = breaker.state()
         breaker.reset("chip_smoke")
+        supervisor.breaker = resilience.breaker = process_breaker
         _env(**env)
     check(len(raised) == 2 and state == "open"
           and not hasattr(est, "components_"),
           f"breaker: {len(raised)} raises, state {state}")
     check("qpca.fit" in raised[1], "the second fit's preflight did not "
                                    "raise")
+    check(hooked == ["open"], f"breaker: trip_action ran {len(hooked)} "
+                              f"times (states {hooked}), not once")
     print(f"breaker: 3 consecutive put failures opened it; the fit raised "
           f"BreakerOpenError ({raised[0][:90]}…), the next fit's preflight "
-          f"raised too, no fitted state; reset to {breaker.state()}",
-          flush=True)
+          f"raised too, no fitted state; trip_action ran once, at the "
+          f"trip; reset to {breaker.state()}", flush=True)
 
 
 def streamed_knn_case(X, y, Xd, torch):
@@ -4498,6 +4527,9 @@ ELASTIC_PARTIAL_RTOL = 1e-12
 ELASTIC_KILL = (1, ELASTIC_WINDOW)
 ELASTIC_FAULT = "host_fail:window=5,host=1,times=1"
 ELASTIC_TIMEOUT_S = 300
+#: the 2-worker fit's heartbeat and lease, given as keywords: the knobs'
+#: defaults, which the killed fit takes from the knobs
+ELASTIC_HEARTBEAT_S, ELASTIC_LEASE_S = 0.5, 3.0
 # the fleet's clock offsets on one host (true offset 0): bounded by the
 # coordinator's 50 ms progress poll and the 0.5 s heartbeat cadence
 ELASTIC_CLOCK_SKEW_S = 0.5
@@ -4613,10 +4645,18 @@ def elastic_world_case(S2, ref, tmp):
 
     out = {}
     for name, n, kill in (("two", 2, None), ("killed", 3, ELASTIC_KILL)):
+        # the 2-worker fit takes the heartbeat and lease as keywords, with
+        # their knobs set otherwise in this process and its workers: the
+        # keywords must win
+        keywords = (dict(heartbeat_s=ELASTIC_HEARTBEAT_S,
+                         lease_s=ELASTIC_LEASE_S) if kill is None else {})
+        env = _env(SQ_ELASTIC_HEARTBEAT_S=ELASTIC_HEARTBEAT_S * 4,
+                   SQ_ELASTIC_LEASE_S=ELASTIC_LEASE_S * 10) \
+            if keywords else {}
         coord = elastic.ElasticCoordinator(
             os.path.join(tmp, f"run_{name}"), S2.path, n_workers=n,
             n_clusters=ELASTIC_K, seed=ELASTIC_SEED, epochs=ELASTIC_EPOCHS,
-            window=ELASTIC_WINDOW, kill=kill)
+            window=ELASTIC_WINDOW, kill=kill, **keywords)
         t0, launched = time.perf_counter(), time.time()
         try:
             got = coord.run(timeout_s=ELASTIC_TIMEOUT_S)
@@ -4628,8 +4668,17 @@ def elastic_world_case(S2, ref, tmp):
                         print(f"--- worker {i} log\n{fh.read()[-3000:]}",
                               flush=True)
             raise
+        finally:
+            _env(**env)
         got["wall_s"] = time.perf_counter() - t0
         got["run_dir"] = coord.run_dir
+        if keywords:
+            with open(os.path.join(coord.run_dir, "config.json")) as fh:
+                cfg = json.load(fh)
+            check((cfg["heartbeat_s"], cfg["lease_s"])
+                  == (ELASTIC_HEARTBEAT_S, ELASTIC_LEASE_S),
+                  f"elastic: the keywords heartbeat_s/lease_s did not win "
+                  f"over their knobs (config {cfg})")
         # the workers' start-up: launch to the last generation-0 world_up
         # (the process, torch, CUDA, the store, the gloo group and the
         # certification), on this host's one clock
@@ -5552,6 +5601,168 @@ def smokes_phase(here, torch):
     return out
 
 
+# -- the parameters phase ----------------------------------------------------
+PARAMS_PHASE_S = 30.0  # the phase's limit, seconds
+PARAMS_BLOCK = 1337    # queries per step of the 4-shard search, not a divisor
+PARAMS_F64_QUERIES = 2000
+PARAMS_F64_BLOCK = 97
+PARAMS_F64_RTOL = 1e-12
+PARAMS_MU_RTOL = 1e-5  # the blocked μ sweep sums column powers in tiles
+
+
+def params_phase(X, Xd, classic, classic_launches, torch):
+    """The JAX package's keywords on the card (phase 12 of the module
+    docstring). Returns the ``params:`` line's figures and the phase's
+    launches: ``{"lloyd_step": n, "argkmin": n}``, the 4-shard searches'
+    under ``"argkmin_mesh"`` too."""
+    import numpy as np
+
+    from sq_learn_tpu_torch import config_context
+    from sq_learn_tpu_torch.models import QKMeans
+    from sq_learn_tpu_torch.models.qkmeans import MU_GRID
+    from sq_learn_tpu_torch.ops.kernels import argkmin, lloyd_step
+    from sq_learn_tpu_torch.parallel import (knn_indices_sharded, make_mesh,
+                                             shard_train_rows)
+    from sq_learn_tpu_torch.streaming import streamed_prestats
+    from sq_learn_tpu_torch.utils import check_array
+
+    t_phase = time.perf_counter()
+    dev = torch.device(CARD)
+    out = {}
+    # BASELINE #3's δ=0 fit with the finiteness checks off: the main
+    # path's fit, bit for bit
+    lloyd_step.launches = argkmin.launches = 0
+    with config_context(assume_finite=True):
+        t0 = time.perf_counter()
+        fit = QKMeans(n_clusters=K, n_init=10, max_iter=300, delta=0.0,
+                      random_state=0).fit(X)
+        out["assume_finite_fit_s"] = time.perf_counter() - t0
+    fit_launches = lloyd_step.launches
+    check(np.array_equal(fit.labels_, classic.labels_)
+          and fit.n_iter_ == classic.n_iter_
+          and np.array_equal(fit.cluster_centers_, classic.cluster_centers_)
+          and fit.inertia_ == classic.inertia_
+          and fit_launches == classic_launches and argkmin.launches == 0,
+          f"params: the assume_finite δ=0 fit differs from the default one "
+          f"(n_iter {fit.n_iter_} against {classic.n_iter_}, inertia "
+          f"{fit.inertia_} against {classic.inertia_}, launches "
+          f"{fit_launches} against {classic_launches})")
+    # check_array of the card tensor: the check is a reduction and a sync;
+    # with it off nothing syncs
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with config_context(assume_finite=True):
+            same = check_array(Xd, device=dev)
+        synced_on = False
+        try:
+            check_array(Xd, device=dev)
+        except RuntimeError:
+            synced_on = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(same.data_ptr() == Xd.data_ptr() and synced_on,
+          f"params: check_array with the check off returned a copy or the "
+          f"check on did not sync (synced {synced_on})")
+
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    out["check_array_ms"] = host_ms(synced(
+        lambda: check_array(Xd, device=dev)))
+    with config_context(assume_finite=True):
+        out["check_array_assume_finite_ms"] = host_ms(synced(
+            lambda: check_array(Xd, device=dev)))
+    # the 4-shard search at another block: bit-equal, one launch a shard
+    mesh = make_mesh([CARD] * MESH_SHARDS)
+    pre = shard_train_rows(mesh, Xd[:N_TRAIN])
+    Q = Xd[N_TRAIN:].contiguous()
+    searches = {}
+    for block in (4096, PARAMS_BLOCK):
+        argkmin.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx, d2 = knn_indices_sharded(mesh, None, Q, KNN_K, presharded=pre,
+                                      block=block)
+        torch.cuda.synchronize()
+        searches[block] = (idx, d2, argkmin.launches,
+                           time.perf_counter() - t0)
+    (i0, d0, n0, s0), (i1, d1, n1, s1) = searches.values()
+    check(torch.equal(i0, i1) and torch.equal(d0, d1)
+          and n0 == n1 == MESH_SHARDS,
+          f"params: the {MESH_SHARDS}-shard search at block {PARAMS_BLOCK} "
+          f"differs from the default block, or launched argkmin {n1} times "
+          f"against {n0}")
+    out["mesh_search_s"] = [s0, s1]
+    # the float64 route: the plain search, blocked
+    pre64 = shard_train_rows(mesh, Xd[:N_TRAIN].double())
+    Q64 = Q[:PARAMS_F64_QUERIES].double()
+    argkmin.launches = 0
+    i64, d64 = knn_indices_sharded(mesh, None, Q64, KNN_K, presharded=pre64)
+    t0 = time.perf_counter()
+    j64, e64 = knn_indices_sharded(mesh, None, Q64, KNN_K, presharded=pre64,
+                                   block=PARAMS_F64_BLOCK)
+    torch.cuda.synchronize()
+    out["f64_blocked_search_s"] = time.perf_counter() - t0
+    check(torch.equal(i64, j64) and argkmin.launches == 0
+          and torch.allclose(d64, e64, rtol=PARAMS_F64_RTOL, atol=0.0),
+          f"params: the float64 route at block {PARAMS_F64_BLOCK} differs "
+          f"from the default block ({argkmin.launches} argkmin launches)")
+    out["f64_bit_equal"] = bool(torch.equal(d64, e64))
+    del pre, pre64
+    # the row-tiled μ sweep against the one-pass sweep on the card
+    stats = {}
+    for blocked in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats[blocked] = streamed_prestats(X, quantum=True, mu_grid=MU_GRID,
+                                           mu_blocked=blocked, device=dev)
+        torch.cuda.synchronize()
+        out[f"prestats_{'blocked' if blocked else 'one_pass'}_s"] = (
+            time.perf_counter() - t0)
+    a, b = stats[False], stats[True]
+    check(b["mu_vals"].is_cuda and torch.allclose(
+        b["mu_vals"], a["mu_vals"], rtol=PARAMS_MU_RTOL, atol=0.0)
+          and all(torch.equal(a[k], b[k]) for k in
+                  ("eta", "frob", "sigma_min", "mean", "Xc", "xsq")),
+          "params: streamed_prestats(mu_blocked=True) differs from the "
+          "one-pass sweep")
+    out["mu_max_rel_diff"] = float(
+        ((b["mu_vals"] - a["mu_vals"]).abs() / a["mu_vals"].abs()).max())
+    del stats, a, b
+    out["phase_s"] = time.perf_counter() - t_phase
+    check(out["phase_s"] < PARAMS_PHASE_S,
+          f"params: the phase took {out['phase_s']:.1f} s, over "
+          f"{PARAMS_PHASE_S} s")
+    out["launches"] = {"lloyd_step": fit_launches, "argkmin": n0 + n1,
+                       "argkmin_mesh": n0 + n1}
+    print(f"params: assume_finite δ=0 fit {out['assume_finite_fit_s']:.3f} "
+          f"s, bit-equal to the default fit ({fit_launches} Lloyd "
+          f"launches); check_array of {N}×{M} on the card "
+          f"{out['check_array_ms']:.4f} ms checked, "
+          f"{out['check_array_assume_finite_ms']:.4f} ms under "
+          f"assume_finite (no sync); the {MESH_SHARDS}-shard 7-NN search "
+          f"bit-equal at block {PARAMS_BLOCK} with {n1} launches; float64 "
+          f"route at block {PARAMS_F64_BLOCK}: lists equal, distances "
+          f"{'bit-equal' if out['f64_bit_equal'] else 'within 1e-12'}; "
+          f"blocked μ sweep within {out['mu_max_rel_diff']:.3e}", flush=True)
+    return out
+
+
+def host_ms(fn, reps=REPS):
+    """Median host milliseconds of ``fn`` (which syncs), after one
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def main():
     import numpy as np
     import torch
@@ -5951,6 +6162,15 @@ def main():
     entry["shapes"].extend(smoke_kernel_shapes(smokes["smokes"], torch))
     print(f"smokes phase: {smokes['phase_s']:.3f} s", flush=True)
     print("smokes: " + json.dumps(smokes), flush=True)
+
+    # the parameters phase: the JAX package's keywords on the card; its
+    # launches join the kernels', the 4-shard searches' at the mesh shard
+    params = params_phase(X, Xd, classic, classic_launches, torch)
+    entry["launches"] += params["launches"]["lloyd_step"]
+    knn_entry["launches"] += params["launches"]["argkmin"]
+    mesh_knn["launches"] += params["launches"]["argkmin_mesh"]
+    print(f"parameters phase: {params['phase_s']:.3f} s", flush=True)
+    print("params: " + json.dumps(params), flush=True)
 
     # the profiling phase's fit: a main-path run whose launches join
     lloyd_step.launches = argkmin.launches = 0

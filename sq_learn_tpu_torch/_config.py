@@ -1,8 +1,11 @@
 """Global configuration for sq_learn_tpu_torch.
 
-Counterpart of ``sq_learn_tpu/_config.py:14-140``, cut to the two settings
-the port reads: the ``device`` every entry point computes on and the
-``default_dtype`` of validated inputs. The device defaults to ``"cuda"``:
+Counterpart of ``sq_learn_tpu/_config.py:14-140``, with its four settings:
+the ``device`` every entry point computes on, the ``default_dtype`` of
+validated inputs, ``assume_finite`` (validation skips its finiteness check,
+a reduction and a host sync per input on the card) and
+``interactive_checks``, which the port stores and, like the JAX package,
+never reads. The device defaults to ``"cuda"``:
 a caller who wants the CPU says so (``set_config(device="cpu")`` or
 ``config_context(device="cpu")``). A CUDA request on a host without CUDA
 raises; nothing ever drops to the CPU on its own.
@@ -15,7 +18,9 @@ import torch
 
 _global_config = {
     "device": "cuda",  # 'cuda' | 'cuda:<i>' | 'cpu'
-    "default_dtype": "float32",
+    "default_dtype": "float32",  # 'float32' | 'float64' | 'bfloat16'
+    "assume_finite": False,
+    "interactive_checks": True,
 }
 
 _threadlocal = threading.local()
@@ -33,23 +38,34 @@ def get_config():
     return _get_threadlocal_config().copy()
 
 
-def set_config(device=None, default_dtype=None):
+def set_config(device=None, default_dtype=None, assume_finite=None,
+               interactive_checks=None):
     """Set sq_learn_tpu_torch configuration for this thread.
 
     Parameters
     ----------
     device : str or torch.device, optional
         ``'cuda'`` (the default), ``'cuda:<i>'`` or ``'cpu'``.
-    default_dtype : {'float32', 'float64'}, optional
-        Floating dtype of validated estimator inputs.
+    default_dtype : {'float32', 'float64', 'bfloat16'}, optional
+        Default floating dtype. Validated inputs are float64 under
+        ``'float64'`` and float32 otherwise: as in the JAX package, input
+        is never cast to bfloat16.
+    assume_finite : bool, optional
+        Skip the finiteness check of validated inputs.
+    interactive_checks : bool, optional
+        Stored for the JAX package's callers; nothing reads it.
     """
     local_config = _get_threadlocal_config()
     if device is not None:
         local_config["device"] = str(_parse_device(device))
     if default_dtype is not None:
-        if default_dtype not in ("float32", "float64"):
+        if default_dtype not in ("float32", "float64", "bfloat16"):
             raise ValueError(f"unsupported default_dtype {default_dtype!r}")
         local_config["default_dtype"] = default_dtype
+    if assume_finite is not None:
+        local_config["assume_finite"] = bool(assume_finite)
+    if interactive_checks is not None:
+        local_config["interactive_checks"] = bool(interactive_checks)
 
 
 @contextmanager
@@ -97,7 +113,18 @@ def resolve_device(device=None):
     return dev
 
 
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
+
+
 def default_dtype():
     """The configured floating dtype as a :class:`torch.dtype`."""
-    return (torch.float64 if get_config()["default_dtype"] == "float64"
-            else torch.float32)
+    return _DTYPES[_get_threadlocal_config()["default_dtype"]]
+
+
+def validated_float_dtype():
+    """The float dtype validation casts to: float64 under
+    ``default_dtype='float64'``, float32 otherwise (bfloat16 included:
+    the JAX package's ``check_array`` never casts to it)."""
+    return (torch.float64 if _get_threadlocal_config()["default_dtype"]
+            == "float64" else torch.float32)

@@ -246,12 +246,15 @@ _ENTRIES = [
     # -- the elastic world -------------------------------------------------
     _K("SQ_ELASTIC_HEARTBEAT_S", "float", 0.5, "lib",
        "Lease-supervisor heartbeat publish cadence (store keys, per "
-       "worker).", "sq_learn_tpu_torch/parallel/elastic.py"),
+       "worker); `ElasticCoordinator(heartbeat_s=)` overrides it.",
+       "sq_learn_tpu_torch/parallel/elastic.py"),
     _K("SQ_ELASTIC_LEASE_S", "float", 3.0, "lib",
-       "Lease length: a peer silent for one lease is declared dead.",
+       "Lease length: a peer silent for one lease is declared dead; "
+       "`ElasticCoordinator(lease_s=)` overrides it.",
        "sq_learn_tpu_torch/parallel/elastic.py"),
     _K("SQ_ELASTIC_MAX_SHRINKS", "int", 1, "lib",
-       "Host-failure budget: shrinks tolerated before the fit aborts.",
+       "Host-failure budget: shrinks tolerated before the fit aborts; "
+       "`ElasticCoordinator(max_shrinks=)` overrides it.",
        "sq_learn_tpu_torch/parallel/elastic.py"),
     _K("SQ_ELASTIC_WINDOW", "int", 4, "lib",
        "Commit-window width in visit-order positions (atomic fold+commit "

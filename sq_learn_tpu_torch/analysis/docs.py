@@ -75,6 +75,15 @@ def render_knob_table(knobs_mod):
         "only on `=1`; a default-on flag disables only on `=0`. The JAX",
         "package's table is `docs/knobs.md`.",
         "",
+        "A keyword given to a call wins over its knob: the elastic",
+        "coordinator's `heartbeat_s`, `lease_s` and `max_shrinks` over",
+        "the `SQ_ELASTIC_*` knobs below (its workers read the values the",
+        "coordinator writes into the run's config, never their own",
+        "knobs). `set_config(assume_finite=True)` is a setting, not a",
+        "knob: it turns off validation's finiteness check, which on the",
+        "card is an `isfinite` reduction and a host sync per validated",
+        "input, and the streamed routes' per-tile check.",
+        "",
     ]
     by_scope = {}
     for k in knobs_mod.iter_knobs():

@@ -594,6 +594,13 @@ class MiniBatchQKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         X = self._inference_input(X)
         return euclidean_distances(X, self._centers_tensor(X)).cpu().numpy()
 
+    def fit_transform(self, X, y=None, sample_weight=None):
+        """``fit`` then ``transform`` under one validate-once scope."""
+        from ..utils.validation import validation_scope
+
+        with validation_scope(self):
+            return self.fit(X, sample_weight=sample_weight).transform(X)
+
     def score(self, X, y=None, sample_weight=None):
         """Negative inertia of X under the fitted centers."""
         X = self._inference_input(X)

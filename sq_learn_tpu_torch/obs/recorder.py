@@ -365,13 +365,24 @@ def _peak_device_bytes():
                 for d in range(cuda.device_count())), default=None)
 
 
-def enable(path=None):
+#: the default of :func:`enable`'s ``reset_watchdog``, which the port
+#: rejects when given
+_NO_WATCHDOG = object()
+
+
+def enable(path=None, reset_watchdog=_NO_WATCHDOG):
     """Start a fresh observability run. ``path`` opens a JSONL sink
     (appending); None records in memory only. Resets the cards' peak
     memory statistics, so the run's ``peak_hbm_bytes`` is the process's
     peak of allocated device memory since this call, with what was
-    allocated before it still counted."""
+    allocated before it still counted. The JAX package's
+    ``reset_watchdog`` raises: the port has no retracing watchdog."""
     global _active
+    if reset_watchdog is not _NO_WATCHDOG:
+        raise TypeError(
+            "enable()'s reset_watchdog has no object in eager torch: it "
+            "resets the JAX package's jit-retrace watchdog, and an eager "
+            "program retraces nothing (ROADMAP.md, 'Not ported, and why')")
     with _lock:
         disable()
         _active = Recorder(path)

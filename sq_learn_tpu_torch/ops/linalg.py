@@ -143,12 +143,12 @@ def randomized_svd(generator, X, n_components, n_oversamples=10, n_iter=4,
     return U[:, :n_components], S[:n_components], Vt[:n_components]
 
 
-def stable_cumsum(arr, dim=None):
+def stable_cumsum(arr, axis=None):
     """Cumulative sum accumulated in float64 and cast back to the input
-    dtype (reference ``extmath.py:829``); ``dim`` None flattens."""
-    if dim is None:
-        arr, dim = arr.reshape(-1), 0
-    return torch.cumsum(arr.to(torch.float64), dim=dim).to(arr.dtype)
+    dtype (reference ``extmath.py:829``); ``axis`` None flattens."""
+    if axis is None:
+        arr, axis = arr.reshape(-1), 0
+    return torch.cumsum(arr.to(torch.float64), dim=axis).to(arr.dtype)
 
 
 def check_compute_dtype(value):

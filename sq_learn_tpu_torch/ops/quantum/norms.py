@@ -9,6 +9,11 @@ against the Frobenius norm (reference ``Utility.py:196-231``).
 import numpy as np
 import torch
 
+#: row-block height of the tiled sweep: blocks of ~2^18 elements bound the
+#: temporaries of the power chain (|A| tile, log tile, base, running
+#: power) to a few MiB whatever the matrix's height
+_TILE_ELEMS = 1 << 18
+
 
 def _grid_exponents(grid):
     """The exponent set a μ grid needs — 2p for the row factor and 2(1−p)
@@ -59,6 +64,25 @@ def _mu_grid(A, grid):
     """μ_p for every p of the (static) grid, one fused sweep over A."""
     qs, qpos, uniform = _grid_exponents(grid)
     row_max, cols = _power_sweep(A, qs, qpos, uniform)
+    return _combine(grid, qs, row_max, torch.max(cols, dim=1).values)
+
+
+def _mu_grid_blocked(A, grid):
+    """:func:`_mu_grid` over row tiles of ``_TILE_ELEMS`` elements
+    (reference ``_mu_grid_blocked``): each tile runs the whole power
+    chain, its row maxima are exact (a row is never split) and its column
+    power sums add up across tiles in tile order, so the temporaries are
+    bounded by one tile."""
+    n, m = A.shape
+    qs, qpos, uniform = _grid_exponents(grid)
+    block = max(1, _TILE_ELEMS // max(m, 1))
+    row_max = cols = None
+    for r0 in range(0, n, block):
+        rows, c = _power_sweep(A[r0:r0 + block], qs, qpos, uniform)
+        row_max = rows if row_max is None else torch.maximum(row_max, rows)
+        cols = c if cols is None else cols + c
+    if row_max is None:
+        return _mu_grid(A, grid)
     return _combine(grid, qs, row_max, torch.max(cols, dim=1).values)
 
 

@@ -888,6 +888,11 @@ def _worker_main(run_dir, worker_index):
 # ---------------------------------------------------------------------------
 
 
+#: the default of the coordinator's ``devices_per_host``, which the port
+#: rejects when given
+_NO_VIRTUAL_DEVICES = object()
+
+
 def _pick_port(generation):
     """Generation G's store port: ``SQ_ELASTIC_PORT + G`` when the knob
     is set (the previous generation's store still holds its own port),
@@ -930,15 +935,30 @@ class ElasticCoordinator:
     mid-epoch host death.
 
     ``device=None`` puts worker i on ``cuda:<i % cards>``; ``"cpu"`` (the
-    tests) on the CPU. The heartbeat, lease and shrink budget are the
-    ``SQ_ELASTIC_*`` knobs of this process, written into the run's
-    config for every worker. Workers are new interpreters (never a fork
-    of this process, which may hold a CUDA context) and inherit its
-    environment. A single-threaded poll loop; the stores stay referenced
-    until the object dies."""
+    tests) on the CPU. ``heartbeat_s``, ``lease_s`` and ``max_shrinks``
+    win over their ``SQ_ELASTIC_*`` knobs, which give the values left
+    None; the coordinator writes heartbeat and lease into the run's
+    config, and every worker reads them there, never from its own knobs.
+    Workers are new interpreters (never a fork of this process, which may
+    hold a CUDA context) and inherit its environment, with ``worker_env``
+    applied over it. ``obs=False`` starts no recorder, here or in a
+    worker, and writes no obs shard. The JAX package's
+    ``devices_per_host`` raises: it sets the JAX workers' count of XLA
+    virtual CPU devices, and a port worker holds one device. A
+    single-threaded poll loop; the stores stay referenced until the
+    object dies."""
 
     def __init__(self, run_dir, store_path, *, n_workers=3, n_clusters=8,
-                 seed=0, epochs=2, window=None, device=None, kill=None):
+                 seed=0, epochs=2, window=None,
+                 devices_per_host=_NO_VIRTUAL_DEVICES, max_shrinks=None,
+                 kill=None, worker_env=None, heartbeat_s=None, lease_s=None,
+                 obs=True, device=None):
+        if devices_per_host is not _NO_VIRTUAL_DEVICES:
+            raise TypeError(
+                "ElasticCoordinator's devices_per_host has no object in "
+                "eager torch: it sets the JAX workers' count of XLA virtual "
+                "CPU devices, and a port worker holds one device (device=; "
+                "ROADMAP.md, 'Not ported, and why')")
         self.run_dir = str(run_dir)
         self.store_path = str(store_path)
         self.n_workers = int(n_workers)
@@ -947,10 +967,14 @@ class ElasticCoordinator:
         self.epochs = int(epochs)
         self.window = int(window) if window else _default_window()
         self.device = None if device is None else str(device)
-        self.max_shrinks = _max_shrinks()
+        self.max_shrinks = (_max_shrinks() if max_shrinks is None
+                            else int(max_shrinks))
         self.kill = kill  # (worker_index, min_committed_cursor) or None
-        self.heartbeat_s = _heartbeat_s()
-        self.lease_s = _lease_s()
+        self.worker_env = dict(worker_env or {})
+        self.heartbeat_s = float(heartbeat_s if heartbeat_s is not None
+                                 else _heartbeat_s())
+        self.lease_s = float(lease_s if lease_s is not None else _lease_s())
+        self.obs = bool(obs)
         # the fleet run id: minted here and handed to every worker; an
         # outer SQ_OBS_FLEET_RUN_ID wins, so nested runs stay correlated
         self.run_id = (_knobs.get_str("SQ_OBS_FLEET_RUN_ID", "")
@@ -967,13 +991,19 @@ class ElasticCoordinator:
     def _spawn(self, worker_index):
         repo = os.path.dirname(os.path.dirname(
             os.path.dirname(os.path.abspath(__file__))))
-        # the worker's obs shard, enveloped with the run id and its host
-        env = _knobs.environ(
-            PYTHONSTARTUP=None, PYTHONPATH=repo, SQ_OBS="1",
-            SQ_OBS_PATH=os.path.join(self.run_dir,
-                                     f"obs.w{worker_index}.jsonl"),
-            SQ_OBS_FLEET_RUN_ID=self.run_id,
-            SQ_OBS_FLEET_HOST=f"w{worker_index}", SQ_OBS_TRACE=None)
+        if self.obs:
+            # the worker's obs shard, enveloped with the run id and its
+            # host
+            obs_env = dict(
+                SQ_OBS="1", SQ_OBS_PATH=os.path.join(
+                    self.run_dir, f"obs.w{worker_index}.jsonl"),
+                SQ_OBS_FLEET_RUN_ID=self.run_id,
+                SQ_OBS_FLEET_HOST=f"w{worker_index}")
+        else:
+            obs_env = dict(SQ_OBS=None, SQ_OBS_PATH=None)
+        env = _knobs.environ(PYTHONSTARTUP=None, PYTHONPATH=repo,
+                             SQ_OBS_TRACE=None, **obs_env)
+        env.update(self.worker_env)
         log = open(os.path.join(self.run_dir,
                                 f"worker{worker_index}.log"), "ab")
         try:
@@ -1027,7 +1057,7 @@ class ElasticCoordinator:
         kernel launches. Raises :class:`HostFailure` when the shrink
         budget runs out, :class:`ElasticError` after ``timeout_s``."""
         os.makedirs(self.run_dir, exist_ok=True)
-        if self._obs_rec is None:
+        if self.obs and self._obs_rec is None:
             # a PRIVATE recorder, never the global enable(): the caller
             # may own the process's sink, and the coordinator's shard
             # belongs in the run directory beside the workers'

@@ -45,20 +45,34 @@ def shard_train_rows(mesh, X_train):
     return Xs, xsq, Xs.per, n
 
 
-def _shard_search(T, tsq, Q, k):
+def _shard_search(T, tsq, Q, k, block):
     """(idx, d2) of the k nearest rows of one shard: the fused search on
     float32, the plain search in the data's dtype otherwise (the JAX
     package keeps float64 off its kernel), each ranking by
-    ‖t‖² − 2·q·t with padding rows' norms at ``_PAD_PENALTY``."""
-    if T.dtype == torch.float32:
+    ‖t‖² − 2·q·t with padding rows' norms at ``_PAD_PENALTY``. The
+    kernel on a card takes every query in one launch; wherever a
+    distance matrix is built (the plain searches) the queries go in
+    blocks of at most ``block`` rows."""
+    if T.dtype == torch.float32 and T.is_cuda:
         return argkmin(T, tsq, Q, k)
+    outs = [_plain_block(T, tsq, Q[q0:q0 + block], k)
+            for q0 in range(0, max(Q.shape[0], 1), block)]
+    if len(outs) == 1:
+        return outs[0]
+    return (torch.cat([i for i, _ in outs]), torch.cat([d for _, d in outs]))
+
+
+def _plain_block(T, tsq, Q, k):
+    if T.dtype == torch.float32:
+        return argkmin(T, tsq, Q, k)  # its plain version, on the CPU
     d2 = pairwise_sq_distances(Q, T) + torch.where(
         tsq >= _PAD_PENALTY, _PAD_PENALTY, 0.0).to(T.dtype)
     vals, order = torch.sort(d2, dim=1, stable=True)
     return order[:, :k].to(torch.int32), vals[:, :k]
 
 
-def knn_indices_sharded(mesh, X_train, X_query, k, presharded=None):
+def knn_indices_sharded(mesh, X_train, X_query, k, presharded=None,
+                        block=4096):
     """Indices (int32) and squared distances of the k nearest training
     rows per query, ascending, with the training rows sharded over
     ``mesh``; on the mesh's first device.
@@ -67,7 +81,13 @@ def knn_indices_sharded(mesh, X_train, X_query, k, presharded=None):
     (the exact search) on the same input. The caller guarantees
     ``k <= n_train``. Pass ``presharded`` from :func:`shard_train_rows`
     to skip the per-call corpus placement; ``X_query`` is a tensor.
+    ``block`` bounds the queries of each shard's distance matrix (the
+    JAX package's query blocking): the plain searches take them in
+    blocks of at most ``block`` rows, and the fused kernel on a card,
+    which builds no such matrix, takes them all in one launch per shard.
     """
+    if int(block) < 1:
+        raise ValueError(f"block must be a positive row count, got {block}")
     if presharded is None:
         presharded = shard_train_rows(mesh, X_train)
     Xs, xsq, per, n = presharded
@@ -78,7 +98,7 @@ def knn_indices_sharded(mesh, X_train, X_query, k, presharded=None):
         # of the shards always holds k real rows
         k_local = min(int(k), per)
         Q = X_query.to(Xs.dtype).contiguous()
-        outs = [_shard_search(T, ts, q, k_local) for T, ts, q
+        outs = [_shard_search(T, ts, q, k_local, int(block)) for T, ts, q
                 in zip(Xs.shards, xsq.shards, mesh.broadcast(Q))]
         idx = mesh.gather([i.to(torch.int64) + (mesh.offset + s) * per
                            for s, (i, _) in enumerate(outs)], dim=1)

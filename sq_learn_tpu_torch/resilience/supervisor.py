@@ -128,7 +128,11 @@ class CircuitBreaker:
     Transitions emit a ``breaker`` record and a
     ``resilience.breaker_state`` gauge when a recorder is active, and are
     kept in :attr:`transitions`. ``clock`` is injectable so the cooldown is
-    testable without sleeping.
+    testable without sleeping. ``trip_action`` is called once at every
+    trip, the K-th consecutive failure that opens a closed breaker (a
+    failed half-open trial re-opens it without one). The JAX package's
+    default action moves the process to the CPU; the port's default is
+    None, which does nothing: no work moves to the CPU.
     """
 
     #: lock-discipline contract (sqcheck, ``sq_learn_tpu/resilience/
@@ -138,8 +142,9 @@ class CircuitBreaker:
                              "trips", "transitions")}
     _ASSUMES_LOCK = ("_transition",)
 
-    def __init__(self, clock=time.monotonic):
+    def __init__(self, clock=time.monotonic, trip_action=None):
         self._clock = clock
+        self.trip_action = trip_action
         self._state = CLOSED
         self._consecutive = 0
         self._opened_at = None
@@ -210,6 +215,8 @@ class CircuitBreaker:
                 self._transition(
                     OPEN, f"{self._consecutive} consecutive failures "
                           f"(last: {reason}{f' at {site}' if site else ''})")
+                if self.trip_action is not None:
+                    self.trip_action()
 
     def record_timeout(self, site=None, elapsed=None):
         self.record_failure("deadline exceeded", site=site, elapsed=elapsed)

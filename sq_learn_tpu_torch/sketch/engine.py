@@ -390,11 +390,12 @@ def _as_device_tensor(X):
 
 
 def spectral_stats(X, mu_grid, *, delta_stat=None, sketch="auto",
-                   with_sigma=True, rng=None):
+                   with_sigma=True, rng=None, audit=True):
     """Estimate the spectral statistics of ``X`` (a tensor, or an array
     validated onto the configured device), sketched when the engagement
     rule fires, exact otherwise. ``rng`` is the numpy ``Generator`` of the
-    row sample (default ``default_rng(0)``)."""
+    row sample (default ``default_rng(0)``). ``audit=False`` computes and
+    records no guarantee draw (:func:`audit_sketch`)."""
     X = _as_device_tensor(X)
     n, m = X.shape
     if delta_stat is None:
@@ -413,7 +414,8 @@ def spectral_stats(X, mu_grid, *, delta_stat=None, sketch="auto",
                                     mu_grid=tuple(mu_grid),
                                     delta_stat=delta_stat)
         record_sketch_obs(stats)
-        audit_sketch(stats, X)
+        if audit:
+            audit_sketch(stats, X)
     return stats
 
 
@@ -458,13 +460,14 @@ def audit_sketch(stats, X):
         sample_rows=stats.sample_rows)
 
 
-def mu_stats(X, mu_grid, *, sketch="auto", rng=None, tag="mu"):
+def mu_stats(X, mu_grid, *, sketch="auto", rng=None, tag="mu",
+             audit=True):
     """Digest-cached conservative μ-route statistics (no σ_min): one
     :func:`spectral_stats` per (dataset, grid, sketch config, state of the
     row-sample generator), every repeat served from the cache. Consumers
     take ``stats.conservative_mu()``; on the exact path it is bit-equal to
     :func:`best_mu`'s winner. The fits do not read this cache (see
-    :mod:`.cache`)."""
+    :mod:`.cache`). ``audit`` is :func:`spectral_stats`'s."""
     from . import cache as _cache
 
     X = _as_device_tensor(X)
@@ -483,7 +486,7 @@ def mu_stats(X, mu_grid, *, sketch="auto", rng=None, tag="mu"):
         return hit
     stats = spectral_stats(X, mu_grid, delta_stat=delta_stat,
                            sketch=rows if rows else 0, with_sigma=False,
-                           rng=rng)
+                           rng=rng, audit=audit)
     _cache.store(key, stats)
     return stats
 

@@ -43,7 +43,8 @@ with the tile's provenance.
 Validation: the estimators' streamed routes check the shape and dtype of
 host input on the host and pass ``validate=True``, which checks every
 tile's values on the card and raises ``ValueError("Input contains NaN or
-infinity.")`` after the pass (one sync, at its end).
+infinity.")`` after the pass (one sync, at its end); under
+``set_config(assume_finite=True)`` no tile is checked.
 
 Row sources: every consumer here also takes an out-of-core row source
 (:func:`is_row_source`, a :class:`~sq_learn_tpu_torch.oocore.ShardStore`):
@@ -74,7 +75,7 @@ from .resilience import faults as _faults
 from .resilience import supervisor as _sup
 from .oocore.store import is_source
 from .utils.checkpoint import tree_leaves, tree_map
-from .utils.validation import host_array
+from .utils.validation import checks_finite, host_array
 
 __all__ = [
     "StreamCheckpoint",
@@ -110,9 +111,10 @@ def stream_tile_bytes():
     return _knobs.get_int("SQ_TRANSFER_CHUNK_BYTES")
 
 
-#: True for out-of-core row sources (the shard-store protocol:
-#: ``shape``/``dtype``/``nbytes``/``fingerprint``/``read_rows``)
-is_row_source = is_source
+def is_row_source(X):
+    """True for out-of-core row sources (the shard-store protocol:
+    ``shape``/``dtype``/``nbytes``/``fingerprint``/``read_rows``)."""
+    return is_source(X)
 
 
 def worth_streaming(X, max_bytes=None):
@@ -535,7 +537,7 @@ def stream_fold(X, step, init, *, max_bytes=None, device=None, put=None,
     acc = tree_map(lambda a: a.to(dev), init)
     strict = _knobs.get_bool("SQ_RESILIENCE_STRICT")
     ckpt = _resolve_checkpoint(checkpoint, site)
-    finite = _FiniteCheck() if validate else None
+    finite = _FiniteCheck() if validate and checks_finite() else None
     start_tile = 0
     n_tiles = fingerprint = writer = None
     if ckpt is not None:
@@ -601,7 +603,7 @@ def stream_map_rows(X, fn, *, max_bytes=None, device=None, put=None,
     rows, and the caller fetches the whole once. ``fn`` may return a tensor
     or a tuple of tensors whose leading axis is the tile's rows; with
     ``with_offsets`` it is called as ``fn(tile, start)``."""
-    finite = _FiniteCheck() if validate else None
+    finite = _FiniteCheck() if validate and checks_finite() else None
     outs = []
     with _obs.span("streaming.stream_map_rows", site=site):
         for tile, n_valid, start in stream_tiles(X, max_bytes, device, put,
@@ -890,8 +892,9 @@ def streamed_kmeans_plusplus(generator, X, n_clusters, *, weights=None,
     return np.stack(centers), np.asarray(indices, np.int64)
 
 
-def streamed_prestats(X, *, quantum=False, mu_grid=(), sketch_idx=None,
-                      max_bytes=None, device=None, validate=False):
+def streamed_prestats(X, *, quantum=False, mu_grid=(), mu_blocked=False,
+                      sketch_idx=None, max_bytes=None, device=None,
+                      validate=False):
     """Streamed twin of :func:`~sq_learn_tpu_torch.models.qkmeans.
     fit_prestats`: the device copy assembles tile by tile into one buffer
     (bounded transfers, the upload overlapped with the running column sums
@@ -903,9 +906,12 @@ def streamed_prestats(X, *, quantum=False, mu_grid=(), sketch_idx=None,
 
     ``sketch_idx`` ((s,) sampled row indices, ``quantum`` only) swaps the
     exact σ_min Gram and μ sweep for the sketched components on the
-    resident buffer."""
+    resident buffer. ``mu_blocked`` runs the exact μ sweep over row tiles
+    (``ops.quantum.norms._mu_grid_blocked``), its temporaries bounded by
+    one tile; its μ values equal the one-pass sweep's up to float
+    rounding."""
     from .ops.linalg import row_norms, smallest_singular_value
-    from .ops.quantum.norms import _mu_grid
+    from .ops.quantum.norms import _mu_grid, _mu_grid_blocked
     from .sketch.engine import sketch_components
 
     X = host_array(X)
@@ -928,7 +934,8 @@ def streamed_prestats(X, *, quantum=False, mu_grid=(), sketch_idx=None,
         out["sketch"] = sketch_components(Xr, sketch_idx, mu_grid)
     elif quantum:
         out["eta"] = torch.max(row_norms(Xr, squared=True))
-        out["mu_vals"] = _mu_grid(Xr, mu_grid)
+        out["mu_vals"] = (_mu_grid_blocked if mu_blocked
+                          else _mu_grid)(Xr, mu_grid)
         out["frob"] = torch.linalg.norm(Xr)
         out["sigma_min"] = smallest_singular_value(Xr)
     mean = colsum / n

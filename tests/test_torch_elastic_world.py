@@ -156,6 +156,77 @@ def test_two_worker_fit_equals_the_simulator(tmp_path, shard_store,
     _one_clock(coord.run_dir)
 
 
+def test_keywords_win_over_the_knobs_and_reach_the_workers(
+        tmp_path, shard_store, reference, monkeypatch):
+    """One 2-worker fit with ``heartbeat_s``/``lease_s`` given as keywords
+    while their knobs say otherwise, ``obs=False`` and a ``worker_env``
+    that sends the workers' records to a file of its own: the workers run
+    on the keywords (the run's config, which they read), the run
+    directory holds no obs shard, and the file holds both workers'
+    records."""
+    monkeypatch.setenv("SQ_ELASTIC_HEARTBEAT_S", "7")
+    monkeypatch.setenv("SQ_ELASTIC_LEASE_S", "99")
+    sink = tmp_path / "worker_env.jsonl"
+    coord = elastic.ElasticCoordinator(
+        tmp_path / "run", shard_store, n_workers=2, n_clusters=K, seed=SEED,
+        epochs=EPOCHS, window=WINDOW, device="cpu", heartbeat_s=0.3,
+        lease_s=LEASE_S, obs=False,
+        worker_env={"SQ_OBS": "1", "SQ_OBS_PATH": str(sink)})
+    got = coord.run(timeout_s=240)
+    _same_state(got, reference)
+    assert got["exit_codes"] == {0: 0, 1: 0}
+    with open(os.path.join(coord.run_dir, "config.json")) as fh:
+        cfg = json.load(fh)
+    assert (cfg["heartbeat_s"], cfg["lease_s"]) == (0.3, LEASE_S)
+    assert not [f for f in os.listdir(coord.run_dir)
+                if f.startswith("obs.")]
+    with open(sink) as fh:
+        records = [json.loads(line) for line in fh]
+    assert {r["host"] for r in records if r.get("type") == "elastic"
+            and r.get("event") == "world_up"} == {0, 1}
+
+
+class _Process:
+    """A stand-in worker process: alive, or dead with exit code 1."""
+
+    def __init__(self, alive):
+        self.returncode = None if alive else 1
+        self.pid = -1
+
+    def poll(self):
+        return self.returncode
+
+    def kill(self):
+        self.returncode = -9
+
+    def wait(self, timeout=None):
+        return self.returncode
+
+
+@pytest.mark.parametrize("max_shrinks,knob", [(0, "5"), (1, "0")])
+def test_max_shrinks_wins_over_its_knob(tmp_path, monkeypatch, max_shrinks,
+                                        knob):
+    """Worker 1 is dead from the start: with ``max_shrinks=0`` the
+    coordinator gives up at once, with 1 it shrinks to generation 1 and
+    waits for the survivor (here until its timeout). The knob says the
+    opposite each time. ``obs=False`` writes no coordinator shard."""
+    monkeypatch.setenv("SQ_ELASTIC_MAX_SHRINKS", knob)
+    coord = elastic.ElasticCoordinator(
+        tmp_path / "run", tmp_path / "store", n_workers=2, device="cpu",
+        max_shrinks=max_shrinks, obs=False)
+    assert coord.max_shrinks == max_shrinks
+    monkeypatch.setattr(coord, "_spawn", lambda i: _Process(alive=i == 0))
+    if max_shrinks == 0:
+        with pytest.raises(elastic.HostFailure, match="1/0"):
+            coord.run(timeout_s=30)
+    else:
+        with pytest.raises(elastic.ElasticError, match="did not finish"):
+            coord.run(timeout_s=1.0)
+        with open(os.path.join(coord.run_dir, "manifest.g1.json")) as fh:
+            assert json.load(fh)["members"] == [0]
+    assert not os.path.exists(os.path.join(coord.run_dir, "obs.coord.jsonl"))
+
+
 def _one_clock(run_dir):
     """Every process of the run shares this host's clock, so the fleet's
     offsets must come out near 0: a manifest written before its reader

@@ -144,5 +144,14 @@ def test_stable_cumsum_accumulates_in_float64():
     assert out.dtype == torch.float32
     ref = np.cumsum(a.astype(np.float64)).astype(np.float32)
     np.testing.assert_array_equal(out.numpy(), ref)
-    two_d = tl.stable_cumsum(_t(np.ones((3, 4), np.float32)), dim=1)
+    two_d = tl.stable_cumsum(_t(np.ones((3, 4), np.float32)), axis=1)
     assert two_d[:, -1].tolist() == [4.0, 4.0, 4.0]
+
+
+@pytest.mark.parametrize("axis", [None, 0, 1])
+def test_stable_cumsum_takes_the_jax_axis(axis):
+    a = np.random.default_rng(9).normal(size=(5, 7)).astype(np.float32)
+    ours = tl.stable_cumsum(_t(a), axis=axis)
+    theirs = np.asarray(jl.stable_cumsum(jnp.asarray(a), axis=axis))
+    assert ours.shape == theirs.shape and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), theirs, rtol=1e-5, atol=1e-6)

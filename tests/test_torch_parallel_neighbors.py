@@ -53,6 +53,47 @@ def test_matches_single_device_and_jax(mesh, mesh8, n, nq, k):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_block_bounds_the_queries_and_changes_no_result(mesh8, dtype,
+                                                        monkeypatch):
+    """``block`` splits the queries of each shard's plain search: the
+    lists and distances are those of the default block, and the JAX
+    package's, for every block. On integer-valued rows every product is
+    exact, so they are bit-equal; on other rows the CPU's BLAS rounds a
+    product by the block's shape, and the lists stay equal with the
+    distances at float rounding."""
+    rng = np.random.default_rng(12)
+    mesh = make_mesh(["cpu"] * 3)
+    exact = (rng.integers(-8, 9, size=(301, 11)).astype(dtype),
+             rng.integers(-8, 9, size=(57, 11)).astype(dtype))
+    normal = (rng.normal(size=(301, 11)).astype(dtype),
+              rng.normal(size=(57, 11)).astype(dtype))
+    steps = []
+    real = pnbr._plain_block
+    monkeypatch.setattr(pnbr, "_plain_block", lambda T, tsq, Q, k: (
+        steps.append(Q.shape[0]), real(T, tsq, Q, k))[1])
+    for Xt, Xq in (exact, normal):
+        T, Q = torch.from_numpy(Xt), torch.from_numpy(Xq)
+        ref_i, ref_d = knn_indices_sharded(mesh, T, Q, 6)
+        ji, jd = j_knn_sharded(mesh8, Xt, Xq, 6, block=7)
+        np.testing.assert_array_equal(ref_i.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(ref_d.numpy(), np.asarray(jd), rtol=1e-5,
+                                   atol=1e-4)
+        for block in (1, 7, 4096):
+            steps.clear()
+            idx, d2 = knn_indices_sharded(mesh, T, Q, 6, block=block)
+            assert steps == [min(block, 57 - q0)
+                             for q0 in range(0, 57, block)] * 3
+            assert torch.equal(idx, ref_i)
+            if Xt is exact[0]:
+                assert torch.equal(d2, ref_d)
+            else:
+                np.testing.assert_allclose(d2.numpy(), ref_d.numpy(),
+                                           rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="block"):
+        knn_indices_sharded(mesh, T, Q, 6, block=0)
+
+
 @pytest.mark.parametrize("n_dev", [1, 3, 5])
 def test_any_shard_count(n_dev):
     rng = np.random.default_rng(n_dev)

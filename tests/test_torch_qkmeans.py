@@ -22,15 +22,18 @@ from sq_learn_tpu.models import qkmeans as jqk
 from sq_learn_tpu.ops import linalg as jlinalg
 from sq_learn_tpu.ops.quantum import norms as jnorms
 from sq_learn_tpu.parallel import init as jinit
-from sq_learn_tpu_torch import (QKMeans, clone, config_context, get_config,
-                                resolve_device, set_config)
+from sq_learn_tpu.utils import validation as jvalidation
+from sq_learn_tpu_torch import (QKMeans, clone, config_context,
+                                default_dtype, get_config, resolve_device,
+                                set_config)
 from sq_learn_tpu_torch.cluster import KMeans, k_means, qMeans_
 from sq_learn_tpu_torch.datasets import synthetic_surrogate
 from sq_learn_tpu_torch.models import qkmeans as tqk
 from sq_learn_tpu_torch.ops import linalg as tlinalg
 from sq_learn_tpu_torch.ops.quantum import norms as tnorms
 from sq_learn_tpu_torch.parallel import init as tinit
-from sq_learn_tpu_torch.utils import as_generator, check_array
+from sq_learn_tpu_torch.utils import (as_generator, check_array,
+                                      check_sample_weight)
 
 
 @pytest.fixture(autouse=True)
@@ -543,3 +546,138 @@ def test_check_array_contract():
         check_array(np.array([[np.nan, 1.0]]), device="cpu")
     with config_context(default_dtype="float64"):
         assert check_array([[1, 2]], device="cpu").dtype == torch.float64
+
+
+def _nan_rows():
+    X = np.random.default_rng(4).normal(size=(3, 4)).astype(np.float32)
+    X[1, 2] = np.nan
+    return X
+
+
+_F32 = np.random.default_rng(5).normal(size=(4, 3)).astype(np.float32)
+_INTS = np.arange(12).reshape(4, 3)
+
+#: (X, check_array keywords, configuration)
+CHECK_ARRAY_CASES = {
+    "1-D": (_F32[:, 0], {}, {}),
+    "1-D ints": (np.arange(3), {}, {}),
+    "1-D not ensured": (_F32[:, 0], {"ensure_2d": False}, {}),
+    "3-D": (np.ones((2, 3, 4), np.float32), {}, {}),
+    "3-D allow_nd": (np.ones((2, 3, 4), np.float32), {"allow_nd": True}, {}),
+    "1x3 two samples": (np.ones((1, 3)), {"ensure_min_samples": 2}, {}),
+    "3x2 three features": (_F32[:3, :2], {"ensure_min_features": 3}, {}),
+    "3x0": (np.ones((3, 0)), {}, {}),
+    "0x3": (np.ones((0, 3), np.float32), {}, {}),
+    "0x3 no minimum": (np.ones((0, 3), np.float32),
+                       {"ensure_min_samples": 0}, {}),
+    "NaN": (_nan_rows(), {}, {}),
+    "NaN force_finite": (_nan_rows(), {"force_finite": True}, {}),
+    "NaN unforced": (_nan_rows(), {"force_finite": False}, {}),
+    "NaN assume_finite": (_nan_rows(), {}, {"assume_finite": True}),
+    "NaN assume_finite forced": (_nan_rows(), {"force_finite": True},
+                                 {"assume_finite": True}),
+    "ints float32": (_INTS, {}, {"default_dtype": "float32"}),
+    "ints float64": (_INTS, {}, {"default_dtype": "float64"}),
+    "ints bfloat16": (_INTS, {}, {"default_dtype": "bfloat16"}),
+    "float32 bfloat16": (_F32, {}, {"default_dtype": "bfloat16"}),
+    "ints dtype None": (_INTS, {"dtype": None}, {}),
+    "float32 as float64": (_F32, {"dtype": np.float64}, {}),
+}
+
+
+def _outcome(fn, X, kw, cfg, ctx):
+    try:
+        with ctx(**cfg):
+            out = fn(X, **kw)
+    except (TypeError, ValueError) as exc:
+        return type(exc).__name__, str(exc)
+    out = out.numpy() if isinstance(out, torch.Tensor) else out
+    return "ok", out.shape, str(out.dtype), out
+
+
+@pytest.mark.parametrize("case", sorted(CHECK_ARRAY_CASES))
+def test_check_array_takes_the_jax_keywords(case):
+    """Each case gives the JAX function's shape, dtype and values, or its
+    exception type and message."""
+    import sq_learn_tpu as sq
+
+    X, kw, cfg = CHECK_ARRAY_CASES[case]
+    theirs = _outcome(jvalidation.check_array, X, kw, cfg,
+                      sq.config_context)
+    ours = _outcome(functools.partial(check_array, device="cpu"), X, kw,
+                    cfg, config_context)
+    assert ours[:3] == theirs[:3]
+    if ours[0] == "ok":
+        np.testing.assert_array_equal(ours[3], theirs[3])
+
+
+def test_check_array_copy_never_shares_the_input():
+    X = np.ones((3, 4), np.float32)
+    t = torch.ones(3, 4)
+    assert np.shares_memory(check_array(X, device="cpu").numpy(), X)
+    assert not np.shares_memory(
+        check_array(X, copy=True, device="cpu").numpy(), X)
+    assert check_array(t, device="cpu").data_ptr() == t.data_ptr()
+    assert check_array(t, copy=True, device="cpu").data_ptr() != t.data_ptr()
+    assert not np.shares_memory(jvalidation.check_array(X, copy=True), X)
+
+
+def test_float_input_lands_in_the_validated_float_dtype():
+    """The one departure of ``dtype="float"``: the JAX function keeps
+    float32 and float64 on the host, the port holds every float input in
+    the dtype the JAX package's device computes in."""
+    import sq_learn_tpu as sq
+
+    X64 = _F32.astype(np.float64)
+    for cfg, want in (("float32", torch.float32), ("bfloat16", torch.float32),
+                      ("float64", torch.float64)):
+        with sq.config_context(default_dtype=cfg):
+            device_dtype = jnp.asarray(jvalidation.check_array(X64)).dtype
+        with config_context(default_dtype=cfg):
+            got = check_array(X64, device="cpu").dtype
+        assert got == want and str(got) == f"torch.{device_dtype}"
+
+
+def test_config_has_the_jax_settings_and_defaults():
+    import sq_learn_tpu as sq
+
+    ours, theirs = get_config(), sq.get_config()
+    assert set(ours) == set(theirs)
+    for key in ("default_dtype", "assume_finite", "interactive_checks"):
+        assert ours[key] == theirs[key]
+    with config_context(default_dtype="bfloat16", assume_finite=True,
+                        interactive_checks=False):
+        assert default_dtype() is torch.bfloat16
+        cfg = get_config()
+        assert cfg["assume_finite"] is True
+        assert cfg["interactive_checks"] is False
+    assert get_config() == ours
+    with pytest.raises(ValueError, match="unsupported default_dtype"):
+        set_config(default_dtype="float16")
+
+
+def test_assume_finite_skips_the_finiteness_reduction(monkeypatch):
+    calls = []
+    real = torch.isfinite
+    monkeypatch.setattr(torch, "isfinite",
+                        lambda t: calls.append(t.shape) or real(t))
+    X = _nan_rows()
+    with config_context(assume_finite=True):
+        assert torch.isnan(check_array(X, device="cpu")).any()
+    assert check_array(X, force_finite=False, device="cpu").shape == (3, 4)
+    assert calls == []
+    with pytest.raises(ValueError, match="NaN or infinity"):
+        check_array(X, device="cpu")
+    assert calls == [(3, 4)]
+
+
+@pytest.mark.parametrize("dtype", [None, np.float32, np.float64])
+@pytest.mark.parametrize("weight", [None, 2, "array"])
+def test_check_sample_weight_takes_the_jax_dtype(dtype, weight):
+    X = _F32
+    if weight == "array":
+        weight = np.arange(1, 5, dtype=np.float64) / 3.0
+    theirs = jvalidation.check_sample_weight(weight, X, dtype=dtype)
+    ours = check_sample_weight(weight, torch.from_numpy(X), dtype=dtype)
+    assert str(ours.dtype) == f"torch.{theirs.dtype}"
+    np.testing.assert_array_equal(ours.numpy(), theirs)

@@ -295,6 +295,41 @@ def test_breaker_transitions_equal_jax(monkeypatch, name):
     assert ours.state() == theirs.state() and ours.trips == theirs.trips
 
 
+def test_trip_action_runs_once_per_trip_as_in_jax(monkeypatch):
+    """The hook runs at each closed → open trip, never at a failed
+    half-open trial's re-open; the port's default does nothing."""
+    monkeypatch.setenv("SQ_BREAKER_K", "2")
+    monkeypatch.setenv("SQ_BREAKER_COOLDOWN_S", "10")
+    clock = {"t": 100.0}
+    calls = {"port": [], "jax": []}
+    ours = CircuitBreaker(clock=lambda: clock["t"],
+                          trip_action=lambda: calls["port"].append(
+                              ours.state()))
+    theirs = jsup.CircuitBreaker(clock=lambda: clock["t"],
+                                 trip_action=lambda: calls["jax"].append(
+                                     theirs.state()))
+    for br in (ours, theirs):
+        clock["t"] = 100.0
+        for step in ["fail", "fail", "fail", "+11", "state", "fail", "+11",
+                     "ok", "fail", "fail"]:
+            if step == "fail":
+                br.record_failure("x")
+            elif step == "ok":
+                br.record_success()
+            elif step == "state":
+                br.state()
+            else:
+                clock["t"] += float(step[1:])
+    assert calls["port"] == calls["jax"] == [OPEN, OPEN]
+    assert ours.trips == theirs.trips == 2
+    assert ours.transitions == theirs.transitions
+    plain = CircuitBreaker(clock=lambda: clock["t"])
+    assert plain.trip_action is None
+    plain.record_failure("x")
+    plain.record_failure("x")
+    assert plain.state() == OPEN and plain.trips == 1
+
+
 def test_open_breaker_raises_and_nothing_moves_to_the_cpu(monkeypatch):
     """Where the JAX breaker runs its CPU escape, the port's raises: the
     tile that trips it raises ``BreakerOpenError`` (naming the site and the

@@ -111,6 +111,32 @@ def test_sampled_mu_stats_match_jax_and_bound_the_exact_mu():
     assert info["sketched"] and info["sample_rows"] == 512
 
 
+@pytest.mark.parametrize("audit", [True, False])
+def test_audit_false_records_no_guarantee_in_either_package(audit):
+    """``audit=False``: neither package computes or records the sketch's
+    guarantee draws; with it on both record the same sites."""
+    from _torch_obs_helpers import record
+    from sq_learn_tpu import obs as jobs
+    from sq_learn_tpu_torch import obs as tobs
+
+    X = _data(3000, 10, seed=5)
+
+    def run(engine, data):
+        def go():
+            engine.spectral_stats(data, GRID, sketch=512, audit=audit,
+                                  rng=np.random.default_rng(3))
+            engine.mu_stats(data, MU_GRID, sketch=512, audit=audit,
+                            rng=np.random.default_rng(4), tag="audit")
+        return go
+
+    _, jrec = record(jobs, run(jengine, X))
+    _, prec = record(tobs, run(tengine, torch.from_numpy(X)))
+    theirs = [g["site"] for g in jrec.guarantee_records]
+    ours = [g["site"] for g in prec.guarantee_records]
+    assert ours == theirs
+    assert ("sketch.mu" in ours) is audit
+
+
 def test_numpy_input_is_validated_onto_the_configured_device():
     X = _data(400, 6)
     st = tengine.spectral_stats(X, GRID)

@@ -103,7 +103,8 @@ def test_host_ingest_checks_on_the_host_and_applies_the_cap(monkeypatch):
     assert host_ingest(torch.from_numpy(X_TALL[:100]))[1] is False
     with pytest.raises(ValueError, match="2D array"):
         host_ingest(X_TALL[0])
-    with pytest.raises(ValueError, match="at least one"):
+    with pytest.raises(ValueError, match=r"0 sample\(s\) while a minimum "
+                       "of 1 is required"):
         host_ingest(X_TALL[:0])
 
 
@@ -218,6 +219,41 @@ def test_streamed_prestats_quantum_match_monolithic_and_jax():
         np.testing.assert_allclose(got[name].numpy(),
                                    np.asarray(theirs[name]), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+def test_streamed_prestats_mu_blocked_matches_jax_and_the_one_pass_sweep():
+    """``mu_blocked=True`` sweeps μ over row tiles: at width 512 a tile
+    holds 512 rows, so 1500 rows make three tiles, the last ragged."""
+    rng = np.random.default_rng(21)
+    X = (rng.normal(size=(1500, 512)) * np.linspace(0.5, 2.0, 512)
+         ).astype(np.float32)
+    cap = X.nbytes // 5
+    got = streaming.streamed_prestats(X, quantum=True, mu_grid=MU_GRID,
+                                      mu_blocked=True, max_bytes=cap)
+    one_pass = streaming.streamed_prestats(X, quantum=True, mu_grid=MU_GRID,
+                                           max_bytes=cap)
+    theirs = jstreaming.streamed_prestats(X, quantum=True, mu_grid=MU_GRID,
+                                          mu_blocked=True, max_bytes=cap)
+    np.testing.assert_allclose(got["mu_vals"].numpy(),
+                               np.asarray(theirs["mu_vals"]), rtol=1e-5)
+    np.testing.assert_allclose(got["mu_vals"].numpy(),
+                               one_pass["mu_vals"].numpy(), rtol=1e-5)
+    for name in ("eta", "frob", "sigma_min", "mean", "Xc", "xsq"):
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      one_pass[name].numpy(), err_msg=name)
+
+
+def test_assume_finite_turns_the_tile_check_off(monkeypatch):
+    bad = X_TALL.copy()
+    bad[700, 3] = np.inf
+    checks = []
+    monkeypatch.setattr(streaming._FiniteCheck, "add",
+                        lambda self, tile: checks.append(tile.shape))
+    with config_context(assume_finite=True):
+        TruncatedSVD(3, ingest="streamed").fit(X_TALL)
+    assert checks == []
+    TruncatedSVD(3, ingest="streamed").fit(X_TALL)
+    assert checks
 
 
 def test_resident_put_is_bit_equal():
