@@ -20,7 +20,10 @@ queries) ledger entry under an obs run, each naming the engine that
 served it: the kernel (``argkmin_kernel``), its plain version
 (``argkmin_reference``), the reduced-precision shortlist
 (``shortlist``), the float64 search (``plain``) or the streamed search
-(``streamed-device``).
+(``streamed-device``). ``predict_proba`` is one ``knn.predict`` span
+holding ``knn.validate``, the search, ``sync.knn.fetch`` (the one copy
+of the lists to the host) and ``knn.vote``; under a ``torch.profiler``
+each span is a range of its name (:func:`sq_learn_tpu_torch.obs.span`).
 
 ``mesh`` (a :class:`~sq_learn_tpu_torch.parallel.mesh.Mesh`) shards the
 training rows once, at ``fit``, and every search runs
@@ -190,7 +193,11 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
     def _search(self, X, k):
         """(idx, d2) on the device of the training rows: the fused search
         at exact precision, :func:`knn_indices` for a reduced
-        ``compute_dtype``. One span and one ledger entry per search."""
+        ``compute_dtype``. One span and, under an obs run, one ledger
+        entry per search."""
+        if not _obs.enabled():
+            with _obs.span("knn.search"):
+                return self._search_impl(X, k)[0]
         t0 = time.perf_counter()
         with _obs.span("knn.search", n_queries=X.shape[0], k=k,
                        n_train=self.n_samples_fit_) as sp:
@@ -294,22 +301,26 @@ class KNeighborsClassifier(ClassifierMixin, BaseEstimator):
 
     def predict_proba(self, X):
         """Class probabilities by (weighted) votes of the neighbors."""
-        X = self._query(X)
-        k = self._check_k(self.n_neighbors)
-        n_classes = len(self.classes_)
-        idx, d2 = self._search(X, k)
-        idx, d2 = idx.cpu().numpy(), d2.cpu().numpy()
-        votes = self.y_fit_[idx]                                # (n, k)
-        if self.weights == "distance":
-            wts = 1.0 / np.maximum(np.sqrt(d2), 1e-12)
-        else:
-            wts = np.ones_like(d2)
-        n = len(votes)
-        rows = np.repeat(np.arange(n), k)
-        counts = np.bincount(
-            rows * n_classes + votes.ravel(), weights=wts.ravel(),
-            minlength=n * n_classes).reshape(n, n_classes)
-        return counts / counts.sum(axis=1, keepdims=True)
+        with _obs.span("knn.predict"):
+            with _obs.span("knn.validate"):
+                X = self._query(X)
+            k = self._check_k(self.n_neighbors)
+            n_classes = len(self.classes_)
+            idx, d2 = self._search(X, k)
+            with _obs.span("sync.knn.fetch"):
+                idx, d2 = idx.cpu().numpy(), d2.cpu().numpy()
+            with _obs.span("knn.vote"):
+                votes = self.y_fit_[idx]                        # (n, k)
+                if self.weights == "distance":
+                    wts = 1.0 / np.maximum(np.sqrt(d2), 1e-12)
+                else:
+                    wts = np.ones_like(d2)
+                n = len(votes)
+                rows = np.repeat(np.arange(n), k)
+                counts = np.bincount(
+                    rows * n_classes + votes.ravel(), weights=wts.ravel(),
+                    minlength=n * n_classes).reshape(n, n_classes)
+                return counts / counts.sum(axis=1, keepdims=True)
 
     def predict(self, X):
         proba = self.predict_proba(X)

@@ -37,7 +37,18 @@ route), one ``qkmeans``/``fit`` ledger entry priced by
 error model on ≤ 256 rows (:meth:`QKMeans._audit_fit_entry`), drawn from
 generators of its own. The fit loop itself records no guarantee draws,
 as the JAX package's traced loop records none, and a fit's results and
-kernel launches are the same with obs on or off.
+kernel launches are the same with obs on or off, and under a
+``torch.profiler``. The port's own spans, which the JAX package's jitted
+loop cannot have, mark each layer inside: ``qkmeans.stats`` and
+``qkmeans.seed`` in the init; ``qkmeans.lloyd`` around the loop, one
+``qkmeans.lloyd_iter`` a step (``qkmeans.gumbel``, the kernel's
+``kernels.lloyd_step`` or ``qkmeans.e_step``, ``qkmeans.relocate``,
+``qkmeans.update``) and ``qkmeans.finish``; and a ``sync.<site>`` span
+around every read of the device by the host and every upload that waits
+for it (``sync.qkmeans.sketch_rows``, ``.stop_rule``, ``.stats``,
+``.best``, ``.fetch``, ``.quantum_stats``, and ``sync.validation``).
+While a profiler records each is a range of its name, obs on or off
+(:func:`sq_learn_tpu_torch.obs.span`).
 
 Ingest, as in the JAX package's staged route: host data larger than the
 streaming engine's tile cap (``SQ_TRANSFER_CHUNK_BYTES``, 128 MiB) is
@@ -154,13 +165,16 @@ def fit_prestats(X, *, quantum=False, mu_grid=(), sketch_idx=None):
         "xsq": row_norms(Xc, squared=True),
         "var_mean": torch.mean(torch.var(X, dim=0, correction=0)),
     }
+    # the Gram's eigh reads its solver's status back from the device
     if quantum and sketch_idx is not None:
-        out["sketch"] = sketch_components(X, sketch_idx, mu_grid)
+        with _obs.span("sync.qkmeans.stats"):
+            out["sketch"] = sketch_components(X, sketch_idx, mu_grid)
     elif quantum:
         out["eta"] = torch.max(row_norms(X, squared=True))
         out["mu_vals"] = _mu_grid(X, mu_grid)
         out["frob"] = torch.linalg.norm(X)
-        out["sigma_min"] = smallest_singular_value(X)
+        with _obs.span("sync.qkmeans.stats"):
+            out["sigma_min"] = smallest_singular_value(X)
     return out
 
 
@@ -487,54 +501,82 @@ def lloyd_single(generator, X, weights, centers_init, x_sq_norms, *,
                 in zip(shards, gens, spread(c))]
         return [o[0] for o in outs], reduce([o[1] for o in outs])
 
+    def stopped():
+        """The host's read of the stop rule: no restart runs."""
+        with _obs.span("sync.qkmeans.stop_rule"):
+            return not bool(active.any())
+
     active = running()
-    for step in range(max_iter):
-        if _stop_rule_read_due(step) and not bool(active.any()):
-            break
-        outs = []
-        for (x, w, xs), xk, g, cs, act in zip(shards, Xk, gens,
-                                               spread(centers),
-                                               spread(active)):
-            if xk is None:
-                labels, inertia, min_d2 = estep(g, x, w, cs, xs)
-                sums, counts = _cluster_partials(x, w, labels, k)
-            else:
-                noise = (gumbel((R, x.shape[0], k), g, x.device)
-                         if window > 0 else None)
-                labels, min_d2, sums, counts, inertia = lloyd_step(
-                    xk, w, xs, cs, gumbel=noise, window=window, active=act)
-            outs.append((labels, min_d2, sums, counts, inertia))
-        sums, counts, inertia = (reduce([o[j] for o in outs])
-                                 for j in (2, 3, 4))
-        sums, counts = relocate_empty_clusters(
-            X, weights, rows_out([o[0] for o in outs]),
-            rows_out([o[1] for o in outs]), sums, counts, mesh=mesh)
-        new_centers = _update_centers(sums, counts, centers)
-        if intermediate_error and delta > 0:
-            new_centers = center_tomography(generator, new_centers, delta / 2,
-                                            true_tomography=true_tomography)
-        better = active & (inertia < best_inertia)
-        best_it = torch.where(better, it, best_it)
-        best_inertia = torch.where(better, inertia, best_inertia)
-        best_centers = torch.where(better[:, None, None], centers,
-                                   best_centers)
-        new_shift = torch.sum((new_centers - centers) ** 2, dim=(1, 2))
-        slot = active[:, None] & (slots == it[:, None])
-        inertia_tr = torch.where(slot, inertia[:, None], inertia_tr)
-        shift_tr = torch.where(slot, new_shift[:, None], shift_tr)
-        centers = torch.where(active[:, None, None], new_centers, centers)
-        shift = torch.where(active, new_shift, shift)
-        it = it + active.to(torch.int64)
-        active = running()
+    # the read due before step s is made at the end of step s - 1, in that
+    # step's span: each qkmeans.lloyd_iter span holds one Lloyd step
+    step = 0
+    with _obs.span("qkmeans.lloyd"):
+        stop = max_iter == 0 or stopped()
+        while not stop:
+            with _obs.span("qkmeans.lloyd_iter"):
+                outs = []
+                for (x, w, xs), xk, g, cs, act in zip(shards, Xk, gens,
+                                                       spread(centers),
+                                                       spread(active)):
+                    if xk is None:
+                        with _obs.span("qkmeans.e_step"):
+                            labels, inertia, min_d2 = estep(g, x, w, cs, xs)
+                            sums, counts = _cluster_partials(x, w, labels,
+                                                             k)
+                    else:
+                        noise = None
+                        if window > 0:
+                            with _obs.span("qkmeans.gumbel"):
+                                noise = gumbel((R, x.shape[0], k), g,
+                                               x.device)
+                        labels, min_d2, sums, counts, inertia = lloyd_step(
+                            xk, w, xs, cs, gumbel=noise, window=window,
+                            active=act)
+                    outs.append((labels, min_d2, sums, counts, inertia))
+                sums, counts, inertia = (reduce([o[j] for o in outs])
+                                         for j in (2, 3, 4))
+                with _obs.span("qkmeans.relocate"):
+                    sums, counts = relocate_empty_clusters(
+                        X, weights, rows_out([o[0] for o in outs]),
+                        rows_out([o[1] for o in outs]), sums, counts,
+                        mesh=mesh)
+                with _obs.span("qkmeans.update"):
+                    new_centers = _update_centers(sums, counts, centers)
+                    if intermediate_error and delta > 0:
+                        new_centers = center_tomography(
+                            generator, new_centers, delta / 2,
+                            true_tomography=true_tomography)
+                    better = active & (inertia < best_inertia)
+                    best_it = torch.where(better, it, best_it)
+                    best_inertia = torch.where(better, inertia, best_inertia)
+                    best_centers = torch.where(better[:, None, None],
+                                               centers, best_centers)
+                    new_shift = torch.sum((new_centers - centers) ** 2,
+                                          dim=(1, 2))
+                    slot = active[:, None] & (slots == it[:, None])
+                    inertia_tr = torch.where(slot, inertia[:, None],
+                                             inertia_tr)
+                    shift_tr = torch.where(slot, new_shift[:, None],
+                                           shift_tr)
+                    centers = torch.where(active[:, None, None], new_centers,
+                                          centers)
+                    shift = torch.where(active, new_shift, shift)
+                    it = it + active.to(torch.int64)
+                    active = running()
+                step += 1
+                stop = step == max_iter or (_stop_rule_read_due(step)
+                                            and stopped())
     # the final post-update centers may beat every evaluated iterate
     # (classical convergence); re-evaluate both, return a consistent triple
-    labels_l, inertia_l = evaluate(centers)
-    labels_b, inertia_b = evaluate(best_centers)
-    last_wins = inertia_l < inertia_b
-    labels = rows_out([torch.where(lw[:, None], a, b) for lw, a, b in
-                       zip(spread(last_wins), labels_l, labels_b)])
-    inertia = torch.where(last_wins, inertia_l, inertia_b)
-    out_centers = torch.where(last_wins[:, None, None], centers, best_centers)
+    with _obs.span("qkmeans.finish"):
+        labels_l, inertia_l = evaluate(centers)
+        labels_b, inertia_b = evaluate(best_centers)
+        last_wins = inertia_l < inertia_b
+        labels = rows_out([torch.where(lw[:, None], a, b) for lw, a, b in
+                           zip(spread(last_wins), labels_l, labels_b)])
+        inertia = torch.where(last_wins, inertia_l, inertia_b)
+        out_centers = torch.where(last_wins[:, None, None], centers,
+                                  best_centers)
     history = {"inertia": inertia_tr, "center_shift": shift_tr}
     return labels, inertia, out_centers, it, history
 
@@ -591,8 +633,10 @@ def lloyd_restarts_from(generator, X, weights, x_sq_norms, centers0, **kw):
     labels, inertia, centers, n_iter, history = lloyd_single(
         generator, X, weights, centers0, x_sq_norms, **kw)
     best = torch.argmin(inertia)
-    return (labels[best], inertia[best], centers[best], n_iter[best],
-            {name: trace[best] for name, trace in history.items()})
+    # an index by a 0-d device tensor is read to the host, once per result
+    with _obs.span("sync.qkmeans.best"):
+        return (labels[best], inertia[best], centers[best], n_iter[best],
+                {name: trace[best] for name, trace in history.items()})
 
 
 def fused_init(generator, X, weights, *, n_init, init, n_clusters, quantum,
@@ -604,14 +648,16 @@ def fused_init(generator, X, weights, *, n_init, init, n_clusters, quantum,
     centered space. An array ``init`` (a (k, m) tensor in the data's
     space) is centered and runs as the one restart."""
     if stats is None:
-        stats = fit_prestats(X, quantum=quantum, mu_grid=mu_grid,
-                             sketch_idx=sketch_idx)
+        with _obs.span("qkmeans.stats"):
+            stats = fit_prestats(X, quantum=quantum, mu_grid=mu_grid,
+                                 sketch_idx=sketch_idx)
     if isinstance(init, torch.Tensor):
         return stats, (init.to(stats["mean"]) - stats["mean"])[None]
-    centers0 = _restart_inits(generator, stats["Xc"], weights, stats["xsq"],
-                              n_init=n_init, init=init,
-                              n_clusters=n_clusters,
-                              init_subsample=init_subsample)
+    with _obs.span("qkmeans.seed"):
+        centers0 = _restart_inits(generator, stats["Xc"], weights,
+                                  stats["xsq"], n_init=n_init, init=init,
+                                  n_clusters=n_clusters,
+                                  init_subsample=init_subsample)
     return stats, centers0
 
 
@@ -805,12 +851,12 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
         X = Xh if streamed else self._validated_X(X, device)
         self.n_features_in_ = X.shape[1]
         self._check_params(X)
-        with _obs.span("qkmeans.fit", n_samples=X.shape[0],
-                       n_features=X.shape[1],
-                       n_clusters=self.n_clusters) as sp:
+        with _obs.span("qkmeans.fit") as sp:
             seed, centers = self._fit_impl(X, sample_weight, device)
-            sp.set(backend=device.type, ingest=self.ingest_,
-                   n_iter=self.n_iter_)
+            if _obs.enabled():
+                sp.set(n_samples=X.shape[0], n_features=X.shape[1],
+                       n_clusters=self.n_clusters, backend=device.type,
+                       ingest=self.ingest_, n_iter=self.n_iter_)
         self._ledger_fit_entry(X)
         self._audit_fit_entry(X, seed, centers)
         return self
@@ -868,8 +914,10 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
             # the row sample's own generator, seeded apart from the fit's
             # (the JAX package folds the same constant into its key)
             rng_sk = np.random.default_rng([seed, SKETCH_SEED])
-            sk_idx = torch.as_tensor(
-                sample_indices(rng_sk, X.shape[0], rows), device=device)
+            idx = sample_indices(rng_sk, X.shape[0], rows)
+            # an upload from pageable memory waits for the device
+            with _obs.span("sync.qkmeans.sketch_rows"):
+                sk_idx = torch.as_tensor(idx, device=device)
         n_init = self._resolved_n_init(self.init)
         mu_grid = MU_GRID if quantum else ()
         stats = None
@@ -894,15 +942,17 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                 sketch = None
                 host = {name: t.cpu().numpy() for name, t in out.items()}
             else:
-                with _obs.span("qkmeans.fused_init", n_init=n_init,
-                               subsample=sub or None) as sp:
+                with _obs.span("qkmeans.fused_init") as sp:
+                    if _obs.enabled():
+                        sp.set(n_init=n_init, subsample=sub or None)
                     stats, centers0 = fused_init(
                         generator, X, w, n_init=n_init, init=init,
                         n_clusters=self.n_clusters, quantum=quantum,
                         mu_grid=mu_grid, init_subsample=sub,
                         sketch_idx=sk_idx, stats=stats)
-                    sp.sync(centers0)
-                with _obs.span("qkmeans.fused_fit", mode=mode):
+                with _obs.span("qkmeans.fused_fit") as sp:
+                    if _obs.enabled():
+                        sp.set(mode=mode)
                     out = fused_fit(
                         generator, stats, w, centers0, float(self.tol),
                         delta=delta, mode=mode, max_iter=self.max_iter,
@@ -912,18 +962,23 @@ class QKMeans(TransformerMixin, ClusterMixin, BaseEstimator):
                         compute_dtype=self._checked_compute_dtype())
                     # the fit's fetch, after every step was queued
                     sketch = out.pop("sketch", None)
-                    host = {name: t.cpu().numpy() for name, t in out.items()}
+                    with _obs.span("sync.qkmeans.fetch"):
+                        host = {name: t.cpu().numpy()
+                                for name, t in out.items()}
         n_iter = int(host["n_iter"])
         self._set_fit_results(host["labels"].astype(np.int32),
                               host["centers"].astype(np.float32),
                               float(host["inertia"]), n_iter,
                               host["inertia_trace"], host["shift_trace"])
         if quantum:
-            with _obs.span("qkmeans.quantum_stats", sketched=bool(rows),
-                           rows=rows or None):
+            with _obs.span("qkmeans.quantum_stats") as sp:
+                if _obs.enabled():
+                    sp.set(sketched=bool(rows), rows=rows or None)
                 if sketch is not None:
+                    with _obs.span("sync.qkmeans.quantum_stats"):
+                        comp = fetch_components(sketch)
                     sstats = finalize_components(
-                        fetch_components(sketch), n=X.shape[0],
+                        comp, n=X.shape[0],
                         m=X.shape[1], s=rows, mu_grid=MU_GRID,
                         delta_stat=delta_stat)
                     record_sketch_obs(sstats)

@@ -9,7 +9,8 @@ readers (``python -m sq_learn_tpu.obs audit|frontier``, its schema
 validator) read the port's artifacts.
 
 1. **Nothing happens while it is off.** Every instrumentation point is one
-   module-global read: :func:`span` returns the shared :data:`NULL_SPAN`,
+   module-global read: :func:`span` returns the shared :data:`NULL_SPAN`
+   (one more read: no profiler records, 4.),
    :func:`counter_add`/:func:`gauge` return at once. Nothing allocates,
    formats or touches a tensor, so no instrumentation point makes the
    host wait for the device.
@@ -17,10 +18,19 @@ validator) read the port's artifacts.
    closes the sink. ``SQ_OBS=1`` enables at import with the sink at
    ``SQ_OBS_PATH`` (default ``sq_obs.jsonl`` in the working directory).
 3. **Honest timing.** A span records host wall clock between enter and
-   exit. CUDA launches are asynchronous, so a span around them measures
-   the launches, not the work; ``sync=`` (or ``.sync(x)``) makes the exit
+   exit, and its start on the Unix-epoch nanosecond clock (``start_ns``).
+   CUDA launches are asynchronous, so a span around them measures the
+   launches, not the work; ``sync=`` (or ``.sync(x)``) makes the exit
    wait for the stream of the device a tensor lives on, and the record
    carries ``synced: true`` only then.
+4. **One span, two sinks.** While a ``torch.profiler`` records, every
+   span also opens a profiler range of its name, on the clock the
+   profiler stamps its host and device events with (``start_ns`` is that
+   clock too), with obs on or off; with obs off that range is all it
+   does. ``sync=`` is not honoured then: the device trace times the
+   device, and a traced run keeps the overlap it has untraced. The
+   recorder never imports torch: it reads the profiler's flag once torch
+   is loaded.
 
 Record envelope: ``{"v": 11, "schema_version": 11, "ts": <unix seconds>,
 "type": <record type>}`` plus the fields of each type
@@ -86,6 +96,44 @@ class _NullSpan:
 
 NULL_SPAN = _NullSpan()
 
+#: ``torch.autograd.profiler`` once torch is loaded (its module global
+#: ``_is_profiler_enabled`` says whether a profiler records), and the
+#: profiler range a span opens then
+_profiler = None
+_range = None
+
+
+def _bind_profiler():
+    """Bind :data:`_profiler` and :data:`_range` once torch is in
+    ``sys.modules``; returns the profiler module, or None before then."""
+    global _profiler, _range
+    mod = sys.modules.get("torch.autograd.profiler")
+    if mod is not None:
+        # a C++ range, a tenth of record_function's cost on the host
+        _range = getattr(sys.modules["torch"]._C._profiler,
+                         "_RecordFunctionFast", mod.record_function)
+        _profiler = mod
+    return mod
+
+
+class _Range(_NullSpan):
+    """The span while a profiler records and obs is off: a profiler range
+    of the span's name and no record; ``set`` and ``sync`` are the null
+    span's."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name):
+        self._rf = _range(name)
+
+    def __enter__(self):
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        return False
+
 
 def _synchronize(value):
     """Wait for the current stream of the CUDA device each tensor in
@@ -101,17 +149,19 @@ def _synchronize(value):
 class Span:
     """One timed scope. Created by :func:`span`; closes into a 'span'
     record with nesting metadata (depth, parent seq) from a per-thread
-    stack."""
+    stack. ``traced`` (a profiler records) opens a profiler range of the
+    same name as well, and leaves ``sync`` unhonoured."""
 
     __slots__ = ("_rec", "name", "attrs", "_sync", "_t0", "_seq", "_parent",
-                 "_depth", "_synced")
+                 "_depth", "_synced", "_rf", "_start_ns")
 
-    def __init__(self, rec, name, sync, attrs):
+    def __init__(self, rec, name, sync, attrs, traced=False):
         self._rec = rec
         self.name = name
         self.attrs = attrs
         self._sync = sync
         self._synced = False
+        self._rf = _range(name) if traced else None
 
     def set(self, **attrs):
         """Attach attributes discovered mid-scope (resolved solver, engine,
@@ -133,20 +183,26 @@ class Span:
         self._depth = len(stack)
         self._seq = self._rec._next_seq()
         stack.append(self)
+        self._start_ns = time.time_ns()
+        if self._rf is not None:
+            self._rf.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        if self._sync is not None:
+        if self._sync is not None and self._rf is None:
             _synchronize(self._sync)
             self._synced = True
         dur = time.perf_counter() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
         stack = getattr(_tls, "span_stack", ())
         if stack and stack[-1] is self:
             stack.pop()
         rec = {"type": "span", "name": self.name, "seq": self._seq,
-               "dur_s": round(dur, 6), "depth": self._depth,
-               "parent": self._parent, "synced": self._synced}
+               "dur_s": round(dur, 6), "start_ns": self._start_ns,
+               "depth": self._depth, "parent": self._parent,
+               "synced": self._synced}
         if exc_type is not None:
             rec["error"] = exc_type.__name__
         if self.attrs:
@@ -458,11 +514,16 @@ def set_generation(generation):
 
 def span(name, sync=None, **attrs):
     """Open a named timed scope. Disabled mode returns the shared no-op
-    :data:`NULL_SPAN` (one global read, zero allocation)."""
+    :data:`NULL_SPAN` (two global reads and the profiler's flag, zero
+    allocation); while a profiler records, a range of the same name
+    (module docstring, 4)."""
     rec = _active
+    prof = _profiler or _bind_profiler()
+    if prof is None or not prof._is_profiler_enabled:
+        return NULL_SPAN if rec is None else Span(rec, name, sync, attrs)
     if rec is None:
-        return NULL_SPAN
-    return Span(rec, name, sync, attrs)
+        return _Range(name)
+    return Span(rec, name, sync, attrs, traced=True)
 
 
 def record_span(name, dur_s, **attrs):

@@ -14,7 +14,8 @@ meta       pid (int), schema (int); optional segment (int — the ordinal
            of a rotated sink's segment, ``SQ_OBS_ROTATE_BYTES``)
 span       name (str), seq (int), dur_s (number ≥ 0), depth (int ≥ 0),
            parent (int | null), synced (bool); optional attrs (object),
-           error (str)
+           error (str), start_ns (int ≥ 0 — the enter time on the
+           Unix-epoch nanosecond clock the profiler's trace shares)
 counter    name (str), value (number), delta (number)
 gauge      name (str), value (any JSON scalar); optional attrs (object)
 ledger     estimator (str), step (str), queries (object: str → number),
@@ -211,6 +212,9 @@ def validate_record(rec):
                "span.synced bool")
         _check(isinstance(rec.get("attrs", {}), dict), errors,
                "span.attrs object")
+        if "start_ns" in rec:
+            _check(_int(rec["start_ns"]) and rec["start_ns"] >= 0, errors,
+                   "span.start_ns non-negative int")
     elif t == "counter":
         _check(isinstance(rec.get("name"), str), errors, "counter.name str")
         _check(isinstance(rec.get("value"), _NUM), errors,

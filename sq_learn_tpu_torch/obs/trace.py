@@ -1,7 +1,9 @@
 """Render obs JSONL into Chrome trace-event JSON, viewable in Perfetto
 (counterpart of ``sq_learn_tpu/obs/trace.py``).
 
-Spans become duration events, counters and gauges counter tracks, and the
+Spans become duration events, placed at their ``start_ns`` where the
+record has one (the clock of a ``torch.profiler`` trace of the same run,
+which the view then overlays), counters and gauges counter tracks, and the
 discrete records (faults, breaker transitions, ledger entries, guarantee
 draws, trade-off points, storage ``io`` aggregates, and the JAX package's
 other types when it wrote the file) instant events on lanes of their own.
@@ -55,6 +57,10 @@ _TENANT_TYPES = ("slo", "budget", "alert", "control")
 
 #: first tid of the dynamically-allocated per-tenant lanes
 _TENANT_TID0 = 17
+
+
+def _int(v):
+    return isinstance(v, int) and not isinstance(v, bool)
 
 
 def _args_of(rec, drop=("v", "schema_version", "ts", "type")):
@@ -169,10 +175,13 @@ def to_chrome_trace(record_groups):
                     continue
                 tid, lane = _LANES["span"]
                 name_lane(pid, tid, lane)
+                start = rec.get("start_ns")
                 events.append({
                     "ph": "X", "cat": "span", "name": str(rec.get("name")),
-                    # ts is recorded at span CLOSE: start = end - duration
-                    "ts": us - dur * 1e6, "dur": dur * 1e6,
+                    # at its recorded start, on the profiler's clock; else
+                    # from ts, recorded at CLOSE: start = end - duration
+                    "ts": (start / 1e3 if _int(start) else us - dur * 1e6),
+                    "dur": dur * 1e6,
                     "pid": pid, "tid": tid, "args": _args_of(rec),
                 })
             elif t in ("counter", "gauge"):

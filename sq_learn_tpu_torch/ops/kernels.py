@@ -11,6 +11,9 @@ kernel (``csrc/lloyd.cu``, ``csrc/argkmin.cu``, built at first use, see
 (:func:`lloyd_step_reference`, :func:`argkmin_reference`).
 ``lloyd_step.launches`` and ``argkmin.launches`` count kernel launches;
 ``argkmin.by_shape`` counts the search's launches by (width m, k).
+Each call is one ``kernels.lloyd_step`` or ``kernels.argkmin`` span
+(:func:`sq_learn_tpu_torch.obs.span`): under a ``torch.profiler`` a range
+of that name holds the call's launches.
 """
 
 import collections
@@ -20,6 +23,7 @@ import numbers
 
 import torch
 
+from .. import obs as _obs
 from . import _build
 
 _BIG = 1e30  # masking logit outside the δ-window (the TPU kernel's _BIG)
@@ -179,49 +183,50 @@ def lloyd_step(X, weights, x_sq_norms, centers, *, gumbel=None, window=0.0,
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (and counts it in ``lloyd_step.launches``) or raises.
     """
-    window = float(window)
-    n, m, k, R = _check_lloyd_args(X, weights, x_sq_norms, centers, gumbel,
-                                   window, active)
-    if X.device.type == "cpu":
-        return lloyd_step_reference(X, weights, x_sq_norms, centers,
-                                    gumbel=gumbel, window=window)
-    if X.device.type != "cuda":
-        raise ValueError(f"lloyd_step runs on cpu or cuda, not {X.device}")
-    X, weights, x_sq_norms = (X.contiguous(), weights.contiguous(),
-                              x_sq_norms.contiguous())
-    C = centers.to(X.dtype).float().contiguous()
-    csq = torch.sum(centers * centers, dim=-1).contiguous()
-    if gumbel is not None:
-        gumbel = gumbel.contiguous()
-    act = None if active is None else active.to(torch.int32).contiguous()
-    lib = _lib()
-    dev = X.device
-    splits, rows = launch_plan(n, m, k, R, _n_sms(dev), lloyd_tiles())
-    # the kernel writes every output, zeros for an inactive restart
-    labels = torch.empty((R, n), dtype=torch.int32, device=dev)
-    min_d2 = torch.empty((R, n), dtype=torch.float32, device=dev)
-    sums = torch.empty((R, k, m), dtype=torch.float32, device=dev)
-    counts = torch.empty((R, k), dtype=torch.float32, device=dev)
-    inertia = torch.empty((R,), dtype=torch.float32, device=dev)
-    work = torch.empty(lib.sq_lloyd_workspace_bytes(n, m, k, R, splits),
-                       dtype=torch.uint8, device=dev)
+    with _obs.span("kernels.lloyd_step"):
+        window = float(window)
+        n, m, k, R = _check_lloyd_args(X, weights, x_sq_norms, centers,
+                                       gumbel, window, active)
+        if X.device.type == "cpu":
+            return lloyd_step_reference(X, weights, x_sq_norms, centers,
+                                        gumbel=gumbel, window=window)
+        if X.device.type != "cuda":
+            raise ValueError(f"lloyd_step runs on cpu or cuda, not {X.device}")
+        X, weights, x_sq_norms = (X.contiguous(), weights.contiguous(),
+                                  x_sq_norms.contiguous())
+        C = centers.to(X.dtype).float().contiguous()
+        csq = torch.sum(centers * centers, dim=-1).contiguous()
+        if gumbel is not None:
+            gumbel = gumbel.contiguous()
+        act = None if active is None else active.to(torch.int32).contiguous()
+        lib = _lib()
+        dev = X.device
+        splits, rows = launch_plan(n, m, k, R, _n_sms(dev), lloyd_tiles())
+        # the kernel writes every output, zeros for an inactive restart
+        labels = torch.empty((R, n), dtype=torch.int32, device=dev)
+        min_d2 = torch.empty((R, n), dtype=torch.float32, device=dev)
+        sums = torch.empty((R, k, m), dtype=torch.float32, device=dev)
+        counts = torch.empty((R, k), dtype=torch.float32, device=dev)
+        inertia = torch.empty((R,), dtype=torch.float32, device=dev)
+        work = torch.empty(lib.sq_lloyd_workspace_bytes(n, m, k, R, splits),
+                           dtype=torch.uint8, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sq_lloyd_step(
-            0 if X.dtype == torch.float32 else 1, ptr(X), ptr(weights),
-            ptr(x_sq_norms), ptr(C), ptr(csq), ptr(gumbel), ptr(act),
-            window, n, m, k, R, splits, rows, ptr(labels), ptr(min_d2),
-            ptr(work), ptr(sums), ptr(counts), ptr(inertia), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"lloyd kernel launch failed: "
-            f"{lib.sq_cuda_error_string(err).decode()} (cudaError {err})")
-    lloyd_step.launches += 1
-    return labels, min_d2, sums, counts, inertia
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.sq_lloyd_step(
+                0 if X.dtype == torch.float32 else 1, ptr(X), ptr(weights),
+                ptr(x_sq_norms), ptr(C), ptr(csq), ptr(gumbel), ptr(act),
+                window, n, m, k, R, splits, rows, ptr(labels), ptr(min_d2),
+                ptr(work), ptr(sums), ptr(counts), ptr(inertia), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"lloyd kernel launch failed: "
+                f"{lib.sq_cuda_error_string(err).decode()} (cudaError {err})")
+        lloyd_step.launches += 1
+        return labels, min_d2, sums, counts, inertia
 
 
 lloyd_step.launches = 0
@@ -414,39 +419,41 @@ def argkmin(X_train, x_sq_train, X_query, k):
     ``argkmin.by_shape[(m, k)]``) or raises. Returns idx (nq, k) int32
     and d2 (nq, k) float32.
     """
-    nt, nq, m, k = _check_argkmin_args(X_train, x_sq_train, X_query, k)
-    dev = X_train.device
-    if dev.type == "cpu":
-        return argkmin_reference(X_train, x_sq_train, X_query, k)
-    if dev.type != "cuda":
-        raise ValueError(f"argkmin runs on cpu or cuda, not {dev}")
-    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    d2 = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    if nq == 0:
+    with _obs.span("kernels.argkmin"):
+        nt, nq, m, k = _check_argkmin_args(X_train, x_sq_train, X_query, k)
+        dev = X_train.device
+        if dev.type == "cpu":
+            return argkmin_reference(X_train, x_sq_train, X_query, k)
+        if dev.type != "cuda":
+            raise ValueError(f"argkmin runs on cpu or cuda, not {dev}")
+        idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
+        d2 = torch.empty((nq, k), dtype=torch.float32, device=dev)
+        if nq == 0:
+            return idx, d2
+        lib = _argkmin_lib()
+        splits, rows = argkmin_plan(nq, nt, k, _n_sms(dev),
+                                    argkmin_tiles(k, dev))
+        part_d = torch.empty(splits * nq * k, dtype=torch.float32, device=dev)
+        part_i = torch.empty(splits * nq * k, dtype=torch.int32, device=dev)
+        buf_d = buf_i = None
+        if splits > 1:
+            buf_d = torch.empty(2 * nq * k, dtype=torch.float32, device=dev)
+            buf_i = torch.empty(2 * nq * k, dtype=torch.int32, device=dev)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.sq_argkmin(
+                ptr(X_train), ptr(x_sq_train), ptr(X_query), nt, nq, m, k,
+                splits, rows, ptr(part_d), ptr(part_i), ptr(buf_d), ptr(buf_i),
+                ptr(idx), ptr(d2), stream)
+        if err != 0:
+            raise _argkmin_error(lib, "kernel launch failed", err)
+        argkmin.launches += 1
+        argkmin.by_shape[(m, k)] += 1
         return idx, d2
-    lib = _argkmin_lib()
-    splits, rows = argkmin_plan(nq, nt, k, _n_sms(dev), argkmin_tiles(k, dev))
-    part_d = torch.empty(splits * nq * k, dtype=torch.float32, device=dev)
-    part_i = torch.empty(splits * nq * k, dtype=torch.int32, device=dev)
-    buf_d = buf_i = None
-    if splits > 1:
-        buf_d = torch.empty(2 * nq * k, dtype=torch.float32, device=dev)
-        buf_i = torch.empty(2 * nq * k, dtype=torch.int32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sq_argkmin(
-            ptr(X_train), ptr(x_sq_train), ptr(X_query), nt, nq, m, k,
-            splits, rows, ptr(part_d), ptr(part_i), ptr(buf_d), ptr(buf_i),
-            ptr(idx), ptr(d2), stream)
-    if err != 0:
-        raise _argkmin_error(lib, "kernel launch failed", err)
-    argkmin.launches += 1
-    argkmin.by_shape[(m, k)] += 1
-    return idx, d2
 
 
 argkmin.launches = 0

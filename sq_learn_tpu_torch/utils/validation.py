@@ -15,7 +15,8 @@ package routes every accelerator upload. The streamed routes validate on
 the host (:func:`host_ingest`, which also says whether the input passes
 the cap) and check values per tile. ``set_config(assume_finite=True)``
 turns the value check off everywhere: on the card it is a reduction and a
-host sync per input.
+host sync per input, the ``sync.validation`` span
+(:func:`sq_learn_tpu_torch.obs.span`).
 """
 
 import numbers
@@ -24,6 +25,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from .._config import get_config, validated_float_dtype
 
 
@@ -73,9 +75,11 @@ def check_array(X, *, dtype="float", ensure_2d=True, allow_nd=False,
             out = torch.from_numpy(Xh)
     if copy and _shares_memory(out, X):
         out = out.clone()
-    if (checks_finite(force_finite) and out.is_floating_point()
-            and not bool(torch.isfinite(out).all())):
-        raise ValueError("Input contains NaN or infinity.")
+    if checks_finite(force_finite) and out.is_floating_point():
+        with _obs.span("sync.validation"):
+            finite = bool(torch.isfinite(out).all())
+        if not finite:
+            raise ValueError("Input contains NaN or infinity.")
     _check_min(out, ensure_2d, ensure_min_samples, ensure_min_features)
     return out.contiguous()
 

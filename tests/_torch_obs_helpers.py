@@ -24,12 +24,44 @@ JAX_ONLY_SPANS = {
     "xla.capture": "XLA's cost analysis has no torch counterpart",
 }
 
+_JIT = ("the JAX package runs this under jit, where a span records "
+        "nothing: ")
+_SYNC = ("a read of the device by the host, which the JAX package's jitted "
+         "route makes at its one fetch and does not time: ")
+
 #: spans the port writes where the JAX accelerator route writes none
 PORT_ONLY_SPANS = {
     "qkmeans.quantum_stats": (
         "the JAX package times the runtime statistics' fetch only on its "
         "host route (qkmeans.py:1638, :1648); the port fetches them after "
         "the Lloyd loop on its one route and times that fetch and fold"),
+    "qkmeans.stats": _JIT + "the pre-fit statistics inside fused_init",
+    "qkmeans.seed": _JIT + "every restart's k-means++ starts",
+    "qkmeans.lloyd": _JIT + "the Lloyd loop (a while_loop under vmap)",
+    "qkmeans.lloyd_iter": _JIT + "one step of the Lloyd loop",
+    "qkmeans.gumbel": _JIT + "the delta-window's Gumbel noise of a step",
+    "qkmeans.e_step": _JIT + "the plain or IPE E-step of a step",
+    "qkmeans.relocate": _JIT + "the empty-cluster relocation of a step",
+    "qkmeans.update": _JIT + "a step's center update and bookkeeping",
+    "qkmeans.finish": _JIT + "the last and best centers' re-evaluation",
+    "kernels.lloyd_step": _JIT + "the Pallas Lloyd kernel's call",
+    "kernels.argkmin": _JIT + "the Pallas search kernel's call",
+    "knn.predict": ("the JAX package spans the search alone; the port "
+                    "spans predict_proba's body around it"),
+    "knn.validate": ("the JAX package does not span its query "
+                     "validation; the port's reads the device (a sync)"),
+    "knn.vote": ("the JAX package does not span its host vote; the port's "
+                 "is the predict's host work after the fetch"),
+    "sync.validation": _SYNC + "check_array's finite check",
+    "sync.qkmeans.stop_rule": _SYNC + "the Lloyd loop's stop rule",
+    "sync.qkmeans.stats": _SYNC + "the status check of eigh in the stats",
+    "sync.qkmeans.sketch_rows": (
+        "an upload from pageable memory, which waits for the device: the "
+        "sketch's row sample (the JAX package's is drawn under jit)"),
+    "sync.qkmeans.best": _SYNC + "the best restart's index",
+    "sync.qkmeans.fetch": _SYNC + "the fit's results",
+    "sync.qkmeans.quantum_stats": _SYNC + "the sketched statistics",
+    "sync.knn.fetch": _SYNC + "the neighbor lists for the vote",
 }
 
 

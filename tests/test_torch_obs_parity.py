@@ -211,7 +211,8 @@ def test_qlssvc_fit_and_predict(lowrank, error_type, monkeypatch):
                          tol_rtol={"qlssvc.noisy_p": 1e-4},
                          drawn_tol=drawn)
     assert len(prec.guarantee_records) == 128  # two calls of 64 draws
-    assert span_names(prec) == {"qlssvc.fit", "qlssvc.predict"}
+    assert span_names(prec) == {"qlssvc.fit", "qlssvc.predict",
+                                "sync.validation"}
 
 
 def test_knn_predict(lowrank, monkeypatch):
@@ -223,7 +224,7 @@ def test_knn_predict(lowrank, monkeypatch):
             X[:300], y[:300]).predict(X[300:]), monkeypatch)
     (entry,) = prec.ledger_entries
     assert entry["attrs"]["engine"] == "argkmin_reference"
-    (span,) = prec.spans
+    (span,) = [s for s in prec.spans if s["name"] == "knn.search"]
     assert span["attrs"]["engine"] == "argkmin_reference"
     assert span["attrs"]["n_queries"] == 100 and span["attrs"]["k"] == 5
 
@@ -249,7 +250,8 @@ def test_minibatch_fit_and_partial_fit(lowrank, ipe, monkeypatch):
         lambda: JaxMiniBatch(**args).fit(X).partial_fit(X[:100]),
         lambda: MiniBatchQKMeans(**args).fit(X).partial_fit(X[:100]),
         monkeypatch)
-    assert span_names(prec) == {"minibatch.fit", "minibatch.partial_fit"}
+    assert span_names(prec) == {"minibatch.fit", "minibatch.partial_fit",
+                                "sync.validation"}
     assert prec.guarantee_records == []
 
 

@@ -2,9 +2,12 @@
 the ``trace`` subcommand, against the JAX package's.
 
 Both renderers turn the same JSONL into the same trace-event dict (equal
-dicts, no tolerance), whichever package wrote the file; the CLI writes
-valid trace JSON and runs without torch; ``SQ_OBS_TRACE`` renders a run
-when it closes; several files merge onto pid lanes.
+dicts, no tolerance) when the JAX package wrote the file; for the port's,
+whose spans carry their start on the profiler's clock (``start_ns``), the
+same events with each span at that start, within a millisecond of where
+the JAX renderer puts it (the close stamp less the length). The CLI
+writes valid trace JSON and runs without torch; ``SQ_OBS_TRACE`` renders
+a run when it closes; several files merge onto pid lanes.
 """
 
 import json
@@ -63,13 +66,40 @@ def _run(package, tmp_path, name):
     return path
 
 
+def _assert_same_trace(ours, theirs):
+    """Equal traces, but that the port places each span carrying a
+    ``start_ns`` there: within 1 ms of the JAX renderer's start."""
+    def key(e):
+        return json.dumps(e, sort_keys=True)
+
+    def placed(doc):
+        out, starts = [], {}
+        for e in doc["traceEvents"]:
+            if e.get("cat") == "span" and "start_ns" in e["args"]:
+                starts[(e["pid"], e["args"]["seq"])] = (
+                    e["ts"], e["args"]["start_ns"])
+                e = {k: v for k, v in e.items() if k != "ts"}
+            out.append(e)
+        return sorted(out, key=key), starts
+
+    (a, starts), (b, jstarts) = placed(ours), placed(theirs)
+    assert a == b
+    assert starts.keys() == jstarts.keys()
+    for span, (ts, start_ns) in starts.items():
+        assert ts == start_ns / 1e3
+        assert abs(ts - jstarts[span][0]) <= 1e3, span
+    return starts
+
+
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_renderers_agree_on_an_artifact(tmp_path, writer):
     path = _run(writer, tmp_path, writer)
     records = trace.load_jsonl(path)
     assert records == jtrace.load_jsonl(path)
     ours = trace.to_chrome_trace([("run", records)])
-    assert ours == jtrace.to_chrome_trace([("run", records)])
+    starts = _assert_same_trace(ours,
+                                jtrace.to_chrome_trace([("run", records)]))
+    assert bool(starts) == (writer == "port")
     names = {e["name"] for e in ours["traceEvents"]}
     assert {"outer", "inner", "c", "g", "fault:read_fail"} <= names
     assert "text_gauge" not in names  # no counter track for a string
@@ -87,8 +117,8 @@ def test_files_merge_onto_pid_lanes(tmp_path):
     a, b = _run("port", tmp_path, "a"), _run("jax", tmp_path, "b")
     out = str(tmp_path / "merged.json")
     doc = trace.write_trace([a, b], out)
-    assert doc == jtrace.to_chrome_trace(
-        [(os.path.basename(p), jtrace.load_jsonl(p)) for p in (a, b)])
+    assert _assert_same_trace(doc, jtrace.to_chrome_trace(
+        [(os.path.basename(p), jtrace.load_jsonl(p)) for p in (a, b)]))
     with open(out) as fh:
         assert json.load(fh) == doc
     procs = [e for e in doc["traceEvents"] if e["name"] == "process_name"]

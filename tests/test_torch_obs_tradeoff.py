@@ -360,8 +360,10 @@ def test_minibatch_is_bit_equal_with_obs_on():
         np.testing.assert_array_equal(a, b)
     # the steps run in the JAX package's jit: no draw is audited
     assert rec.guarantee_records == []
-    assert [s["name"] for s in rec.spans] == ["minibatch.fit",
-                                             "minibatch.partial_fit"]
+    # each entry point validates its input first (a read of the device)
+    assert [s["name"] for s in rec.spans] == [
+        "sync.validation", "minibatch.fit", "sync.validation",
+        "minibatch.partial_fit"]
 
 
 def test_nothing_is_recorded_with_obs_off(tmp_path, monkeypatch):
